@@ -1,0 +1,74 @@
+"""State carried across (testudo_tpu_torch/convert.py): the JAX package's G1
+pytrees, packed batches and scalar limbs go into the port and back exactly,
+and both packages decode them to the same host points."""
+import numpy as np
+import pytest
+import torch
+
+from testudo_tpu.curves import host_curve as jhc
+from testudo_tpu.tpu import curve as jc
+from testudo_tpu.tpu import pallas_curve as pcu
+from testudo_tpu.tpu.field import FR as JFR
+from testudo_tpu_torch import convert
+from testudo_tpu_torch.device import curve as tc
+from testudo_tpu_torch.device import msm as tmsm
+from testudo_tpu_torch.device.packed_curve import G1P
+from testudo_tpu_torch.fields.bls12_377 import R
+
+RNG = np.random.default_rng(61)
+G = jhc.g1_generator()
+PTS = [jhc.g1_mul(G, int(k)) for k in RNG.integers(1, 1 << 62, size=5)] + [None]
+
+
+def test_points_round_trip_and_decode_alike():
+    ref = jc.g1_from_affine_host(PTS)
+    ref_np = tuple(np.asarray(c) for c in ref)
+    got = convert.points_from_reference(ref_np, device="cpu")
+    assert all(c.dtype == torch.int32 and c.shape == (6, 24) for c in got)
+    assert tc.g1_to_affine_host(got) == PTS == jc.g1_to_affine_host(ref)
+    back = convert.points_to_reference(got)
+    for b, r in zip(back, ref_np):
+        assert b.dtype == np.uint32 and np.array_equal(b, r)
+    # a point made by the port reads the same in the JAX package
+    own = tc.g1_add(got, got)
+    assert jc.g1_to_affine_host(convert.points_to_reference(own)) == [
+        jhc.g1_add(p, p) for p in PTS]
+
+
+def test_packed_round_trip():
+    ref = np.asarray(pcu.G1P.pack(jc.g1_from_affine_host(PTS)))
+    got = convert.packed_from_reference(ref, device="cpu")
+    assert got.dtype == torch.int32 and got.shape == (72, 6)
+    assert tc.g1_to_affine_host(G1P.unpack(got)) == PTS
+    back = convert.packed_to_reference(got)
+    assert back.dtype == np.uint32 and np.array_equal(back, ref)
+
+
+def test_scalars_round_trip_and_drive_an_msm():
+    vals = [0, 1, R - 1, 12345678901234567890, 7, 3]
+    ref = JFR.to_limbs(vals)  # canonical uint32 limbs, as the JAX MSM takes them
+    got = convert.scalars_from_reference(ref, device="cpu")
+    assert got.dtype == torch.int32 and got.shape == (6, 16)
+    assert np.array_equal(convert.scalars_to_reference(got), ref)
+    pts = convert.points_from_reference(
+        tuple(np.asarray(c) for c in jc.g1_from_affine_host(PTS)), device="cpu")
+    assert tmsm.msm_g1(pts, got, device="cpu") == jhc.g1_msm(PTS, vals)
+
+
+@pytest.mark.parametrize("fault", ["range", "width", "dtype", "triple"])
+def test_conversions_reject_what_is_not_limbs(fault):
+    good = np.zeros((4, 24), dtype=np.uint32)
+    if fault == "range":
+        bad = good.copy()
+        bad[1, 3] = 1 << 16
+        with pytest.raises(ValueError):
+            convert.points_from_reference((bad, good, good), device="cpu")
+    elif fault == "width":
+        with pytest.raises(ValueError):
+            convert.scalars_from_reference(good, device="cpu")
+    elif fault == "dtype":
+        with pytest.raises(TypeError):
+            convert.packed_from_reference(np.zeros((72, 2), dtype=np.float32), device="cpu")
+    else:
+        with pytest.raises(ValueError):
+            convert.points_from_reference((good, good), device="cpu")

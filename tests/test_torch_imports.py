@@ -1,0 +1,82 @@
+"""The port stands on torch, numpy and the standard library alone: importing
+every module of `testudo_tpu_torch` and `chip_smoke` pulls in neither JAX nor
+the JAX package, and the entry points refuse to run without a GPU unless the
+caller asks for the CPU."""
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = """
+import importlib, pkgutil, sys
+import testudo_tpu_torch
+names = ["testudo_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(testudo_tpu_torch.__path__, "testudo_tpu_torch.")
+]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+bad = sorted(
+    m for m in sys.modules
+    if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+    or m == "testudo_tpu" or m.startswith("testudo_tpu.")
+)
+print("MODULES", len(names))
+print("BAD", bad)
+"""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    lines = dict(l.split(" ", 1) for l in out.stdout.strip().splitlines())
+    assert int(lines["MODULES"]) >= 12
+    assert lines["BAD"] == "[]"
+
+
+def test_no_port_source_mentions_the_jax_imports():
+    pkg = os.path.join(REPO, "testudo_tpu_torch")
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(pkg):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    for path in files:
+        for line in open(path).read().splitlines():
+            stripped = line.strip()
+            assert not stripped.startswith(("import jax", "from jax")), path
+            assert not stripped.startswith(("import testudo_tpu ", "from testudo_tpu ", "from testudo_tpu.")), path
+
+
+def test_entry_points_default_to_cuda_and_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device works")
+    from testudo_tpu_torch.curves import host_curve as hc
+    from testudo_tpu_torch.device import curve as tc
+    from testudo_tpu_torch.device import msm
+
+    G = hc.g1_generator()
+    with pytest.raises((RuntimeError, AssertionError)):
+        tc.g1_from_affine_host([G])
+    with pytest.raises((RuntimeError, AssertionError)):
+        tc.g1_identity((2,))
+    pts = tc.g1_from_affine_host([G, G], device="cpu")
+    with pytest.raises((RuntimeError, AssertionError)):
+        msm.msm_g1(pts, [1, 2])
+    assert msm.msm_g1(pts, [1, 2], device="cpu") == hc.g1_mul(G, 3)
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    out = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

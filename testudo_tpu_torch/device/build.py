@@ -1,0 +1,162 @@
+"""Builds and loads the hand-written CUDA kernels (csrc/*.cu).
+
+No counterpart in the JAX package: Pallas kernels are compiled by JAX.  Here
+`nvcc` compiles each source for sm_90a (all sources at once, one process
+each), the objects are linked into one shared library with a plain C
+interface, and `ctypes` loads it.  The build runs at the first launch of any
+kernel, never at import, into `testudo_tpu_torch/_build/<hash of the
+sources>/`, which `.gitignore` lists.  A failed build raises; nothing falls
+back.
+
+`launch(name, *args)` is the one place a kernel is started: it calls the C
+launcher on PyTorch's current stream, raises on a non-zero CUDA error code
+and adds one to `LAUNCHES[name]`.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
+SOURCES = ("mont_mul.cu", "ec_ops.cu", "ladder.cu", "bucket.cu")
+HEADERS = ("fp.cuh", "g1.cuh", "launch.cuh")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_long
+# C launcher of each kernel: (symbol, argtypes).  Pointers and the stream are
+# c_void_p: without argtypes ctypes would cut them to 32 bits.
+_SIGNATURES = {
+    "mont_mul": ("testudo_mont_mul", (_P, _P, _P, _I, _L, _P)),
+    "add2": ("testudo_add2", (_P, _P, _P, _L, _P)),
+    "step": ("testudo_step", (_P, _P, _P, _P, _P, _L, _P)),
+    "scan2b": ("testudo_scan2b", (_P, _P, _P, _P, _P, _L, _P)),
+    "ladder": ("testudo_ladder", (_P, _P, _P, _I, _L, _P)),
+    "bucket": ("testudo_bucket", (_P, _P, _P, _P, _P, _L, _I, _P)),
+}
+
+# Launches per kernel since the last reset_launches().  The mixed and the
+# general bucket kernel are two instantiations of one template and are
+# counted apart.
+LAUNCHES = {name: 0 for name in (*_SIGNATURES, "bucket_mixed")}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def find_nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in (*HEADERS, *SOURCES):
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile csrc/*.cu (in parallel) and link them; returns the library's
+    path.  Reuses a finished build of the same sources."""
+    out_dir = BUILD_ROOT / _source_hash()
+    lib_path = out_dir / "libtestudo_kernels.so"
+    if lib_path.exists():
+        return lib_path
+    nvcc = find_nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    t0 = time.time()
+    procs = []
+    for src in SOURCES:
+        obj = out_dir / (src + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(CSRC / src), "-o", str(obj)]
+        procs.append((src, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for src, obj, proc in procs:
+        out, _ = proc.communicate()
+        log.append(f"== {src} (exit {proc.returncode})\n{out}")
+        if proc.returncode != 0:
+            failed.append(src)
+    (out_dir / "build.log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed for " + ", ".join(failed) + "\n" + "\n".join(log))
+    tmp = out_dir / f"libtestudo_kernels.{os.getpid()}.so"
+    link = subprocess.run(
+        [nvcc, "-shared", "-o", str(tmp), *[str(o) for _, o, _ in procs]],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    if link.returncode != 0:
+        raise RuntimeError("linking the kernels failed\n" + link.stdout)
+    os.replace(tmp, lib_path)
+    (out_dir / "build_seconds.txt").write_text(f"{time.time() - t0:.1f}\n")
+    return lib_path
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    lib = ctypes.CDLL(str(build()))
+    for symbol, argtypes in _SIGNATURES.values():
+        fn = getattr(lib, symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def build_report() -> dict:
+    """Seconds the build took and the compiler's per-kernel resource lines
+    (registers, spills), for the finished build of the present sources."""
+    out_dir = BUILD_ROOT / _source_hash()
+    log = (out_dir / "build.log").read_text()
+    secs = (out_dir / "build_seconds.txt").read_text().strip()
+    usage = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+    return {"seconds": float(secs), "ptxas": usage}
+
+
+def require_cuda_int32(name: str, **tensors: torch.Tensor) -> None:
+    """The kernels take contiguous int32 CUDA tensors on one device."""
+    device = None
+    for arg, t in tensors.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name}: {arg} must be a tensor")
+        if not t.is_cuda:
+            raise ValueError(f"{name}: {arg} must be a CUDA tensor")
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: {arg} must be int32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {arg} must be contiguous")
+        if device is None:
+            device = t.device
+        elif t.device != device:
+            raise ValueError(f"{name}: tensors lie on different devices")
+
+
+def launch(name: str, *args, counted_as: str | None = None) -> None:
+    """Start kernel `name` on the current stream of the current device."""
+    symbol, _ = _SIGNATURES[name]
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = getattr(library(), symbol)(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"kernel {name}: launch failed with CUDA error {rc}")
+    LAUNCHES[counted_as or name] += 1
