@@ -1,11 +1,12 @@
 """The CUDA sources' arithmetic where there is no GPU.
 
-testudo_tpu_torch/csrc/fp.cuh and g1.cuh also compile as plain C++;
+testudo_tpu_torch/csrc/fp.cuh, fp2.cuh and ec.cuh also compile as plain C++;
 csrc/host_check.cpp loops the kernels' per-lane bodies over the lanes on the
-CPU.  Built here with the host C++ compiler (skipped where there is none),
-each body is held against the plain PyTorch version of its kernel: exact
-equality.  The constant tables of fp.cuh are checked against the fields
-module, and the build module's source list against the directory."""
+CPU, for G1 (ncomp 1) and G2 (ncomp 2).  Built here with the host C++
+compiler (skipped where there is none), each body is held against the plain
+PyTorch version of its kernel: exact equality.  The constant tables of fp.cuh
+and fp2.cuh are checked against the fields and curve modules, and the build
+module's source list against the directory."""
 import ctypes
 import re
 import shutil
@@ -19,14 +20,18 @@ from testudo_tpu_torch.curves import host_curve as hc
 from testudo_tpu_torch.device import build, packed_field
 from testudo_tpu_torch.device import curve as tc
 from testudo_tpu_torch.device.field import FQ, FR
-from testudo_tpu_torch.device.packed_curve import G1P
+from testudo_tpu_torch.device.packed_curve import G1P, G2P
 from testudo_tpu_torch.fields.bls12_377 import P, R
+
+# The suite runs in several worker processes and these limb tensors are tiny:
+# more than one intra-op thread per worker only makes the workers fight for cores.
+torch.set_num_threads(1)
 
 RNG = np.random.default_rng(71)
 
 
-def _words(name: str):
-    text = (build.CSRC / "fp.cuh").read_text()
+def _words(name: str, header: str = "fp.cuh"):
+    text = (build.CSRC / header).read_text()
     body = re.search(rf"{name}\[\d+\] = \{{(.*?)\}};", text, re.S).group(1)
     return [int(w.strip().rstrip("u"), 16) for w in body.split(",")]
 
@@ -44,6 +49,51 @@ def test_constant_tables_match_the_fields_module():
     assert invs == [(-pow(P, -1, 1 << 32)) % (1 << 32), (-pow(R, -1, 1 << 32)) % (1 << 32)]
 
 
+def test_b3k_table_matches_the_curve_constant():
+    """FQ_B3K is the Montgomery form of (3 b2).c1 = -3/5 mod p."""
+    k = _value(_words("FQ_B3K", "fp2.cuh"))
+    assert len(_words("FQ_B3K", "fp2.cuh")) == 12
+    assert k == FQ.to_mont_int((3 * hc.B2.c1) % P) == G2P.b3_k
+    assert (hc.B2.c0, (5 * hc.B2.c1 + 1) % P) == (0, 0)  # b2 = -u/5
+    assert (-5 * FQ.from_mont_int(k)) % P == 3  # b3 (a0 + a1 u) = (3 a1, k a0)
+
+
+def test_source_hash_covers_every_header(tmp_path, monkeypatch):
+    """An edit to any source or header changes the build directory, so a
+    stale library is never loaded."""
+    base = build._source_hash()
+    for name in (*build.SOURCES, *build.HEADERS):
+        copy = tmp_path / name
+        copy.mkdir()
+        for other in (*build.SOURCES, *build.HEADERS):
+            text = (build.CSRC / other).read_text()
+            (copy / other).write_text(text + "\n// edited\n" if other == name else text)
+        monkeypatch.setattr(build, "CSRC", copy)
+        assert build._source_hash() != base, name
+        monkeypatch.undo()
+    assert build._source_hash() == base
+
+
+def test_build_report_names_each_kernel(tmp_path, monkeypatch):
+    assert build._kernel_name("_Z8k_bucketI8Fq2CoordLb1EEvPKiS2_S2_S2_Pil") == "k_bucket<Fq2Coord, true>"
+    assert build._kernel_name("_Z6k_add2I7FqCoordEvPKiS2_Pil") == "k_add2<FqCoord>"
+    assert build._kernel_name("plain_c_name") == "plain_c_name"
+    out = tmp_path / build._source_hash()
+    out.mkdir()
+    (out / "build_seconds.txt").write_text("2.5\n")
+    (out / "build.log").write_text(
+        "ptxas info    : Compiling entry function '_Z6k_add2I8Fq2CoordEvPKiS2_Pil' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z6k_add2I8Fq2CoordEvPKiS2_Pil\n"
+        "    2112 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 253 registers, used 0 barriers, 2112 bytes cumulative stack size\n"
+        "ptxas info    : Function properties for _Z6fp_mulI8FqParamsEvPjPKjS3_\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n")
+    monkeypatch.setattr(build, "BUILD_ROOT", tmp_path)
+    assert build.build_report() == {"seconds": 2.5, "ptxas": [
+        "k_add2<Fq2Coord>: 253 registers, 2112 bytes stack frame, 0 bytes spill stores, "
+        "0 bytes spill loads"]}
+
+
 def test_build_lists_every_source_and_sets_argtypes():
     on_disk = sorted(p.name for p in build.CSRC.iterdir())
     assert sorted(n for n in on_disk if n.endswith(".cu")) == sorted(build.SOURCES)
@@ -53,6 +103,8 @@ def test_build_lists_every_source_and_sets_argtypes():
         decl = re.search(rf'extern "C" int {symbol}\((.*?)\)', src, re.S).group(1)
         params = [p.strip() for p in decl.split(",")]
         assert len(params) == len(argtypes), name
+        if name != "mont_mul":
+            assert params[-2] == "int ncomp", name
         for p, t in zip(params, argtypes):
             want = ctypes.c_void_p if "*" in p else (ctypes.c_long if p.startswith("long") else ctypes.c_int)
             assert t is want, (name, p)
@@ -117,9 +169,9 @@ def test_device_mont_mul_equals_plain(host_lib, spec):
 def test_device_add2_equals_plain(host_lib, batches):
     a, b, s = batches
     out = torch.empty_like(a)
-    host_lib.host_add2(_ptr(a), _ptr(b), _ptr(out), ctypes.c_long(L))
+    host_lib.host_add2(_ptr(a), _ptr(b), _ptr(out), ctypes.c_long(L), 1)
     assert torch.equal(out, s)
-    host_lib.host_add2(_ptr(s), _ptr(a), _ptr(out), ctypes.c_long(L))
+    host_lib.host_add2(_ptr(s), _ptr(a), _ptr(out), ctypes.c_long(L), 1)
     assert torch.equal(out, G1P.add2_plain(s, a))
 
 
@@ -127,10 +179,10 @@ def test_device_step_and_scan2b_equal_plain(host_lib, batches):
     a, b, s = batches
     mask = torch.tensor([1, 0, 1, 1, 0, 1, 0, 1, 1], dtype=torch.int32)
     o1, o2 = torch.empty_like(a), torch.empty_like(a)
-    host_lib.host_step(_ptr(s), _ptr(b), _ptr(mask), _ptr(o1), _ptr(o2), ctypes.c_long(L))
+    host_lib.host_step(_ptr(s), _ptr(b), _ptr(mask), _ptr(o1), _ptr(o2), ctypes.c_long(L), 1)
     w1, w2 = G1P.step_plain(s, b, mask)
     assert torch.equal(o1, w1) and torch.equal(o2, w2)
-    host_lib.host_scan2b(_ptr(s), _ptr(a), _ptr(b), _ptr(o1), _ptr(o2), ctypes.c_long(L))
+    host_lib.host_scan2b(_ptr(s), _ptr(a), _ptr(b), _ptr(o1), _ptr(o2), ctypes.c_long(L), 1)
     w1, w2 = G1P.scan2b_plain(s, a, b)
     assert torch.equal(o1, w1) and torch.equal(o2, w2)
 
@@ -140,7 +192,7 @@ def test_device_ladder_equals_plain_and_host(host_lib, batches):
     ks = [0, 1, R - 1, 2, 5] + [int.from_bytes(RNG.bytes(40), "little") % R for _ in range(L - 5)]
     scal = torch.from_numpy(np.ascontiguousarray(FR.to_limbs(ks).T))
     out = torch.empty_like(s)
-    host_lib.host_ladder(_ptr(s), _ptr(scal), _ptr(out), ctypes.c_int(16), ctypes.c_long(L))
+    host_lib.host_ladder(_ptr(s), _ptr(scal), _ptr(out), ctypes.c_int(16), ctypes.c_long(L), 1)
     assert torch.equal(out, G1P.ladder_plain(s, scal))
     aff = tc.g1_to_affine_host(G1P.unpack(s))
     assert tc.g1_to_affine_host(G1P.unpack(out)) == [hc.g1_mul(p, k) for p, k in zip(aff, ks)]
@@ -155,7 +207,7 @@ def test_device_bucket_equals_plain(host_lib, mixed):
     count = torch.tensor([2, 3, 0, 6, 1], dtype=torch.int32)
     out = torch.empty((72, 5), dtype=torch.int32)
     host_lib.host_bucket(_ptr(table), _ptr(idx), _ptr(start), _ptr(count), _ptr(out),
-                         ctypes.c_long(5), ctypes.c_int(mixed))
+                         ctypes.c_long(5), ctypes.c_int(mixed), 1)
     assert torch.equal(out, G1P.bucket_phase_plain(table, idx, start, count, mixed=bool(mixed)))
     aff = tc.g1_to_affine_host(G1P.unpack(out))
     assert aff[0] == hc.g1_double(pts[3]) and aff[2] is None and aff[4] == pts[4]
@@ -168,5 +220,131 @@ def test_device_bucket_consecutive_rows_equals_plain(host_lib, batches):
     count = torch.tensor([3, 15, 0], dtype=torch.int32)
     out = torch.empty((72, 3), dtype=torch.int32)
     host_lib.host_bucket(_ptr(table), None, _ptr(start), _ptr(count), _ptr(out),
-                         ctypes.c_long(3), ctypes.c_int(0))
+                         ctypes.c_long(3), ctypes.c_int(0), 1)
     assert torch.equal(out, G1P.bucket_phase_plain(table, None, start, count))
+
+
+# -- add_mask and scan2 (both groups) and the G2 instantiation of every body ------------
+
+
+def _g2_points(n):
+    G = hc.g2_generator()
+    return [hc.g2_mul(G, int(k)) for k in RNG.integers(1, 1 << 62, size=n)]
+
+
+@pytest.fixture(scope="module")
+def batches_g2():
+    """Lanes as in `batches`: P+Q, P+P, P+(-P), P+O, O+Q, O+O, P+Q..."""
+    a_h, b_h = _g2_points(L), _g2_points(L)
+    b_h[1] = a_h[1]
+    b_h[2] = hc.g2_neg(a_h[2])
+    b_h[3] = None
+    a_h[4] = a_h[5] = b_h[5] = None
+    a = G2P.pack(tc.g2_from_affine_host(a_h, device="cpu"))
+    b = G2P.pack(tc.g2_from_affine_host(b_h, device="cpu"))
+    return a, b, G2P.add2(a, b)
+
+
+MASK = torch.tensor([1, 0, 1, 1, 0, 1, 0, 1, 1], dtype=torch.int32)
+
+
+def _group_batches(request, group):
+    Gp = G1P if group == "g1" else G2P
+    return Gp, request.getfixturevalue("batches" if group == "g1" else "batches_g2")
+
+
+def test_device_fp2_mul_and_mul_b3_equal_plain(host_lib):
+    m = 37
+    vals = [[int.from_bytes(RNG.bytes(64), "little") % P for _ in range(m)] for _ in range(4)]
+    for col, edge in zip(vals, ([0, 1, P - 1], [0, P - 1, P - 1], [P - 1, 0, 1], [1, P - 1, P - 1])):
+        col[:3] = edge
+    a0, a1, b0, b1 = (torch.from_numpy(FQ.encode(v)) for v in vals)
+    rows = lambda c0, c1: torch.cat([c0.T, c1.T], dim=0).contiguous()
+    out, out_b3 = torch.empty((48, m), dtype=torch.int32), torch.empty((48, m), dtype=torch.int32)
+    assert host_lib.host_fp2_mul(_ptr(rows(a0, a1)), _ptr(rows(b0, b1)), _ptr(out), _ptr(out_b3),
+                                 ctypes.c_long(m)) == 0
+    assert torch.equal(out, rows(*tc._fq2_mul_many([((a0, a1), (b0, b1))], tc.tf.mont_mul_plain)[0]))
+    assert torch.equal(out_b3, rows(*tc._G2PlainOps.mul_b3((a0, a1))))
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_device_add_mask_equals_plain(host_lib, request, group):
+    Gp, (a, b, s) = _group_batches(request, group)
+    out = torch.empty_like(a)
+    host_lib.host_add_mask(_ptr(s), _ptr(b), _ptr(MASK), _ptr(out), ctypes.c_long(L), 0, Gp.ncomp)
+    assert torch.equal(out, Gp.add_mask_plain(s, b, MASK))
+    col = s[:, 6:7].contiguous()  # one projective point added to every lane
+    host_lib.host_add_mask(_ptr(a), _ptr(col), _ptr(MASK), _ptr(out), ctypes.c_long(L), 1, Gp.ncomp)
+    assert torch.equal(out, Gp.add_mask_plain(a, col, MASK))
+
+
+@pytest.mark.parametrize("group", ["g1", "g2"])
+def test_device_scan2_equals_plain(host_lib, request, group):
+    Gp, (a, b, s) = _group_batches(request, group)
+    o1, o2 = torch.empty_like(a), torch.empty_like(a)
+    host_lib.host_scan2(_ptr(s), _ptr(a), _ptr(b), _ptr(o1), _ptr(o2), ctypes.c_long(L), Gp.ncomp)
+    w1, w2 = Gp.scan2_plain(s, a, b)
+    assert torch.equal(o1, w1) and torch.equal(o2, w2)
+
+
+def test_device_g2_add2_step_scan2b_equal_plain(host_lib, batches_g2):
+    a, b, s = batches_g2
+    o1, o2 = torch.empty_like(a), torch.empty_like(a)
+    host_lib.host_add2(_ptr(a), _ptr(b), _ptr(o1), ctypes.c_long(L), 2)
+    assert torch.equal(o1, s)
+    host_lib.host_add2(_ptr(s), _ptr(a), _ptr(o1), ctypes.c_long(L), 2)
+    assert torch.equal(o1, G2P.add2_plain(s, a))
+    host_lib.host_step(_ptr(s), _ptr(b), _ptr(MASK), _ptr(o1), _ptr(o2), ctypes.c_long(L), 2)
+    w1, w2 = G2P.step_plain(s, b, MASK)
+    assert torch.equal(o1, w1) and torch.equal(o2, w2)
+    host_lib.host_scan2b(_ptr(s), _ptr(a), _ptr(b), _ptr(o1), _ptr(o2), ctypes.c_long(L), 2)
+    w1, w2 = G2P.scan2b_plain(s, a, b)
+    assert torch.equal(o1, w1) and torch.equal(o2, w2)
+
+
+def test_device_g2_ladder_equals_plain_and_host(host_lib, batches_g2):
+    """Two limb rows (32 bits) against the plain version, the full 256 bits
+    against the host curve."""
+    _, _, s = batches_g2
+    ks = [0, 1, (1 << 32) - 1, 2, 5] + [int(k) for k in RNG.integers(1, 1 << 32, size=L - 5)]
+    scal = torch.from_numpy(np.ascontiguousarray(FR.to_limbs(ks).T[:2]))
+    out = torch.empty_like(s)
+    host_lib.host_ladder(_ptr(s), _ptr(scal), _ptr(out), ctypes.c_int(2), ctypes.c_long(L), 2)
+    assert torch.equal(out, G2P.ladder_plain(s, scal))
+    ks = [0, 1, R - 1] + [int.from_bytes(RNG.bytes(40), "little") % R for _ in range(L - 3)]
+    scal = torch.from_numpy(np.ascontiguousarray(FR.to_limbs(ks).T))
+    host_lib.host_ladder(_ptr(s), _ptr(scal), _ptr(out), ctypes.c_int(16), ctypes.c_long(L), 2)
+    aff = tc.g2_to_affine_host(G2P.unpack(s))
+    assert tc.g2_to_affine_host(G2P.unpack(out)) == [hc.g2_mul(p, k) for p, k in zip(aff, ks)]
+
+
+@pytest.mark.parametrize("mixed", [0, 1], ids=["general", "mixed"])
+def test_device_g2_bucket_equals_plain(host_lib, mixed):
+    pts = _g2_points(10)
+    table = G2P.pack(tc.g2_from_affine_host(pts, device="cpu")).T.contiguous()
+    idx = torch.tensor([3, 3, 1, 0, 2, 9, 8, 7, 6, 5, 4, 4], dtype=torch.int32)
+    start = torch.tensor([0, 2, 5, 5, 11], dtype=torch.int32)
+    count = torch.tensor([2, 3, 0, 6, 1], dtype=torch.int32)
+    out = torch.empty((144, 5), dtype=torch.int32)
+    host_lib.host_bucket(_ptr(table), _ptr(idx), _ptr(start), _ptr(count), _ptr(out),
+                         ctypes.c_long(5), ctypes.c_int(mixed), 2)
+    assert torch.equal(out, G2P.bucket_phase_plain(table, idx, start, count, mixed=bool(mixed)))
+    aff = tc.g2_to_affine_host(G2P.unpack(out))
+    assert aff[0] == hc.g2_double(pts[3]) and aff[2] is None and aff[4] == pts[4]
+
+
+def test_device_g2_bucket_consecutive_rows_equals_plain(host_lib, batches_g2):
+    a, _, s = batches_g2
+    table = torch.cat([s, a], dim=1).T.contiguous()  # 18 projective rows, identities among them
+    start = torch.tensor([0, 3, 18], dtype=torch.int32)
+    count = torch.tensor([3, 15, 0], dtype=torch.int32)
+    out = torch.empty((144, 3), dtype=torch.int32)
+    host_lib.host_bucket(_ptr(table), None, _ptr(start), _ptr(count), _ptr(out),
+                         ctypes.c_long(3), ctypes.c_int(0), 2)
+    assert torch.equal(out, G2P.bucket_phase_plain(table, None, start, count))
+
+
+def test_host_launchers_reject_an_unknown_group(host_lib, batches):
+    a, b, _ = batches
+    out = torch.empty_like(a)
+    assert host_lib.host_add2(_ptr(a), _ptr(b), _ptr(out), ctypes.c_long(L), 3) == -1

@@ -13,6 +13,10 @@ from testudo_tpu_torch.device import curve as tc
 from testudo_tpu_torch.device.field import FR
 from testudo_tpu_torch.fields.bls12_377 import R
 
+# The suite runs in several worker processes and these limb tensors are tiny:
+# more than one intra-op thread per worker only makes the workers fight for cores.
+torch.set_num_threads(1)
+
 RNG = np.random.default_rng(31)
 
 

@@ -9,6 +9,10 @@ import torch
 from testudo_tpu.tpu import field as jf
 from testudo_tpu_torch.device import field as tf
 
+# The suite runs in several worker processes and these limb tensors are tiny:
+# more than one intra-op thread per worker only makes the workers fight for cores.
+torch.set_num_threads(1)
+
 SPECS = {"fq": (tf.FQ, jf.FQ), "fr": (tf.FR, jf.FR)}
 N = 40
 

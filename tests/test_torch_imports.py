@@ -9,6 +9,10 @@ import sys
 import pytest
 import torch
 
+# The suite runs in several worker processes and these limb tensors are tiny:
+# more than one intra-op thread per worker only makes the workers fight for cores.
+torch.set_num_threads(1)
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = """
@@ -69,6 +73,36 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
     with pytest.raises((RuntimeError, AssertionError)):
         msm.msm_g1(pts, [1, 2])
     assert msm.msm_g1(pts, [1, 2], device="cpu") == hc.g1_mul(G, 3)
+
+
+def test_g2_entry_points_default_to_cuda_and_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device works")
+    import inspect
+
+    from testudo_tpu_torch import convert
+    from testudo_tpu_torch.curves import host_curve as hc
+    from testudo_tpu_torch.device import curve as tc
+    from testudo_tpu_torch.device import msm
+    from testudo_tpu_torch.device.field import FR
+    from testudo_tpu_torch.device.packed_curve import G2P
+
+    for fn in (tc.g2_from_affine_host, tc.g2_identity, tc.fixed_base_mul_g1, tc.fixed_base_mul_g2,
+               msm.msm_g2, msm.msm_segmented, msm.msm_multi_small, G2P.identity_packed,
+               convert.points_from_reference, convert.packed_from_reference):
+        assert inspect.signature(fn).parameters["device"].default == torch.device("cuda"), fn
+    G = hc.g2_generator()
+    with pytest.raises((RuntimeError, AssertionError)):
+        tc.g2_from_affine_host([G])
+    pts = tc.g2_from_affine_host([G, G], device="cpu")
+    with pytest.raises((RuntimeError, AssertionError)):
+        msm.msm_g2(pts, [1, 2])
+    with pytest.raises((RuntimeError, AssertionError)):
+        msm.msm_multi_small("g2", [(pts, [1, 2])])
+    one = torch.from_numpy(FR.to_limbs([1]))
+    with pytest.raises((RuntimeError, AssertionError)):
+        tc.fixed_base_mul_g2(one, G)
+    assert tc.g2_to_affine_host(tc.fixed_base_mul_g2(one, G, device="cpu")) == [G]
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -20,6 +20,10 @@ from testudo_tpu_torch.device.field import FR
 from testudo_tpu_torch.device.packed_curve import G1P
 from testudo_tpu_torch.fields.bls12_377 import P, R
 
+# The suite runs in several worker processes and these limb tensors are tiny:
+# more than one intra-op thread per worker only makes the workers fight for cores.
+torch.set_num_threads(1)
+
 RNG = np.random.default_rng(41)
 N = 24
 F = pcu._make_ops(P, N, 1, None)
@@ -228,8 +232,8 @@ def test_cpu_path_launches_no_kernel():
     G1P.bucket_phase(A.T.contiguous(), None, torch.zeros(2, dtype=torch.int32),
                      torch.ones(2, dtype=torch.int32))
     assert all(v == 0 for v in build.LAUNCHES.values()), build.LAUNCHES
-    assert set(build.LAUNCHES) == {"mont_mul", "add2", "step", "scan2b", "ladder",
-                                   "bucket", "bucket_mixed"}
+    ec = {"add2", "add_mask", "step", "scan2", "scan2b", "ladder", "bucket", "bucket_mixed"}
+    assert set(build.LAUNCHES) == {"mont_mul"} | ec | {k + "_g2" for k in ec}
 
 
 @pytest.mark.parametrize("op", ["add2", "step", "scan2b", "ladder", "bucket_phase"])

@@ -19,7 +19,8 @@
 //
 // The file also compiles as plain C++ (no CUDA): csrc/host_check.cpp runs
 // the same functions on the CPU, where the tests hold them against the
-// plain PyTorch versions.
+// plain PyTorch versions.  fp2.cuh builds Fq2 on these functions, ec.cuh the
+// group law of G1 and G2.
 #pragma once
 #include <stdint.h>
 
@@ -29,6 +30,7 @@ typedef uint64_t u64;
 #ifdef __CUDACC__
 #define FP_FN __device__ __forceinline__
 #define FP_MUL_FN __device__ __noinline__
+#define FP_CALL_FN static __device__ __noinline__
 #define FP_MEMBER __device__ __forceinline__
 #define FP_TABLE static __device__ __constant__ const
 #define FP_UNROLL _Pragma("unroll")
@@ -36,6 +38,7 @@ typedef uint64_t u64;
 #else
 #define FP_FN static inline
 #define FP_MUL_FN static inline
+#define FP_CALL_FN static inline
 #define FP_MEMBER inline
 #define FP_TABLE static const
 #define FP_UNROLL
@@ -191,7 +194,8 @@ FP_FN void fp_mul_inline(u32* r, const u32* a, const u32* b) {
   fp_cond_sub_p<F>(r, t, t_top);
 }
 
-// The product as a real call.  A group operation multiplies 8 to 12 times;
+// The product as a real call.  A G1 operation multiplies 8 to 12 times, a G2
+// operation 25 to 38 times;
 // with every product inlined a kernel's loop body grew to hundreds of KB,
 // missed the instruction cache and ran 1.3x to 2.3x slower on an H100 (PERF.md).
 // One shared copy keeps the body small; operands travel through local
@@ -241,4 +245,15 @@ FP_FN void fp_load_row(u32* r, const int* row) {
     r[2 * k] = (u32)v.a | ((u32)v.b << 16);
     r[2 * k + 1] = (u32)v.c | ((u32)v.d << 16);
   }
+}
+
+// Per-lane body of the Montgomery kernel: the product of lane `lane` of two
+// (2N, m) limb arrays.
+template <class F>
+FP_FN void lane_mont_mul(const int* a, const int* b, int* out, long m, long lane) {
+  u32 x[F::N], y[F::N];
+  fp_load<F>(x, a, m, lane, 0);
+  fp_load<F>(y, b, m, lane, 0);
+  fp_mul_inline<F>(x, x, y);  // one product per thread: nothing to share
+  fp_store<F>(out, m, lane, 0, x);
 }

@@ -11,7 +11,7 @@
 // (one thread per lane, word-serial CIOS, fully unrolled) and reads each
 // limb row coalesced across the warp; the ragged edge is masked, there is
 // no tile padding.
-#include "g1.cuh"
+#include "fp.cuh"
 #include "launch.cuh"
 
 #define TPB_MUL 128

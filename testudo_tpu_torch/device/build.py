@@ -18,6 +18,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -28,7 +29,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("mont_mul.cu", "ec_ops.cu", "ladder.cu", "bucket.cu")
-HEADERS = ("fp.cuh", "g1.cuh", "launch.cuh")
+HEADERS = ("fp.cuh", "fp2.cuh", "ec.cuh", "launch.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -38,20 +39,27 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_long
 # C launcher of each kernel: (symbol, argtypes).  Pointers and the stream are
-# c_void_p: without argtypes ctypes would cut them to 32 bits.
+# c_void_p: without argtypes ctypes would cut them to 32 bits.  The EC
+# launchers take `ncomp` (1: G1, 2: G2) just before the stream.
 _SIGNATURES = {
     "mont_mul": ("testudo_mont_mul", (_P, _P, _P, _I, _L, _P)),
-    "add2": ("testudo_add2", (_P, _P, _P, _L, _P)),
-    "step": ("testudo_step", (_P, _P, _P, _P, _P, _L, _P)),
-    "scan2b": ("testudo_scan2b", (_P, _P, _P, _P, _P, _L, _P)),
-    "ladder": ("testudo_ladder", (_P, _P, _P, _I, _L, _P)),
-    "bucket": ("testudo_bucket", (_P, _P, _P, _P, _P, _L, _I, _P)),
+    "add2": ("testudo_add2", (_P, _P, _P, _L, _I, _P)),
+    "add_mask": ("testudo_add_mask", (_P, _P, _P, _P, _L, _I, _I, _P)),
+    "step": ("testudo_step", (_P, _P, _P, _P, _P, _L, _I, _P)),
+    "scan2": ("testudo_scan2", (_P, _P, _P, _P, _P, _L, _I, _P)),
+    "scan2b": ("testudo_scan2b", (_P, _P, _P, _P, _P, _L, _I, _P)),
+    "ladder": ("testudo_ladder", (_P, _P, _P, _I, _L, _I, _P)),
+    "bucket": ("testudo_bucket", (_P, _P, _P, _P, _P, _L, _I, _I, _P)),
 }
 
 # Launches per kernel since the last reset_launches().  The mixed and the
 # general bucket kernel are two instantiations of one template and are
-# counted apart.
-LAUNCHES = {name: 0 for name in (*_SIGNATURES, "bucket_mixed")}
+# counted apart, and so are the G1 and the G2 instantiation of every EC
+# kernel: the G1 count keeps the bare name, the G2 count ends in "_g2".
+EC_KERNELS = ("add2", "add_mask", "step", "scan2", "scan2b", "ladder", "bucket",
+              "bucket_mixed")
+LAUNCHES = {name: 0 for name in (
+    "mont_mul", *EC_KERNELS, *(k + "_g2" for k in EC_KERNELS))}
 
 
 def reset_launches() -> None:
@@ -124,13 +132,51 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+def _kernel_name(mangled: str) -> str:
+    """`_Z8k_bucketI8Fq2CoordLb1EEv...` -> `k_bucket<Fq2Coord, true>`: enough
+    of the Itanium scheme for this library's kernels (a name, then type and
+    bool template arguments); anything else comes back as it is."""
+    m = re.match(r"_Z(\d+)", mangled)
+    if not m:
+        return mangled
+    pos = m.end() + int(m.group(1))
+    name, args = mangled[m.end():pos], []
+    if mangled[pos:pos + 1] == "I":
+        pos += 1
+        while pos < len(mangled) and mangled[pos] != "E":
+            lit = re.match(r"Lb([01])E", mangled[pos:])
+            num = re.match(r"\d+", mangled[pos:])
+            if lit:
+                args.append("true" if lit.group(1) == "1" else "false")
+                pos += lit.end()
+            elif num:
+                start = pos + num.end()
+                pos = start + int(num.group())
+                args.append(mangled[start:pos])
+            else:
+                return mangled
+    return f"{name}<{', '.join(args)}>" if args else name
+
+
 def build_report() -> dict:
-    """Seconds the build took and the compiler's per-kernel resource lines
-    (registers, spills), for the finished build of the present sources."""
+    """Seconds the build took and the compiler's resource line for every
+    kernel (registers, stack frame, spills), for the finished build of the
+    present sources."""
     out_dir = BUILD_ROOT / _source_hash()
     log = (out_dir / "build.log").read_text()
     secs = (out_dir / "build_seconds.txt").read_text().strip()
-    usage = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+    usage, entry, frame = [], None, ""
+    for ln in log.splitlines():
+        ln = ln.strip()
+        started = re.search(r"Compiling entry function '(\w+)'", ln)
+        if started:
+            entry, frame = _kernel_name(started.group(1)), ""
+        elif entry and "stack frame" in ln:
+            frame = ln
+        elif entry and "registers" in ln:
+            regs = re.search(r"Used (\d+) registers", ln)
+            usage.append(f"{entry}: {regs.group(1) if regs else '?'} registers, {frame}")
+            entry = None
     return {"seconds": float(secs), "ptxas": usage}
 
 

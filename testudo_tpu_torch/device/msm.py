@@ -1,10 +1,11 @@
-"""Multi-scalar multiplication (Pippenger) over G1 on the packed kernels.
+"""Multi-scalar multiplication (Pippenger) over G1 and G2 on the packed kernels.
 
-Counterpart of the packed path of testudo_tpu/tpu/msm.py (`msm_g1` :1206 ->
-`_msm_packed` :755 and the stage functions it calls).  The legacy XLA
-Pippenger, `msm_g2`, `msm_segmented`, `msm_multi_small`,
-`_multi_msm_packed`, `msm_fp` and the generator/yield form used by the
-multi-device MSM wait for later slices.
+Counterpart of the packed path of testudo_tpu/tpu/msm.py (`msm_g1` :1206,
+`msm_g2` :1226 -> `_msm_packed` :755 and the stage functions it calls,
+`msm_segmented` :893, `msm_multi_small` :963).  Every stage takes the
+`PackedGroup` as an argument, so G1 and G2 share one pipeline.  The legacy
+XLA Pippenger, `_multi_msm_packed`, `msm_fp` and the generator/yield form
+used by the multi-device MSM wait for later slices.
 
 Algorithm (signed c-bit windows by default):
   1. signed digits of every scalar per window; stable sort of the point
@@ -41,9 +42,10 @@ from ..fields.bls12_377 import R
 from . import curve as tc
 from . import field as tf
 from .field import FQ, FR
-from .packed_curve import G1P, PackedGroup
+from .packed_curve import G1P, G2P, PackedGroup
 
 _SMALL_N = 64  # at or below this a plain ladder + tree beats Pippenger
+_LADDER_MAX = 1024  # above this many points per part Pippenger beats the ladder
 _SIGNED_C = 13  # default signed window width (W = 20 for 253-bit Fr)
 _LANE_CLASS = 1024  # lane rounding inside the T_cap cost model
 
@@ -57,13 +59,22 @@ def _prep_scalars(scalars, device) -> torch.Tensor:
     return scalars.to(device)
 
 
+def _map_coords(fn, *points):
+    """Apply `fn` to every limb tensor of point batches of one shape: (X, Y,
+    Z) tensors for G1, (c0, c1) pairs of them for G2."""
+    first = points[0]
+    if isinstance(first, torch.Tensor):
+        return fn(*points)
+    return tuple(_map_coords(fn, *parts) for parts in zip(*points))
+
+
 def _pad_to(points, scal: torch.Tensor, target: int):
     """Pad the batch with all-zero rows (scalar 0) up to `target`."""
     padn = target - scal.shape[0]
     if padn == 0:
         return points, scal
     scal = F.pad(scal, (0, 0, 0, padn))
-    return tuple(F.pad(coord, (0, 0, 0, padn)) for coord in points), scal
+    return _map_coords(lambda coord: F.pad(coord, (0, 0, 0, padn)), points), scal
 
 
 def _pad_pow2(points, scal: torch.Tensor):
@@ -153,14 +164,18 @@ def _digit_counts_signed(scal: torch.Tensor, c: int):
     return order, sgn_sorted, starts, counts
 
 
-def _with_neg_y_table(ptcat: torch.Tensor) -> torch.Tensor:
-    """(N, 72) point-major rows -> (2N, 72) table [P..., -P...]: row N+i
-    holds P_i with y negated (p - y, and 0 stays 0)."""
+def _with_neg_y_table(ptcat: torch.Tensor, ncomp: int = 1) -> torch.Tensor:
+    """(N, rows) point-major rows -> (2N, rows) table [P..., -P...]: row N+i
+    holds P_i with y negated, Fq component by component (p - y, and a
+    component that is 0 stays 0).  The second half is written in place, one
+    24-limb component at a time, so no second table-sized copy is made."""
     n = FQ.nlimbs
-    neg = torch.cat(
-        [ptcat[:, :n], tf.neg(FQ, ptcat[:, n : 2 * n]), ptcat[:, 2 * n :]], dim=1
-    )
-    return torch.cat([ptcat, neg], dim=0)
+    N = ptcat.shape[0]
+    table = torch.cat([ptcat, ptcat], dim=0)
+    for comp in range(ncomp):
+        lo = (ncomp + comp) * n
+        table[N:, lo : lo + n] = tf.neg(FQ, ptcat[:, lo : lo + n])
+    return table
 
 
 # -- bucket splitting -------------------------------------------------------
@@ -331,8 +346,11 @@ def _horner_ladder_packed(Gp: PackedGroup, wins, c: int):
 
 
 def _cat_points(points) -> torch.Tensor:
-    """(X, Y, Z) of (N, 24) -> (N, 72) point-major rows."""
-    return torch.cat(points, dim=1).contiguous()
+    """(X, Y, Z) of (N, 24) tensors, or of (c0, c1) pairs of them for G2 ->
+    (N, 72) or (N, 144) point-major rows."""
+    if isinstance(points[0], torch.Tensor):
+        return torch.cat(points, dim=1).contiguous()
+    return torch.cat([comp for coord in points for comp in coord], dim=1).contiguous()
 
 
 def _msm_packed(Gp: PackedGroup, points, scal: torch.Tensor, c: Optional[int],
@@ -342,8 +360,9 @@ def _msm_packed(Gp: PackedGroup, points, scal: torch.Tensor, c: Optional[int],
     width `signed_c`; an explicit c keeps the unsigned plan.
 
     affine=True asserts every input point has Z = mont(1) (fresh lifts of
-    affine bases): the bucket phase then runs complete MIXED adds.  The
-    [P, -P] table only negates Y, so it preserves the property.
+    affine bases, never the identity; nothing checks it): the bucket phase
+    then runs complete MIXED adds.  The [P, -P] table only negates Y, so it
+    preserves the property.
 
     `on_phase(name)` is called when a stage's work has been enqueued
     (measurement hook; the caller synchronises).  Returns the projective
@@ -356,7 +375,7 @@ def _msm_packed(Gp: PackedGroup, points, scal: torch.Tensor, c: Optional[int],
         c = signed_c
         order, sgn_sorted, starts, counts = _digit_counts_signed(scal, c)
         # table row N+i = -P_i; the sorted sign picks the half
-        table = _with_neg_y_table(ptcat)
+        table = _with_neg_y_table(ptcat, Gp.ncomp)
         order_flat = (order + sgn_sorted * N).reshape(-1)
     else:
         order, starts, counts = _digit_counts(scal, c)
@@ -402,6 +421,28 @@ def _msm_small_packed(Gp: PackedGroup, points, scal: torch.Tensor):
     return Gp.unpack(Gp.tree_reduce(acc))
 
 
+def _msm_entry(Gp: PackedGroup, to_affine, points, scalars, c, affine, signed_c,
+               device, on_phase):
+    """The body `msm_g1` and `msm_g2` share: move the batch to `device`,
+    take the ladder for small batches and Pippenger otherwise, and return
+    the sum as a host affine point."""
+    device = torch.device(device)
+    points = _map_coords(lambda coord: coord.to(device), points)
+    scal = _prep_scalars(scalars, device)
+    npoints = (points[0] if Gp.ncomp == 1 else points[0][0]).shape[0]
+    if scal.shape[0] != npoints:
+        raise ValueError(f"msm_{Gp.name}: points and scalars differ in length")
+    if scal.shape[0] <= _SMALL_N:
+        res = _msm_small_packed(Gp, points, scal)
+    else:
+        points, scal = _pad_pow2(points, scal)
+        res = _msm_packed(Gp, points, scal, c, affine, signed_c, on_phase)
+    out = to_affine(res)[0]
+    if on_phase:
+        on_phase("to_affine")
+    return out
+
+
 def msm_g1(points, scalars: Sequence[int] | torch.Tensor, c: Optional[int] = None,
            affine: bool = False, signed_c: int = _SIGNED_C,
            device=torch.device("cuda"), on_phase: PhaseHook = None):
@@ -414,17 +455,89 @@ def msm_g1(points, scalars: Sequence[int] | torch.Tensor, c: Optional[int] = Non
     kernels on a CUDA device, their plain versions on the CPU).
     `affine=True` asserts every point has Z = mont(1) and enables mixed adds
     in the bucket phase.  c=None uses signed windows of `signed_c` bits."""
+    return _msm_entry(G1P, tc.g1_to_affine_host, points, scalars, c, affine,
+                      signed_c, device, on_phase)
+
+
+def msm_g2(points, scalars: Sequence[int] | torch.Tensor, c: Optional[int] = None,
+           affine: bool = False, signed_c: int = _SIGNED_C,
+           device=torch.device("cuda"), on_phase: PhaseHook = None):
+    """MSM over G2: as `msm_g1` with every coordinate a (c0, c1) pair of
+    (N, 24) tensors; returns a host affine point over host `Fq2`, or None.
+    `affine=True` asserts every point is an affine lift, Z = (mont(1), 0),
+    and none is the identity: a base that may be the identity (a fixed-base
+    multiple of a scalar that may be 0) needs `affine=False`."""
+    return _msm_entry(G2P, tc.g2_to_affine_host, points, scalars, c, affine,
+                      signed_c, device, on_phase)
+
+
+# -- many small MSMs in one ladder launch -------------------------------------------
+
+
+def _group(group_name: str):
+    if group_name == "g1":
+        return G1P, tc.g1_to_affine_host, msm_g1
+    if group_name == "g2":
+        return G2P, tc.g2_to_affine_host, msm_g2
+    raise ValueError(f"unknown group {group_name!r}: expected 'g1' or 'g2'")
+
+
+def _ladder_parts(Gp: PackedGroup, to_affine, points, scal: torch.Tensor, bounds):
+    """One ladder launch over all lanes, then one tree reduction per
+    [lo, hi) part; returns the parts' host affine sums."""
+    acc = Gp.ladder(Gp.pack(points), scal.T.contiguous())
+    return [
+        to_affine(Gp.unpack(Gp.tree_reduce(acc[:, lo:hi].contiguous())))[0]
+        if hi > lo else None  # an empty part sums to the identity
+        for lo, hi in bounds
+    ]
+
+
+def msm_segmented(group_name: str, points, scalars, n_segments: int,
+                  device=torch.device("cuda")):
+    """`n_segments` equal-length MSMs over contiguous slices of one batch, in
+    one ladder launch; returns the list of host affine sums.  (MIPP's
+    per-round cross MSMs are the caller in mind.)  Above 1024 points per
+    segment each slice goes through the full Pippenger instead.  No lane is
+    padded: the JAX package pads segments to 128 lanes for its tiles, which
+    changes only the projective representative of a sum."""
+    Gp, to_affine, msm_fn = _group(group_name)
     device = torch.device(device)
-    points = tuple(coord.to(device) for coord in points)
+    points = _map_coords(lambda coord: coord.to(device), points)
     scal = _prep_scalars(scalars, device)
-    if scal.shape[0] != points[0].shape[0]:
-        raise ValueError("msm_g1: points and scalars differ in length")
-    if scal.shape[0] <= _SMALL_N:
-        res = _msm_small_packed(G1P, points, scal)
-    else:
-        points, scal = _pad_pow2(points, scal)
-        res = _msm_packed(G1P, points, scal, c, affine, signed_c, on_phase)
-    out = tc.g1_to_affine_host(res)[0]
-    if on_phase:
-        on_phase("to_affine")
-    return out
+    n = scal.shape[0]
+    if n_segments < 1 or n % n_segments:
+        raise ValueError(f"msm_segmented: {n} points do not split into {n_segments} equal segments")
+    seg = n // n_segments
+    bounds = [(s * seg, (s + 1) * seg) for s in range(n_segments)]
+    if seg > _LADDER_MAX:
+        return [
+            msm_fn(_map_coords(lambda coord: coord[lo:hi], points), scal[lo:hi], device=device)
+            for lo, hi in bounds
+        ]
+    return _ladder_parts(Gp, to_affine, points, scal, bounds)
+
+
+def msm_multi_small(group_name: str, parts, device=torch.device("cuda")):
+    """Many small MSMs of differing lengths in one ladder launch.  `parts`
+    is a list of (points, scalars) pairs; returns their host affine sums.
+    (The PST opening's per-variable quotient commitments are the caller in
+    mind.)  If any part has more than 1024 points every part goes through
+    `msm_g1`/`msm_g2`, as in the JAX package."""
+    Gp, to_affine, msm_fn = _group(group_name)
+    device = torch.device(device)
+    parts = [
+        (_map_coords(lambda coord: coord.to(device), pts), _prep_scalars(scal, device))
+        for pts, scal in parts
+    ]
+    if not parts:
+        return []
+    if any(scal.shape[0] > _LADDER_MAX for _, scal in parts):
+        return [msm_fn(pts, scal, device=device) for pts, scal in parts]
+    bounds, off = [], 0
+    for _, scal in parts:
+        bounds.append((off, off + scal.shape[0]))
+        off += scal.shape[0]
+    cat_pts = _map_coords(lambda *coords: torch.cat(coords, dim=0), *[pts for pts, _ in parts])
+    cat_scal = torch.cat([scal for _, scal in parts], dim=0)
+    return _ladder_parts(Gp, to_affine, cat_pts, cat_scal, bounds)

@@ -1,8 +1,11 @@
-"""Packed-layout G1 group operations: kernel wrappers and plain versions.
+"""Packed-layout G1 and G2 group operations: kernel wrappers and plain versions.
 
 Counterpart of testudo_tpu/tpu/pallas_curve.py:606-760 (`PackedGroup`,
-`G1P`).  A batch of L points is one `(72, L)` int32 tensor: coordinate-major
-(X, Y, Z), 24 rows of 16-bit Montgomery limbs each, batch along L.
+`G1P`, `G2P`).  A batch of L points is one `(3 * ncomp * 24, L)` int32
+tensor: coordinate-major (X, Y, Z), within a coordinate component-major
+(c0, c1 for G2), 24 rows of 16-bit Montgomery limbs per component, batch
+along L.  The row of coordinate c, component comp, limb k is
+`(c * ncomp + comp) * 24 + k`: 72 rows for G1 (ncomp 1), 144 for G2.
 
 Every fused op has a wrapper that, on CUDA tensors, checks its arguments,
 launches the hand-written kernel (csrc/ec_ops.cu, ladder.cu, bucket.cu) on
@@ -15,7 +18,9 @@ held against its plain version on the card; they never launch a kernel.
 What differs from the JAX package: `ladder` is one launch (not one `step`
 launch per bit); `bucket_phase` gathers by index inside the kernel from a
 point-major table instead of streaming a materialised run tensor; masks are
-one int per lane; no lane padding to tiles anywhere.
+one int per lane; `add_mask` also takes ONE point for all lanes (a single
+column: the fixed-base ladder's table entry); no lane padding to tiles
+anywhere.
 """
 from __future__ import annotations
 
@@ -26,33 +31,51 @@ from . import build
 from . import curve as tc
 from .field import FQ, FieldSpec, LIMB_BITS
 
-_PLAIN = tc._G1PlainOps
-
-
 class PackedGroup:
-    """One EC group in packed-rows layout (G1 over Fq; G2 is a later slice)."""
+    """One EC group in packed-rows layout (G1: ncomp = 1, G2: ncomp = 2).
+    `b3_k` is the Montgomery form of (3 b).c1 for G2 (the kernels carry it as
+    a constant table), None for G1."""
 
-    def __init__(self, name: str, spec: FieldSpec):
+    def __init__(self, name: str, spec: FieldSpec, ncomp: int, b3_k: int | None):
+        if ncomp not in (1, 2):
+            raise ValueError(f"ncomp must be 1 or 2, got {ncomp}")
         self.name = name
         self.spec = spec
-        self.rows = 3 * spec.nlimbs
+        self.ncomp = ncomp
+        self.b3_k = b3_k
+        self.rows = 3 * ncomp * spec.nlimbs
+        # group law of the plain versions, never a kernel
+        self._plain = tc._G1PlainOps if ncomp == 1 else tc._G2PlainOps
+
+    def _counter(self, kernel: str) -> str:
+        """Name of this group's launch counter for `kernel`."""
+        return kernel if self.ncomp == 1 else kernel + "_g2"
 
     # -- layout ------------------------------------------------------------
 
     def pack(self, p) -> torch.Tensor:
-        """(X, Y, Z) of (batch, nlimbs) tensors -> (rows, L) packed tensor."""
+        """Point batch (X, Y, Z), each a (batch, nlimbs) tensor or for G2 a
+        (c0, c1) pair of them -> (rows, L) packed tensor."""
         n = self.spec.nlimbs
-        return torch.cat([c.reshape(-1, n).T for c in p], dim=0).contiguous()
+        comps = p if self.ncomp == 1 else [comp for coord in p for comp in coord]
+        return torch.cat([c.reshape(-1, n).T for c in comps], dim=0).contiguous()
 
     def unpack(self, a: torch.Tensor):
         n = self.spec.nlimbs
-        return tuple(a[c * n : (c + 1) * n].T.contiguous() for c in range(3))
+        comps = [a[i * n : (i + 1) * n].T.contiguous() for i in range(3 * self.ncomp)]
+        if self.ncomp == 1:
+            return tuple(comps)
+        return tuple((comps[2 * c], comps[2 * c + 1]) for c in range(3))
 
     def identity_packed(self, L: int, device=torch.device("cuda")) -> torch.Tensor:
         n = self.spec.nlimbs
         a = np.zeros((self.rows, L), dtype=np.int32)
-        a[n : 2 * n] = self.spec.to_limbs(self.spec.r_mod_p)[:, None]
+        ybase = self.ncomp * n  # Y (component c0) rows
+        a[ybase : ybase + n] = self.spec.to_limbs(self.spec.r_mod_p)[:, None]
         return torch.as_tensor(a, device=device)
+
+    def _select(self, mask, s, acc):
+        return tuple(self._plain.select(mask, s[c], acc[c]) for c in range(3))
 
     # -- argument checks -----------------------------------------------------
 
@@ -72,7 +95,7 @@ class PackedGroup:
     # -- add2 ------------------------------------------------------------------
 
     def add2_plain(self, a, b):
-        return self.pack(tc._complete_add(_PLAIN, self.unpack(a), self.unpack(b)))
+        return self.pack(tc._complete_add(self._plain, self.unpack(a), self.unpack(b)))
 
     def add2(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """a + b, complete add, lane by lane."""
@@ -82,16 +105,49 @@ class PackedGroup:
         build.require_cuda_int32("add2", a=a, b=b)
         out = torch.empty_like(a)
         with torch.cuda.device(a.device):
-            build.launch("add2", a.data_ptr(), b.data_ptr(), out.data_ptr(), L)
+            build.launch("add2", a.data_ptr(), b.data_ptr(), out.data_ptr(), L,
+                         self.ncomp, counted_as=self._counter("add2"))
+        return out
+
+    # -- add_mask --------------------------------------------------------------
+
+    def add_mask_plain(self, acc, pts, mask):
+        A = self.unpack(acc)
+        P = self.unpack(pts.expand(-1, acc.shape[1]))
+        return self.pack(self._select(mask != 0, tc._complete_add(self._plain, A, P), A))
+
+    def add_mask(self, acc: torch.Tensor, pts: torch.Tensor, mask: torch.Tensor):
+        """mask ? acc + pts : acc.  `pts` is (rows, L), or (rows, 1): one
+        point that every lane adds (the kernel reads the one column; nothing
+        is broadcast in memory).  mask is one int32 per lane."""
+        L = self._check_points("add_mask", acc)
+        if pts.dim() != 2 or pts.shape not in ((self.rows, L), (self.rows, 1)):
+            raise ValueError(
+                f"add_mask: pts must be ({self.rows}, {L}) or ({self.rows}, 1), "
+                f"got {tuple(pts.shape)}"
+            )
+        if mask.shape != (L,):
+            raise ValueError(f"add_mask: mask must have shape ({L},), got {tuple(mask.shape)}")
+        if not self._on_cuda(acc, pts, mask):
+            return self.add_mask_plain(acc, pts, mask)
+        build.require_cuda_int32("add_mask", acc=acc, pts=pts, mask=mask)
+        out = torch.empty_like(acc)
+        shared = int(pts.shape[1] == 1 and L != 1)
+        with torch.cuda.device(acc.device):
+            build.launch(
+                "add_mask", acc.data_ptr(), pts.data_ptr(), mask.data_ptr(),
+                out.data_ptr(), L, shared, self.ncomp,
+                counted_as=self._counter("add_mask"),
+            )
         return out
 
     # -- step ------------------------------------------------------------------
 
     def step_plain(self, acc, base, mask):
         A, B = self.unpack(acc), self.unpack(base)
-        s = tc._complete_add(_PLAIN, A, B)
-        out = tuple(_PLAIN.select(mask != 0, s[c], A[c]) for c in range(3))
-        return self.pack(out), self.pack(tc._complete_double(_PLAIN, B))
+        s = tc._complete_add(self._plain, A, B)
+        return (self.pack(self._select(mask != 0, s, A)),
+                self.pack(tc._complete_double(self._plain, B)))
 
     def step(self, acc: torch.Tensor, base: torch.Tensor, mask: torch.Tensor):
         """(mask ? acc + base : acc, 2 base); mask is one int32 per lane."""
@@ -105,30 +161,48 @@ class PackedGroup:
         with torch.cuda.device(acc.device):
             build.launch(
                 "step", acc.data_ptr(), base.data_ptr(), mask.data_ptr(),
-                out_acc.data_ptr(), out_base.data_ptr(), L,
+                out_acc.data_ptr(), out_base.data_ptr(), L, self.ncomp,
+                counted_as=self._counter("step"),
             )
         return out_acc, out_base
+
+    # -- scan2 -----------------------------------------------------------------
+
+    def scan2_plain(self, run, tot, bl):
+        run2 = tc._complete_add(self._plain, self.unpack(run), self.unpack(bl))
+        return (
+            self.pack(run2),
+            self.pack(tc._complete_add(self._plain, self.unpack(tot), run2)),
+        )
+
+    def scan2(self, run: torch.Tensor, tot: torch.Tensor, bl: torch.Tensor):
+        """(run + bl, tot + (run + bl)): two dependent adds."""
+        return self._scan("scan2", self.scan2_plain, run, tot, bl)
 
     # -- scan2b ----------------------------------------------------------------
 
     def scan2b_plain(self, run, tot, bl):
         R, T, B = self.unpack(run), self.unpack(tot), self.unpack(bl)
         return (
-            self.pack(tc._complete_add(_PLAIN, R, B)),
-            self.pack(tc._complete_add(_PLAIN, T, R)),
+            self.pack(tc._complete_add(self._plain, R, B)),
+            self.pack(tc._complete_add(self._plain, T, R)),
         )
 
     def scan2b(self, run: torch.Tensor, tot: torch.Tensor, bl: torch.Tensor):
         """(run + bl, tot + run): two independent adds on the old run."""
-        L = self._check_points("scan2b", run, tot, bl)
+        return self._scan("scan2b", self.scan2b_plain, run, tot, bl)
+
+    def _scan(self, kernel: str, plain, run, tot, bl):
+        L = self._check_points(kernel, run, tot, bl)
         if not self._on_cuda(run, tot, bl):
-            return self.scan2b_plain(run, tot, bl)
-        build.require_cuda_int32("scan2b", run=run, tot=tot, bl=bl)
+            return plain(run, tot, bl)
+        build.require_cuda_int32(kernel, run=run, tot=tot, bl=bl)
         out_run, out_tot = torch.empty_like(run), torch.empty_like(tot)
         with torch.cuda.device(run.device):
             build.launch(
-                "scan2b", run.data_ptr(), tot.data_ptr(), bl.data_ptr(),
-                out_run.data_ptr(), out_tot.data_ptr(), L,
+                kernel, run.data_ptr(), tot.data_ptr(), bl.data_ptr(),
+                out_run.data_ptr(), out_tot.data_ptr(), L, self.ncomp,
+                counted_as=self._counter(kernel),
             )
         return out_run, out_tot
 
@@ -141,9 +215,9 @@ class PackedGroup:
         for k in range(nl):
             for b in range(LIMB_BITS):
                 m = ((scal_rows[k] >> b) & 1) != 0
-                s = tc._complete_add(_PLAIN, acc, base)
-                acc = tuple(_PLAIN.select(m, s[c], acc[c]) for c in range(3))
-                base = tc._complete_double(_PLAIN, base)
+                s = tc._complete_add(self._plain, acc, base)
+                acc = self._select(m, s, acc)
+                base = tc._complete_double(self._plain, base)
         return self.pack(acc)
 
     def ladder(self, pts: torch.Tensor, scal_rows: torch.Tensor) -> torch.Tensor:
@@ -161,14 +235,14 @@ class PackedGroup:
         with torch.cuda.device(pts.device):
             build.launch(
                 "ladder", pts.data_ptr(), scal_rows.data_ptr(), out.data_ptr(),
-                scal_rows.shape[0], L,
+                scal_rows.shape[0], L, self.ncomp,
+                counted_as=self._counter("ladder"),
             )
         return out
 
     # -- bucket ----------------------------------------------------------------
 
     def bucket_phase_plain(self, table, idx, start, count, mixed=False):
-        n = self.spec.nlimbs
         L = start.shape[0]
         acc = self.unpack(self.identity_packed(L, device=table.device))
         steps = int(count.max()) if L else 0
@@ -177,14 +251,13 @@ class PackedGroup:
         for t in range(steps):
             pos = (start64 + t).clamp(max=last)
             src = idx[pos].to(torch.int64) if idx is not None else pos
-            pts = table[src]  # (L, rows)
-            X, Y, Z = (pts[:, c * n : (c + 1) * n] for c in range(3))
+            X, Y, Z = self.unpack(table[src].T)  # the gathered rows are (L, rows)
             if mixed:
-                s = tc._complete_add_mixed(_PLAIN, acc, (X, Y))
+                s = tc._complete_add_mixed(self._plain, acc, (X, Y))
             else:
-                s = tc._complete_add(_PLAIN, acc, (X, Y, Z))
+                s = tc._complete_add(self._plain, acc, (X, Y, Z))
             live = t < count64
-            acc = tuple(_PLAIN.select(live, s[c], acc[c]) for c in range(3))
+            acc = self._select(live, s, acc)
         return self.pack(acc)
 
     def bucket_phase(self, table, idx, start, count, mixed: bool = False):
@@ -217,7 +290,8 @@ class PackedGroup:
             build.launch(
                 "bucket", table.data_ptr(), idx.data_ptr() if idx is not None else None,
                 start.data_ptr(), count.data_ptr(), out.data_ptr(), L, int(mixed),
-                counted_as="bucket_mixed" if mixed else "bucket",
+                self.ncomp,
+                counted_as=self._counter("bucket_mixed" if mixed else "bucket"),
             )
         return out
 
@@ -237,4 +311,5 @@ class PackedGroup:
         return a
 
 
-G1P = PackedGroup("g1", FQ)
+G1P = PackedGroup("g1", FQ, 1, None)
+G2P = PackedGroup("g2", FQ, 2, FQ.to_mont_int(tc._B3_K))

@@ -1,10 +1,11 @@
-"""BLS12-377 constants for the G1 path, derived from the BLS seed.
+"""BLS12-377 constants for the G1 and G2 group layer, derived from the BLS seed.
 
-Counterpart of testudo_tpu/fields/bls12_377.py, trimmed to what the G1
-multi-scalar multiplication needs: r = x^4 - x^2 + 1,
-p = (x-1)^2 * r / 3 + x, G1: y^2 = x^3 + 1, cofactor h1 = (x-1)^2 / 3.
-Deriving rather than hard-coding keeps the constants self-verifying; the
-asserts below run at import.  The G2/tower constants wait for the G2 slice.
+Counterpart of testudo_tpu/fields/bls12_377.py, trimmed to what the two
+groups need: r = x^4 - x^2 + 1, p = (x-1)^2 * r / 3 + x, G1: y^2 = x^3 + 1
+with cofactor h1 = (x-1)^2 / 3, and for G2 the quadratic non-residue of
+Fq2 = Fq[u] / (u^2 + 5) and the cofactor h2 of the twist.  Deriving rather
+than hard-coding keeps the constants self-verifying; the asserts below run
+at import.  The Fq6/Fq12 tower constants wait for the pairing slice.
 """
 
 X_SEED = 0x8508C00000000001
@@ -21,11 +22,18 @@ FQ_BITS = P.bit_length()  # 377
 FR_MONT_R = 1 << 256
 FQ_MONT_R = 1 << 384
 
+# Fq2 = Fq[u] / (u^2 - FQ2_NONRESIDUE): u^2 = -5.
+FQ2_NONRESIDUE = P - 5
+
 # G1 curve: y^2 = x^3 + 1.
 B1 = 1
 
-# G1 cofactor.
+# Cofactors: G1, and the standard BLS12 polynomial for G2.
 H1 = (X_SEED - 1) ** 2 // 3
+H2 = (
+    X_SEED**8 - 4 * X_SEED**7 + 5 * X_SEED**6 - 4 * X_SEED**4
+    + 6 * X_SEED**3 - 4 * X_SEED**2 - 4 * X_SEED + 13
+) // 9
 
 G1_ORDER = P + 1 - TRACE  # = h1 * r
 
