@@ -17,19 +17,35 @@ testudo_tpu_torch/csrc/, then
      `msm_segmented` and `msm_multi_small` for both groups, each against the
      host, and the field path (`curve.g1_add` / `curve.g2_add` through the
      Montgomery kernel) against the fused add kernels;
-  4. calls every kernel's wrapper at the shapes the main paths gave it and
+  4. drives the sqrt-PST polynomial commitment end to end (`pst.setup`,
+     `Polynomial.from_evaluations`, `eval`, `commit`, `open` with MIPP,
+     `sqrt_pst.verify`) at nv = 10, 14 and, at full width, nv = 20 (a
+     2^20-entry table): the verifier accepts, rejects the value + 1, `eval`
+     equals a host evaluation in Python ints, T equals the multi-pairing of
+     the affine column commitments, spot columns equal host MSMs, the proof
+     has its hardware-independent size; commit, open and verify are timed
+     with their parts, and the launches of one warm commit, open and verify
+     are counted;
+  5. runs the chained-product harness (tools/exp_montmul.py), which
+     measures the card's Montgomery products per second;
+  6. calls every kernel's wrapper at the shapes the main paths gave it and
      holds the result against the kernel's plain PyTorch version on the
      same inputs (integers: the tolerance is exact equality, max_abs_err
      must be 0), at a lane count that is no multiple of the block size and
      with edge cases mixed in, and times both;
-  5. checks a small MSM against the host oracle;
-  6. prints one JSON line {"kernels": [...]} and, last,
+  7. checks a small MSM against the host oracle;
+  8. prints one JSON line {"kernels": [...]} (each row's `launches` is the
+     sum of `launches_by_path`, the kernel's count on each driven path: msm,
+     fixed_base, field, commit, open, verify, harness; the run fails if a
+     kernel was not launched on a path it belongs to) and, last,
      {"ok": true, "device": {...}}.
 
 Any failure raises and the process exits non-zero.  It imports neither jax
 nor the JAX package.  `--kernels-only` stops after a short build-and-compare
-pass at small shapes (a first call after editing a kernel); the default run
-is the full check.
+pass at small shapes (a first call after editing a kernel); `--msm-only`
+stops after `msm_g1` and `msm_g2` at 2^20 (exact check, cold and warm times,
+phase split: to compare two checkouts on one card, run it from each in turn
+within one shell command); the default run is the full check.
 """
 from __future__ import annotations
 
@@ -44,42 +60,81 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from testudo_tpu_torch import native, proofs
+from testudo_tpu_torch.core import pst, sqrt_pst
 from testudo_tpu_torch.curves import host_curve as hc
+from testudo_tpu_torch.curves import pairing as pr
+from testudo_tpu_torch.curves import profile as cprof
 from testudo_tpu_torch.device import build, msm
 from testudo_tpu_torch.device import curve as tc
+from testudo_tpu_torch.device import field as tf
 from testudo_tpu_torch.device import packed_field
 from testudo_tpu_torch.device.field import FQ, FR
 from testudo_tpu_torch.device.packed_curve import G1P, G2P
 from testudo_tpu_torch.fields.bls12_377 import R
+from testudo_tpu_torch.poly import dense
+from testudo_tpu_torch.poseidon.transcript import PoseidonTranscript, fq_params
+from testudo_tpu_torch.tools import exp_montmul
+from testudo_tpu_torch.utils import timer
 
 # Least-time model.  Bytes: every input read once, every output written
 # once, over the H100's 3.35 TB/s.  Operations: the 32-bit multiply-adds of
 # the Montgomery products (2 N^2 + N per product of N-word operands; the
 # carry additions around them are left out, so the bound is a lower one),
-# over the card's int32 rate.  NVIDIA's data sheet gives 67 TFLOP/s float32
-# outside the tensor cores, i.e. 33.5e12 fused multiply-adds a second on
-# 128 float32 lanes per SM; an SM has 64 int32 lanes, so the int32
-# multiply-add peak is taken as half of that.
+# over the card's int32 rate as derived from the data sheet (half the
+# float32 rate: tools/exp_montmul.py has the derivation, and measures what a
+# chain of products really reaches, which is lower; a bound must not be
+# beatable, so the derived figure stays the bound).
 HBM_BYTES_PER_S = 3.35e12
-INT32_MADD_PER_S = 67e12 / 2 / 2
-MADD_FQ = 2 * 12 * 12 + 12
-MADD_FR = 2 * 8 * 8 + 8
+INT32_MADD_PER_S = exp_montmul.DERIVED_INT32_MADD_PER_S
+MADD_FQ = exp_montmul.madds_per_product(FQ)
+MADD_FR = exp_montmul.madds_per_product(FR)
 
 # TPU kernel each port kernel replaces (both groups come from the same
 # `_ec_call` factory, at ncomp 1 and 2) and its CUDA source.
 _EC = "testudo_tpu/tpu/pallas_curve.py"
 _REPLACES = {
     "mont_mul": "testudo_tpu/tpu/pallas_field.py:226",
+    "mont_mul_rm_fq": "testudo_tpu/tpu/kernels.py:34",
+    "mont_mul_rm_fr": "testudo_tpu/tpu/kernels.py:34",
+    "mont_chain": "tools/exp_montmul_block.py:114",
+    "mont_chain_seq": "tools/exp_mulmany_wide.py:60",
+    "mont_chain_wide": "tools/exp_mulmany_wide.py:60",
     "add_mask": _EC + ":403", "add2": _EC + ":415", "step": _EC + ":424",
     "scan2": _EC + ":437", "scan2b": _EC + ":450", "bucket": _EC + ":461",
     "bucket_mixed": _EC + ":509", "ladder": _EC + ":733",
 }
 _CSRC = "testudo_tpu_torch/csrc/"
 _SOURCE = {
+    "mont_mul_rm_fq": "mont_mul_rm.cu", "mont_mul_rm_fr": "mont_mul_rm.cu",
+    "mont_chain": "mont_chain.cu", "mont_chain_seq": "mont_chain.cu",
+    "mont_chain_wide": "mont_chain.cu",
     "mont_mul": "mont_mul.cu", "add_mask": "ec_ops.cu", "add2": "ec_ops.cu",
     "step": "ec_ops.cu", "scan2": "ec_ops.cu", "scan2b": "ec_ops.cu",
     "ladder": "ladder.cu", "bucket": "bucket.cu", "bucket_mixed": "bucket.cu",
 }
+# proof bytes (PST opening + MIPP proof) of sqrt-PST per number of variables:
+# counts of group and field elements, the same on any hardware
+PROOF_BYTES = {10: 7136, 14: 9920, 20: 14096}
+# The paths on which each kernel must be launched at least once (each path is
+# driven with the counters zeroed just before and read just after).  K1
+# (`mont_mul`) serves (n, m) callers and `scan2` is on no path: both are
+# launched in the kernel phase only.
+_MSM_KERNELS = ("add2", "step", "scan2b", "ladder", "bucket", "bucket_mixed")
+MUST_LAUNCH = {
+    "mont_mul": (), "scan2": (), "scan2_g2": (),
+    "mont_mul_rm_fq": ("field", "open"),
+    "mont_mul_rm_fr": ("commit", "open"),
+    "mont_chain": ("harness",), "mont_chain_seq": ("harness",), "mont_chain_wide": ("harness",),
+    "add_mask": ("fixed_base",), "add_mask_g2": ("fixed_base",),
+    **{k: ("msm",) for k in _MSM_KERNELS},
+    **{k + "_g2": ("msm",) for k in _MSM_KERNELS},
+}
+MUST_LAUNCH.update({
+    "add2": ("msm", "commit", "open"), "ladder": ("msm", "commit", "open"),
+    "bucket": ("msm", "commit", "open"), "step": ("msm", "open"), "scan2b": ("msm", "open"),
+    "add2_g2": ("msm", "open"), "ladder_g2": ("msm", "open"),
+})
 N_UNIQUE = 1 << 13
 ODD = 37  # extra lanes so no compared batch is a multiple of a block size
 
@@ -166,7 +221,8 @@ class Report:
         kernel = name[:-3] if name.endswith("_g2") else name
         self.rows[name] = {
             "name": name, "route": "cuda", "source": _CSRC + _SOURCE[kernel],
-            "replaces": _REPLACES[kernel], "launches": 0, "max_abs_err": err,
+            "replaces": _REPLACES[kernel], "launches": 0, "launches_by_path": {},
+            "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": None, "shape": shape,
         }
@@ -246,9 +302,22 @@ def phase_device():
     t0 = time.time()
     build.library()
     rep = build.build_report()
-    say(f"kernel build: {time.time() - t0:.1f} s (nvcc {rep['seconds']:.1f} s)")
+    say(f"kernel build: {time.time() - t0:.1f} s (nvcc {rep['seconds']:.1f} s; each source, "
+        f"compiled side by side: {json.dumps(rep['per_source'])})")
     for line in rep["ptxas"]:
         say("  " + line)
+    # the host library (pairings, GT powers, host MSMs): the port's own copy
+    t0 = time.time()
+    if native.available():
+        where = native.library_path()
+        if not where.startswith(str(build.BUILD_ROOT)):
+            raise AssertionError(f"native library loaded from {where}")
+        say(f"host pairing: native library (g++, {time.time() - t0:.1f} s), "
+            f"{native.lib().tn_nthreads()} threads")
+    elif native.compiler() is not None:
+        raise AssertionError(f"the native host library did not build or load: {native.build_error()}")
+    else:
+        say("host pairing: pure Python (no g++ on this machine)")
     return smi
 
 
@@ -369,21 +438,23 @@ def msm_plan(grp, pts, scal):
 
 def phase_field_path(dev, grp, proj):
     """curve.g1_add / g2_add on 2^16 lanes goes through field.mont_mul -> the
-    Montgomery kernel; it must equal the fused add kernel limb for limb."""
+    row-major Montgomery kernel; it must equal the fused add kernel limb for
+    limb."""
     L = 1 << 16
     a = proj.repeat(1, L // N_UNIQUE)
     b = torch.roll(a, 1, dims=1).contiguous()
     build.reset_launches()
     got = grp.add(grp.Gp.unpack(a), grp.Gp.unpack(b))
     torch.cuda.synchronize()
-    launches = build.LAUNCHES["mont_mul"]
-    if launches == 0:
-        raise AssertionError(f"curve.{grp.name}_add did not launch the Montgomery kernel")
+    snap = dict(build.LAUNCHES)
+    launches = snap["mont_mul_rm_fq"]
+    if launches == 0 or snap["mont_mul"] != 0:
+        raise AssertionError(f"curve.{grp.name}_add did not launch the row-major Montgomery kernel")
     if not torch.equal(grp.Gp.pack(got), grp.Gp.add2(a, b)):
         raise AssertionError(f"curve.{grp.name}_add differs from the fused add kernel")
     say(f"field path: curve.{grp.name}_add on 2^16 lanes ({launches} Montgomery launches) "
         f"equals the add2 kernel")
-    return launches
+    return snap
 
 
 def phase_fixed_base(dev, grp):
@@ -400,7 +471,8 @@ def phase_fixed_base(dev, grp):
     out = grp.fixed(torch.as_tensor(scal_np, device=dev), base, device=dev)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = build.LAUNCHES[name]
+    snap = dict(build.LAUNCHES)
+    launches = snap[name]
     if launches != 16 * FR.nlimbs:
         raise AssertionError(f"fixed_base_mul_{grp.name}: {launches} add_mask launches, expected 256")
     lanes = [0, 1, 2, 3, 777, N - 1]
@@ -410,7 +482,7 @@ def phase_fixed_base(dev, grp):
         raise AssertionError(f"fixed_base_mul_{grp.name} disagrees with the host")
     say(f"fixed_base_mul_{grp.name} on 2^16 scalars: {launches} {name} launches, {secs:.3f} s, "
         f"{len(lanes)} lanes equal the host")
-    return launches
+    return snap
 
 
 def phase_small_msms(dev, grp, affine_pts, ks):
@@ -447,6 +519,165 @@ def phase_small_msms(dev, grp, affine_pts, ks):
         raise AssertionError(f"msm_multi_small({grp.name}) disagrees with the host")
     say(f"{grp.name}: scalar_mul_batch (64 lanes), msm_segmented (2 x 2^10, one ladder launch) "
         f"and msm_multi_small ({len(sizes)} parts of 512..1, one ladder launch) equal the host")
+
+
+# ---------------------------------------------------------------------------
+# sqrt-PST: commit, open, verify
+# ---------------------------------------------------------------------------
+
+
+def host_evaluate(Z, point) -> int:
+    """Multilinear evaluation in Python ints, MSB-first binding."""
+    for r in point:
+        half = len(Z) // 2
+        Z = [(lo + r * (hi - lo)) % R for lo, hi in zip(Z[:half], Z[half:])]
+    return Z[0]
+
+
+def _split(records) -> dict:
+    out = {}
+    for label, secs in records:
+        out[label] = round(out.get(label, 0.0) + secs, 4)
+    return out
+
+
+def phase_sqrt_pst(dev, nv: int, full: bool):
+    """One sqrt-PST run at 2^nv evaluations: exactness, reject path, proof
+    size; with `full` also timings, their parts and the launch counts of one
+    warm commit, one open and one verify (returned, each on its own)."""
+    import random
+
+    pf = cprof.bls12_377(dev)
+    m_row = nv // 2 + nv % 2
+    m_col = nv // 2
+    (ck, vk), setup_ms = timed_once(lambda: pst.setup(m_row, profile=pf))
+    limbs = random_scalars(1 << nv, 7)
+    table = dense._to_mont_dev(torch.as_tensor(limbs, device=dev))
+    prng = random.Random(7)
+    point = [prng.randrange(R) for _ in range(nv)]
+    pl = sqrt_pst.Polynomial.from_evaluations(table, pf)
+    v, eval_ms = timed_once(lambda: pl.eval(point))
+    Z = FR.from_limbs(limbs)
+    if v != host_evaluate(Z, point):
+        raise AssertionError(f"sqrt-PST nv={nv}: eval differs from the host evaluation")
+
+    (comm, T), commit_cold = timed_once(lambda: pl.commit(ck))
+    level = ck.nv - pl.m_row
+    # the host side of the commit, piece by piece
+    comm_aff, aff1_ms = timed_once(lambda: pf.g1b.to_affine(comm))
+    h_aff, aff2_ms = timed_once(lambda: pf.g2b.to_affine(ck.powers_of_h[level + pl.odd]))
+    T_host, pair_ms = timed_once(lambda: pr.multi_pairing(comm_aff, h_aff))
+    if len(comm_aff) != 1 << m_col or T != T_host:
+        raise AssertionError(f"sqrt-PST nv={nv}: T differs from the multi-pairing of the commitments")
+    tr = PoseidonTranscript(fq_params())
+    t0 = time.perf_counter()
+    tr.append_bytes(pf.ser_gt(T))
+    tr.append_bytes(pf.ser_gt(T))
+    tr.challenge_scalar(R)
+    sponge_ms = (time.perf_counter() - t0) * 1e3
+    host_parts = (f"to_affine of {len(comm_aff)} G1 points {aff1_ms:.1f} ms, of {len(h_aff)} G2 points "
+                  f"{aff2_ms:.1f} ms, multi-pairing of {len(h_aff)} pairs {pair_ms:.1f} ms, transcript "
+                  f"(two GT absorbs and a challenge, as one MIPP round) {sponge_ms:.1f} ms")
+    basis_aff = pf.g1b.to_affine(ck.powers_of_g[level])
+    ncols = 1 << m_col
+    spots = sorted({0, 1, ncols // 3, ncols // 2, ncols - 2, ncols - 1, 5 % ncols, 77 % ncols})
+    host_msm = native.g1_msm if native.available() else hc.g1_msm
+    for k in spots:  # column k holds Z[(j << m_col) | k]
+        if comm_aff[k] != host_msm(basis_aff, Z[k::ncols]):
+            raise AssertionError(f"sqrt-PST nv={nv}: column commitment {k} differs from the host MSM")
+
+    def do_open():
+        pl.q = None  # the opening recomputes q, as a prover that did not call eval would
+        return pl.open(PoseidonTranscript(fq_params()), comm, ck, point, T)
+
+    def do_verify(value):
+        return sqrt_pst.verify(PoseidonTranscript(fq_params()), vk, U, point, value,
+                               pst_proof, mipp_proof, T)
+
+    (U, pst_proof, mipp_proof), open_cold = timed_once(do_open)
+    ok, verify_cold = timed_once(lambda: do_verify(v))
+    if ok is not True:
+        raise AssertionError(f"sqrt-PST nv={nv}: the verifier rejected an honest proof")
+    if do_verify((v + 1) % R) is not False:
+        raise AssertionError(f"sqrt-PST nv={nv}: the verifier accepted a wrong value")
+    size = len(proofs.ser_pst_proof(pst_proof)) + len(proofs.ser_mipp(mipp_proof))
+    if size != PROOF_BYTES[nv]:
+        raise AssertionError(f"sqrt-PST nv={nv}: proof of {size} bytes, expected {PROOF_BYTES[nv]}")
+    say(f"sqrt-PST nv={nv} ({1 << m_row} x {ncols}): eval, T and {len(spots)} spot columns exact; "
+        f"verify true, v + 1 rejected; proof {size} B; setup {setup_ms / 1e3:.3f} s, "
+        f"eval {eval_ms / 1e3:.3f} s, cold commit {commit_cold / 1e3:.3f} s, "
+        f"open {open_cold / 1e3:.3f} s, verify {verify_cold / 1e3:.3f} s")
+    if not full:
+        return None
+
+    # warm timings and their parts; launches of the last warm commit, one
+    # open and one verify
+    commits, parts = [], {}
+    for i in range(3):
+        build.reset_launches()
+        with timer.record() as rec:
+            (comm2, T2), ms = timed_once(lambda: pl.commit(ck))
+        commits.append(ms / 1e3)
+        parts = _split(rec)
+        if T2 != T:
+            raise AssertionError("a warm commit changed T")
+    counts_commit = dict(build.LAUNCHES)
+    build.reset_launches()
+    with timer.record() as rec:
+        (U2, pst2, mipp2), open_warm = timed_once(do_open)
+    open_parts = _split(rec)
+    counts_open = dict(build.LAUNCHES)
+    if U2 != U or proofs.ser_mipp(mipp2) != proofs.ser_mipp(mipp_proof):
+        raise AssertionError("a second opening differs from the first")
+    build.reset_launches()
+    with timer.record() as rec:
+        ok, verify_warm = timed_once(lambda: do_verify(v))
+    verify_parts = _split(rec)
+    counts_verify = dict(build.LAUNCHES)
+    if ok is not True:
+        raise AssertionError("the warm verify rejected")
+    say(f"sqrt-PST nv={nv} warm: commit {[round(c, 4) for c in commits]} s "
+        f"(median {statistics.median(commits):.4f} s), open {open_warm / 1e3:.4f} s, "
+        f"verify {verify_warm / 1e3:.4f} s")
+    say(f"  commit parts (s): {json.dumps(parts)}")
+    say(f"  host side of a commit: {host_parts}")
+    say(f"  open parts (s): {json.dumps(open_parts)}")
+    say(f"  verify parts (s): {json.dumps(verify_parts)}")
+
+    # the multi-MSM of the commit, stage by stage (synchronised)
+    canon = pst._to_canon_scalars(pl.matrix.transpose(0, 1), FR)
+    marks = []
+
+    def hook(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter()))
+
+    torch.cuda.synchronize()
+    prev = time.perf_counter()
+    msm._multi_msm_device("g1", ck.powers_of_g[level], canon, msm._pick_window(canon.shape[1]),
+                          on_phase=hook)
+    stages = {}
+    for name, t in marks:
+        stages[name] = round((t - prev) * 1e3, 3)
+        prev = t
+    say(f"  multi-MSM stages (ms, synchronised; K={canon.shape[0]} N={canon.shape[1]} c={msm._pick_window(canon.shape[1])}): "
+        f"{json.dumps(stages)}")
+    nz = lambda d: {k: n for k, n in d.items() if n}
+    say(f"  launches, one warm commit: {json.dumps(nz(counts_commit))}")
+    say(f"  launches, one open: {json.dumps(nz(counts_open))}")
+    say(f"  launches, one verify: {json.dumps(nz(counts_verify))}")
+    if counts_commit["mont_mul_rm_fr"] == 0 or counts_open["mont_mul_rm_fr"] == 0:
+        raise AssertionError("sqrt-PST did not launch the row-major Montgomery kernel")
+    by_path = {"commit": counts_commit, "open": counts_open, "verify": counts_verify}
+    return by_path, canon, ck.powers_of_g[level]
+
+
+def phase_harness(dev):
+    """The chained-product harness as its user runs it; returns the launches
+    it made."""
+    build.reset_launches()
+    exp_montmul.run(dev, say=say)
+    return dict(build.LAUNCHES)
 
 
 def edge_points(dev, grp, proj, L: int):
@@ -494,6 +725,149 @@ def kernels_montgomery(dev, rep: Report, quick: bool):
             b_ms, b_by = bound(3 * spec.nlimbs * 4 * lanes, madd * lanes)
             say(f"kernel mont_mul (Fr, (16, {lanes})): equal to plain version; "
                 f"ms={ms:.4f} plain_ms={plain:.2f} bound_ms={b_ms:.5f} ({b_by})")
+
+
+def kernels_rowmajor(dev, rep: Report, quick: bool):
+    """The row-major Montgomery product: Fr at (2^20, 16) with ONE shared
+    second operand (a table times a scalar), Fq at (393216, 24) with two full
+    operands (K1's shape).  Beside each, the path it replaced behind
+    `field.mont_mul`: K1 on (n, m) rows plus the copies around it."""
+    for spec, n_main, shared, madd in ((FR, 1 << 20, True, MADD_FR), (FQ, 6 << 16, False, MADD_FQ)):
+        p = spec.modulus
+        n = (1 << 12 if quick else n_main) + ODD
+        rng = np.random.default_rng(31)
+        vals = rng.integers(0, 1 << 16, size=(2, n, spec.nlimbs), dtype=np.int64)
+        vals[:, :, -1] &= 0x00FF if spec is FQ else 0x0FFF  # below p
+        edges = np.asarray(spec.to_limbs([0, 1, p - 1, spec.r_mod_p, p - 1]))
+        vals[0, :5] = edges
+        vals[1, :5] = edges[::-1]
+        a, b = (torch.as_tensor(v.astype(np.int32), device=dev) for v in vals)
+        if shared:
+            b = b[7].clone()
+        got = tf.mont_mul(spec, a, b)
+        want = tf.mont_mul_plain(spec, a, b)
+        if shared:  # a broadcast that is no single element is expanded: same limbs
+            three = a[: 3 * (n // 3)].reshape(3, n // 3, spec.nlimbs)
+            row = a[None, : n // 3]
+            if not torch.equal(tf.mont_mul(spec, three, row), tf.mont_mul_plain(spec, three, row)):
+                raise AssertionError("row-major kernel: a broadcast operand gives other limbs")
+        a0 = a[: n - ODD].contiguous()
+        b0 = b if shared else b[: n - ODD].contiguous()
+        ms = time_ms(lambda: tf.mont_mul(spec, a0, b0), 20)
+        plain = time_ms(lambda: tf.mont_mul_plain(spec, a0, b0), 1)
+
+        def old_path():  # what field.mont_mul did before: to (n, m) rows, K1, back
+            at = a0.T.contiguous()
+            bt = b0.expand(a0.shape).T.contiguous()
+            return packed_field.mont_mul_rows(spec, at, bt).T.contiguous()
+
+        if not torch.equal(old_path(), got[: n - ODD]):
+            raise AssertionError("row-major kernel differs from K1 on transposed operands")
+        old_ms = time_ms(old_path, 20)
+        lanes = n - ODD
+        nbytes = (2 if shared else 3) * spec.nlimbs * 4 * lanes + (spec.nlimbs * 4 if shared else 0)
+        rep.add("mont_mul_rm_" + spec.name, got, want, ms, plain, nbytes, madd * lanes,
+                f"({lanes}, {spec.nlimbs}) {spec.name}, " +
+                ("one shared second operand" if shared else "two full operands") +
+                f"; K1 with its transposes at this shape: {old_ms:.4f} ms")
+        say(f"  the same product through K1 and its transposes: {old_ms:.4f} ms")
+
+
+def kernels_chain(dev, rep: Report, quick: bool):
+    """The chained-product kernels against K applications of the plain
+    product (compared at K = 8, at the TPU harnesses' shapes plus a ragged
+    edge), both formulations and both variants; timed at K = 64 on the lanes
+    that fill the card."""
+    K = exp_montmul.K_LO
+    G = exp_montmul.GROUP
+    for spec in (FQ, FR):
+        L = exp_montmul.L_REFERENCE + ODD
+        a = exp_montmul.random_rows(spec, (spec.nlimbs, L), 41, dev)
+        b = exp_montmul.random_rows(spec, (spec.nlimbs, L), 42, dev)
+        a[:, :3] = torch.as_tensor(spec.to_limbs([0, 1, spec.modulus - 1]).T.copy(), device=dev)
+        want, plain = timed_once(lambda: packed_field.mont_mul_chain_plain(spec, a, b, K))
+        got = [packed_field.mont_mul_chain(spec, a, b, K, inline_body=f) for f in (True, False)]
+        Lg = exp_montmul.L_REFERENCE_GROUP + ODD
+        ag = exp_montmul.random_rows(spec, (G, spec.nlimbs, Lg), 43, dev)
+        bg = exp_montmul.random_rows(spec, (G, spec.nlimbs, Lg), 44, dev)
+        want_g, plain_g = timed_once(lambda: packed_field.mont_mul_chain_plain(spec, ag, bg, K))
+        got_g = {v: [packed_field.mont_mul_chain_group(spec, ag, bg, K, v, inline_body=f)
+                     for f in (True, False)] for v in ("seq", "wide")}
+        for t in got:
+            if max_abs_err(t, want) != 0:
+                raise AssertionError(f"chain kernel ({spec.name}) differs from its plain version")
+        for v, ts in got_g.items():
+            for t in ts:
+                if max_abs_err(t, want_g) != 0:
+                    raise AssertionError(f"chain kernel {v} ({spec.name}) differs from its plain version")
+        say(f"chain kernels ({spec.name}): inline, call, seq and wide equal K = {K} applications "
+            f"of the plain product at ({spec.nlimbs}, {L}) and ({G}, {spec.nlimbs}, {Lg})")
+        if spec is not FQ:
+            continue
+        # rows: Fq, K = 64, the card-filling lane count
+        Lc = 1 << 12 if quick else exp_montmul.L_CARD
+        K64 = exp_montmul.K_HI
+        ac = exp_montmul.random_rows(spec, (G, spec.nlimbs, Lc // G), 45, dev)
+        bc = exp_montmul.random_rows(spec, (G, spec.nlimbs, Lc // G), 46, dev)
+        a1 = exp_montmul.random_rows(spec, (spec.nlimbs, Lc), 47, dev)
+        b1 = exp_montmul.random_rows(spec, (spec.nlimbs, Lc), 48, dev)
+        lanes = (Lc // G) * G
+        rep.add("mont_chain", got[0], want,
+                time_ms(lambda: packed_field.mont_mul_chain(spec, a1, b1, K64), 5), plain,
+                3 * spec.nlimbs * 4 * Lc, MADD_FQ * K64 * Lc,
+                f"({spec.nlimbs}, {Lc}) Fq, K = {K64}, inlined body; compared at K = {K}, "
+                f"({spec.nlimbs}, {L}), both formulations, plain_ms from there")
+        for v in ("seq", "wide"):
+            rep.add("mont_chain_" + v, got_g[v][0], want_g,
+                    time_ms(lambda: packed_field.mont_mul_chain_group(spec, ac, bc, K64, v), 5),
+                    plain_g, 3 * spec.nlimbs * 4 * lanes, MADD_FQ * K64 * lanes,
+                    f"({G}, {spec.nlimbs}, {Lc // G}) Fq, K = {K64}; compared at K = {K}, "
+                    f"({G}, {spec.nlimbs}, {Lg}), both formulations, plain_ms from there")
+
+
+def kernels_commit_bucket(dev, rep: Report, canon, basis):
+    """The general bucket kernel at the commit's own arguments (the shared
+    table, K * W lanes of N adds each).  A ragged subset of the real lanes
+    (taken across all columns and windows, most with the full run of N, a few
+    cut short or empty) goes through the kernel and through its plain version
+    on the same table and index list, and must agree limb for limb; the whole
+    launch is timed beside its bound.  The figures go into the `bucket` row as
+    extra keys."""
+    Gp = G1P
+    c = msm._pick_window(canon.shape[1])
+    ptcat = msm._cat_points(basis)
+    table = msm._multi_msm_table(Gp, ptcat, c)
+    K, N, _ = canon.shape
+    idx, start, count = msm._multi_msm_index(canon, c)
+    lanes = start.shape[0]
+    n_cmp = 64 + ODD
+    W = lanes // K
+    # top window first (its digits are nearly all 0: identity adds), then a
+    # stride through every column and window
+    pick = torch.as_tensor([W - 1] + [(i * (lanes // n_cmp + 1)) % lanes for i in range(1, n_cmp)],
+                           device=dev)
+    st, ct = start[pick].contiguous(), count[pick].clone()
+    ct[-4:] = torch.as_tensor([N - 3, N // 2 + 5, 1, 0], dtype=torch.int32, device=dev)
+    got = Gp.bucket_phase(table, idx, st, ct)
+    want, plain = timed_once(lambda: Gp.bucket_phase_plain(table, idx, st, ct))
+    err = max_abs_err(got, want)
+    if err != 0:
+        raise AssertionError(f"kernel bucket differs from its plain version at the commit's shape: {err}")
+    ms = time_ms(lambda: Gp.bucket_phase(table, idx, start, count), 3)
+    adds = lanes * N
+    b_ms, b_by = bound(adds * (Gp.rows * 4 + 4) + lanes * (8 + Gp.rows * 4), adds * 12 * MADD_FQ)
+    shape = (f"table ({table.shape[0]}, {Gp.rows}), {lanes} lanes x {N} adds = {adds} general adds; "
+             f"compared on {n_cmp} of these lanes ({int(ct.sum())} adds, runs of {N} down to 0), "
+             f"plain_ms from there")
+    say(f"kernel bucket at the commit's shape: equal to plain version at {shape}: "
+        f"ms={ms:.3f} plain_ms={plain:.2f} bound_ms={b_ms:.4f} ({b_by})")
+    idx_ms = time_ms(lambda: msm._multi_msm_index(canon, c), 3)
+    tab_ms = time_ms(lambda: msm._multi_msm_table(Gp, ptcat, c), 3)
+    say(f"  digit extraction and index build: {idx_ms:.3f} ms; table build ({(1 << c) - 1} add2 "
+        f"launches over {N} lanes + the re-layout): {tab_ms:.3f} ms")
+    rep.rows["bucket"].update({"commit_shape": shape, "commit_max_abs_err": err, "commit_ms": ms,
+                               "commit_plain_ms": plain, "commit_bound_ms": b_ms,
+                               "commit_bound_by": b_by})
 
 
 def kernels_group(dev, grp, rep: Report, proj, pts_cmp, scal_cmp, pts_time, scal_time,
@@ -643,6 +1017,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
                     help="build, compare every kernel at small shapes, stop")
+    ap.add_argument("--msm-only", action="store_true",
+                    help="build, check and time msm_g1 and msm_g2 at 2^20, stop")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the GPU", file=sys.stderr)
@@ -660,6 +1036,9 @@ def main(argv=None) -> int:
     if args.kernels_only:
         N = 1 << 14
         kernels_montgomery(dev, rep, quick=True)
+        kernels_rowmajor(dev, rep, quick=True)
+        kernels_chain(dev, rep, quick=True)
+        phase_sqrt_pst(dev, 10, full=False)
         for grp in (g1, g2):
             pts = tile(affine[grp.name], N // N_UNIQUE)
             scal = torch.as_tensor(random_scalars(N, 7), device=dev)
@@ -667,47 +1046,71 @@ def main(argv=None) -> int:
         say("kernels-only pass done; run without arguments for the full check")
         return 0
 
-    # main paths: launches of each are counted over one warm call at 2^20,
-    # the counters zeroed just before it and read just after
-    counts = {name: 0 for name in build.LAUNCHES}
+    # main paths: the launches of each are counted on their own, the
+    # counters zeroed just before the path and read just after
+    by_path = {}
+
+    def note(path, snap):
+        tot = by_path.setdefault(path, {name: 0 for name in build.LAUNCHES})
+        for name, n in snap.items():
+            tot[name] += n
+
     batches = {}
-    sizes = (16, 20)
+    sizes = (20,) if args.msm_only else (16, 20)
     for grp in (g1, g2):
         phase_small_guard(dev, grp)
         for log2n in sizes:
             pts, scal, got = phase_main(dev, grp, affine[grp.name], ks[grp.name], log2n,
                                         log2n == sizes[-1])
             batches[grp.name, log2n] = (pts, scal)
-        for name, n in got.items():
-            counts[name] += n
+        note("msm", got)
         say(f"launches in one warm msm_{grp.name} at 2^{sizes[-1]}: "
             f"{json.dumps({k: v for k, v in got.items() if v})}")
+    if args.msm_only:
+        say("msm-only pass done; run without arguments for the full check")
+        return 0
     phase_projective_msm(dev, g2, proj["g2"], ks["g2"])
 
-    # the rest of the group layer; add_mask's launches come from here, the
-    # Montgomery kernel's from the field path
+    # the rest of the group layer: add_mask runs under fixed_base_mul, the
+    # Fq row-major product under the field path
     for grp in (g1, g2):
-        counts[counter(grp, "add_mask")] += phase_fixed_base(dev, grp)
+        note("fixed_base", phase_fixed_base(dev, grp))
         phase_small_msms(dev, grp, affine[grp.name], ks[grp.name])
-        counts["mont_mul"] += phase_field_path(dev, grp, proj[grp.name])
+        note("field", phase_field_path(dev, grp, proj[grp.name]))
+
+    # the protocol path: sqrt-PST at two small sizes, then at full width
+    phase_sqrt_pst(dev, 10, full=False)
+    phase_sqrt_pst(dev, 14, full=False)
+    pst_counts, canon, basis = phase_sqrt_pst(dev, 20, full=True)
+    for path, snap in pst_counts.items():
+        note(path, snap)
+    say(f"sqrt-PST done ({time.time() - t_start:.1f} s)")
+
+    # the measuring harness: the chain kernels' own path
+    note("harness", phase_harness(dev))
 
     # every kernel against its plain version.  G1 buckets: compared and timed
     # at the 2^20 plan.  G2 buckets: compared at the 2^16 plan (the plain
     # version would walk 80,000 lanes through 512 G2 adds at 2^20), timed at
     # the 2^20 plan.
     kernels_montgomery(dev, rep, quick=False)
+    kernels_rowmajor(dev, rep, quick=False)
+    kernels_chain(dev, rep, quick=False)
     kernels_group(dev, g1, rep, proj["g1"], *batches["g1", 20], *batches["g1", 20], quick=False)
+    kernels_commit_bucket(dev, rep, canon, basis)
+    del canon, basis
     kernels_group(dev, g2, rep, proj["g2"], *batches["g2", 16], *batches["g2", 20], quick=False)
 
     for name, row in rep.rows.items():
-        row["launches"] = counts[name]
-        if name.startswith("scan2") and not name.startswith("scan2b"):
-            continue  # on no path: launched in the kernel phase only
+        row["launches_by_path"] = {path: tot[name] for path, tot in by_path.items() if tot[name]}
+        row["launches"] = sum(row["launches_by_path"].values())
         group = "g2" if name.endswith("_g2") else "g1"
-        if name.startswith("bucket") and "mixed" not in name and rep.max_nseg[group] <= 1:
-            continue  # one segment per bucket: the segment reduce only copies
-        if row["launches"] == 0:
-            raise AssertionError(f"no path launched kernel {name}")
+        for path in MUST_LAUNCH[name]:
+            if path == "msm" and name.startswith("bucket") and "mixed" not in name \
+                    and rep.max_nseg[group] <= 1:
+                continue  # one segment per bucket: the segment reduce only copies
+            if by_path[path][name] == 0:
+                raise AssertionError(f"path {path} did not launch kernel {name}")
     missing = set(build.LAUNCHES) - set(rep.rows)
     if missing:
         raise AssertionError(f"kernels without a row: {sorted(missing)}")

@@ -131,3 +131,46 @@ def test_g2_conversions_reject_what_is_not_a_point_batch(fault):
             convert.points_from_reference(((good, good, good), (good, good), (good, good)), device="cpu")
         else:
             convert.points_from_reference(((good, good[:, :16]),) * 3, device="cpu")
+
+
+def test_fr_table_round_trip():
+    from testudo_tpu.poly import dense as jd
+    from testudo_tpu_torch.poly import dense as td
+
+    vals = [0, 1, R - 1, 123456789]
+    ref = np.asarray(jd.encode_table(vals))
+    got = convert.fr_table_from_reference(ref, device="cpu")
+    assert got.dtype == torch.int32 and torch.equal(got, td.encode_table(vals, device="cpu"))
+    back = convert.fr_table_to_reference(got)
+    assert back.dtype == np.uint32 and np.array_equal(back, ref)
+    with pytest.raises(ValueError):
+        convert.fr_table_from_reference(ref[:, :8], device="cpu")
+
+
+def test_committer_key_from_limb_pytrees_and_host_points():
+    """A key whose levels are the reference's device pytrees (as numpy) or
+    host point lists converts to the same affine points."""
+    from types import SimpleNamespace
+
+    from testudo_tpu_torch.curves import profile as cprof
+
+    pf = cprof.bls12_377("cpu")
+    g2pts = [jhc.g2_mul(jhc.g2_generator(), k) for k in (3, 5)] + [None]
+    g1pts = PTS[:3]
+    tree1 = tuple(np.asarray(c) for c in jc.g1_from_affine_host(g1pts))
+    tree2 = tuple(tuple(np.asarray(c) for c in coord) for coord in jc.g2_from_affine_host(g2pts))
+    ref = SimpleNamespace(nv=1, powers_of_g=[tree1, list(g1pts[:1])],
+                          powers_of_h=[tree2, list(g2pts[:1])], g=G, h=jhc.g2_generator())
+    ck = convert.committer_key_from_reference(ref, pf)
+    assert ck.nv == 1 and ck.profile is pf and ck.g == G
+    assert pf.g1b.to_affine(ck.powers_of_g[0]) == g1pts
+    assert pf.g1b.to_affine(ck.powers_of_g[1]) == g1pts[:1]
+    want2 = [convert.host_point_from_reference(p) for p in g2pts]
+    assert pf.g2b.to_affine(ck.powers_of_h[0]) == want2
+    assert pf.g2b.to_affine(ck.powers_of_h[1]) == want2[:1]
+    assert ck.h == hc.g2_generator() and type(ck.h[0]).__module__.startswith("testudo_tpu_torch")
+    host_pf = cprof.bls12_377("cpu", host_groups=True)
+    with pytest.raises(TypeError):  # a limb pytree needs the device backend
+        convert.committer_key_from_reference(ref, host_pf)
+    back = convert.host_point_to_reference(ck.h, jhf)
+    assert back == jhc.g2_generator()

@@ -82,6 +82,7 @@ def test_build_report_names_each_kernel(tmp_path, monkeypatch):
     out.mkdir()
     (out / "build_seconds.txt").write_text("2.5\n")
     (out / "build.log").write_text(
+        "== ec_ops.cu (exit 0, 2.4 s)\n"
         "ptxas info    : Compiling entry function '_Z6k_add2I8Fq2CoordEvPKiS2_Pil' for 'sm_90a'\n"
         "ptxas info    : Function properties for _Z6k_add2I8Fq2CoordEvPKiS2_Pil\n"
         "    2112 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
@@ -89,7 +90,7 @@ def test_build_report_names_each_kernel(tmp_path, monkeypatch):
         "ptxas info    : Function properties for _Z6fp_mulI8FqParamsEvPjPKjS3_\n"
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n")
     monkeypatch.setattr(build, "BUILD_ROOT", tmp_path)
-    assert build.build_report() == {"seconds": 2.5, "ptxas": [
+    assert build.build_report() == {"seconds": 2.5, "per_source": {"ec_ops.cu": 2.4}, "ptxas": [
         "k_add2<Fq2Coord>: 253 registers, 2112 bytes stack frame, 0 bytes spill stores, "
         "0 bytes spill loads"]}
 
@@ -103,7 +104,7 @@ def test_build_lists_every_source_and_sets_argtypes():
         decl = re.search(rf'extern "C" int {symbol}\((.*?)\)', src, re.S).group(1)
         params = [p.strip() for p in decl.split(",")]
         assert len(params) == len(argtypes), name
-        if name != "mont_mul":
+        if not name.startswith("mont_"):
             assert params[-2] == "int ncomp", name
         for p, t in zip(params, argtypes):
             want = ctypes.c_void_p if "*" in p else (ctypes.c_long if p.startswith("long") else ctypes.c_int)
@@ -164,6 +165,60 @@ def test_device_mont_mul_equals_plain(host_lib, spec):
     rc = host_lib.host_mont_mul(_ptr(at), _ptr(bt), _ptr(out), ctypes.c_int(spec.nlimbs), ctypes.c_long(m))
     assert rc == 0
     assert torch.equal(out, packed_field.mont_mul_rows_plain(spec, at, bt))
+
+
+def _elements(spec, n, seed):
+    p = spec.modulus
+    rng = np.random.default_rng(seed)
+    edge = [0, 1, p - 1, spec.r_mod_p, p - 1]
+    return edge + [int.from_bytes(rng.bytes(64), "little") % p for _ in range(n - len(edge))]
+
+
+@pytest.mark.parametrize("spec", [FQ, FR], ids=["fq", "fr"])
+def test_device_row_major_mont_mul_equals_plain(host_lib, spec):
+    """Per-lane body of csrc/mont_mul_rm.cu: 128-bit row loads and stores,
+    two full operands and one shared second operand, a ragged length."""
+    n = 131
+    a = torch.from_numpy(spec.to_limbs(_elements(spec, n, 72)))
+    b = torch.from_numpy(spec.to_limbs(_elements(spec, n, 73)[::-1]).copy())
+    out = torch.full_like(a, -1)
+    rc = host_lib.host_mont_mul_rm(_ptr(a), _ptr(b), _ptr(out), ctypes.c_int(spec.nlimbs),
+                                   ctypes.c_long(n), 0)
+    assert rc == 0 and torch.equal(out, packed_field.mont_mul_rm_plain(spec, a, b))
+    one = b[17].clone()
+    rc = host_lib.host_mont_mul_rm(_ptr(a), _ptr(one), _ptr(out), ctypes.c_int(spec.nlimbs),
+                                   ctypes.c_long(n), 1)
+    assert rc == 0 and torch.equal(out, packed_field.mont_mul_rm_plain(spec, a, one))
+    # a < R but not < p (what _fold_wide hands the product): still canonical out
+    wide = torch.from_numpy(np.full((3, spec.nlimbs), 0xFFFF, dtype=np.int32))
+    out3 = torch.empty_like(wide)
+    host_lib.host_mont_mul_rm(_ptr(wide), _ptr(one), _ptr(out3), ctypes.c_int(spec.nlimbs),
+                              ctypes.c_long(3), 1)
+    assert torch.equal(out3, packed_field.mont_mul_rm_plain(spec, wide, one))
+    assert host_lib.host_mont_mul_rm(_ptr(a), _ptr(b), _ptr(out), 20, ctypes.c_long(n), 0) == -1
+
+
+@pytest.mark.parametrize("spec", [FQ, FR], ids=["fq", "fr"])
+def test_device_mont_chain_bodies_equal_plain(host_lib, spec):
+    """Per-lane bodies of csrc/mont_chain.cu: K chained products on (n, L) and
+    on (6, n, L), both variants and both formulations of the product."""
+    G, L, K = packed_field.CHAIN_GROUP, 11, 5
+    rows = lambda seed: torch.from_numpy(
+        spec.to_limbs(_elements(spec, G * L, seed))).reshape(G, L, -1).transpose(1, 2).contiguous()
+    a, b = rows(74), rows(75)
+    want = packed_field.mont_mul_chain_plain(spec, a, b, K)
+    nl = ctypes.c_int(spec.nlimbs)
+    for wide in (0, 1):
+        for inline_body in (0, 1):
+            out = torch.full_like(a, -1)
+            rc = host_lib.host_mont_chain_group(_ptr(a), _ptr(b), _ptr(out), nl, G, ctypes.c_long(L),
+                                                K, wide, inline_body)
+            assert rc == 0 and torch.equal(out, want), (wide, inline_body)
+    out = torch.full_like(a[0], -1)  # the single chain is one group, wide
+    rc = host_lib.host_mont_chain_group(_ptr(a[0]), _ptr(b[0]), _ptr(out), nl, 1, ctypes.c_long(L), K, 1, 1)
+    assert rc == 0 and torch.equal(out, packed_field.mont_mul_chain_plain(spec, a[0], b[0], K))
+    rc = host_lib.host_mont_chain_group(_ptr(a), _ptr(b), _ptr(out), nl, 2, ctypes.c_long(L), K, 0, 1)
+    assert rc == -1  # the seq body is built for groups of six
 
 
 def test_device_add2_equals_plain(host_lib, batches):

@@ -31,6 +31,11 @@ bad = sorted(
 )
 print("MODULES", len(names))
 print("BAD", bad)
+from testudo_tpu_torch import native
+native.available()
+libs = [l.split()[-1] for l in open("/proc/self/maps") if "libtestudo_native" in l]
+print("NATIVE", sorted(set(libs)))
+print("NATIVE_PATH", native.library_path())
 """
 
 
@@ -41,8 +46,45 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     )
     assert out.returncode == 0, out.stderr
     lines = dict(l.split(" ", 1) for l in out.stdout.strip().splitlines())
-    assert int(lines["MODULES"]) >= 12
+    assert int(lines["MODULES"]) >= 33
     assert lines["BAD"] == "[]"
+    # the native host library, where one was loaded, is the port's own build
+    build_dir = os.path.join(REPO, "testudo_tpu_torch", "_build") + os.sep
+    assert lines["NATIVE_PATH"].startswith(build_dir)
+    for lib in eval(lines["NATIVE"]):
+        assert lib.startswith(build_dir), lib
+
+
+def test_new_modules_are_all_there():
+    import importlib
+
+    for name in ("core.pst", "core.mipp", "core.sqrt_pst", "poly.dense", "curves.profile",
+                 "curves.pairing", "poseidon.sponge", "poseidon.transcript",
+                 "poseidon.constants_377", "serialize", "proofs", "native", "utils.ark_rng",
+                 "utils.timer", "tools.exp_montmul"):
+        importlib.import_module("testudo_tpu_torch." + name)
+
+
+def test_protocol_entry_points_default_to_cuda_and_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device works")
+    import inspect
+
+    from testudo_tpu_torch import convert
+    from testudo_tpu_torch.core import pst
+    from testudo_tpu_torch.curves import profile as cprof
+    from testudo_tpu_torch.tools import exp_montmul
+
+    assert inspect.signature(cprof.bls12_377).parameters["device"].default == torch.device("cuda")
+    assert inspect.signature(convert.fr_table_from_reference).parameters["device"].default == \
+        torch.device("cuda")
+    assert inspect.signature(exp_montmul.run).parameters["device"].default == torch.device("cuda")
+    assert cprof.bls12_377().device == torch.device("cuda")
+    with pytest.raises((RuntimeError, AssertionError)):
+        pst.setup(1)  # the default profile lives on the card
+    with pytest.raises(RuntimeError):
+        exp_montmul.run("cpu")  # the harness times kernels: no CPU path
+    assert exp_montmul.main([]) == 1
 
 
 def test_no_port_source_mentions_the_jax_imports():

@@ -62,8 +62,16 @@ def test_mont_mul_drop_in_matches_field_mont_mul(name):
     a, b = _rows(ts, 12, 6)
     A = torch.from_numpy(ts.to_limbs(a)).reshape(3, 4, ts.nlimbs)
     B = torch.from_numpy(ts.to_limbs(b)).reshape(3, 4, ts.nlimbs)
-    assert torch.equal(packed_field.mont_mul(ts, A, B), tf.mont_mul_plain(ts, A, B))
-    assert torch.equal(packed_field.mont_mul(ts, A, B[0, 0]), tf.mont_mul_plain(ts, A, B[0, 0]))
+    # against the host's integers and against the (n, m) route on transposed operands
+    rinv = pow(ts.mont_r, -1, ts.modulus)
+    got = packed_field.mont_mul_rm(ts, A, B)
+    assert got.shape == A.shape and got.dtype == torch.int32
+    assert ts.from_limbs(got.reshape(12, -1)) == [x * y * rinv % ts.modulus for x, y in zip(a, b)]
+    rows = packed_field.mont_mul_rows(ts, A.reshape(12, -1).T.contiguous(), B.reshape(12, -1).T.contiguous())
+    assert torch.equal(got.reshape(12, -1), rows.T)
+    shared = packed_field.mont_mul_rm(ts, A, B[0, 0])  # one second operand for every element
+    assert ts.from_limbs(shared.reshape(12, -1)) == [x * b[0] * rinv % ts.modulus for x in a]
+    assert torch.equal(tf.mont_mul(ts, A, B[0, 0]), shared)
 
 
 def test_mont_mul_rows_argument_checks():

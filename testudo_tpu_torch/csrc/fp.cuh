@@ -247,6 +247,20 @@ FP_FN void fp_load_row(u32* r, const int* row) {
   }
 }
 
+template <class F>
+FP_FN void fp_store_row(int* row, const u32* a) {
+  Limb4* q = reinterpret_cast<Limb4*>(row);
+  FP_UNROLL
+  for (int k = 0; k < F::N / 2; k++) {
+    Limb4 v;
+    v.a = (int)(a[2 * k] & 0xffffu);
+    v.b = (int)(a[2 * k] >> 16);
+    v.c = (int)(a[2 * k + 1] & 0xffffu);
+    v.d = (int)(a[2 * k + 1] >> 16);
+    q[k] = v;
+  }
+}
+
 // Per-lane body of the Montgomery kernel: the product of lane `lane` of two
 // (2N, m) limb arrays.
 template <class F>
@@ -256,4 +270,61 @@ FP_FN void lane_mont_mul(const int* a, const int* b, int* out, long m, long lane
   fp_load<F>(y, b, m, lane, 0);
   fp_mul_inline<F>(x, x, y);  // one product per thread: nothing to share
   fp_store<F>(out, m, lane, 0, x);
+}
+
+// Per-lane body of the row-major Montgomery kernel: element `lane` of two
+// (n, 2N) limb arrays, an element's limbs contiguous.  `shared_b`: b is ONE
+// element that every lane multiplies by.
+template <class F>
+FP_FN void lane_mont_mul_rm(const int* a, const int* b, int* out, long lane, bool shared_b) {
+  u32 x[F::N], y[F::N];
+  fp_load_row<F>(x, a + lane * (2 * F::N));
+  fp_load_row<F>(y, b + (shared_b ? 0 : lane) * (2 * F::N));
+  fp_mul_inline<F>(x, x, y);
+  fp_store_row<F>(out + lane * (2 * F::N), x);
+}
+
+// One product of the chained kernels, in the formulation asked for: the
+// body inlined at the call site (as the Montgomery kernels run it) or the
+// shared out-of-line copy (as the group-law kernels run it).
+template <class F, bool INLINE>
+FP_FN void fp_mul_as(u32* r, const u32* a, const u32* b) {
+  if (INLINE)
+    fp_mul_inline<F>(r, a, b);
+  else
+    fp_mul<F>(r, a, b);
+}
+
+// Per-lane body of the chained-product kernel: a <- a * b, K times, on lane
+// `lane` of group `g` of (groups, 2N, L) limb-row arrays; operands are
+// loaded once and the result stored once.
+template <class F, bool INLINE>
+FP_FN void lane_mont_chain(const int* a, const int* b, int* out, long L, long g, long lane,
+                           int K) {
+  const long off = g * (2 * F::N) * L;
+  u32 x[F::N], y[F::N];
+  fp_load<F>(x, a + off, L, lane, 0);
+  fp_load<F>(y, b + off, L, lane, 0);
+  FP_NO_UNROLL
+  for (int k = 0; k < K; k++) fp_mul_as<F, INLINE>(x, x, y);
+  fp_store<F>(out + off, L, lane, 0, x);
+}
+
+// The same chains with the G groups of one lane held by ONE thread: every
+// step of the chain runs the G independent products one after the other.
+template <class F, bool INLINE, int G>
+FP_FN void lane_mont_chain_seq(const int* a, const int* b, int* out, long L, long lane, int K) {
+  u32 x[G][F::N], y[G][F::N];
+  FP_UNROLL
+  for (int g = 0; g < G; g++) {
+    fp_load<F>(x[g], a + (long)g * (2 * F::N) * L, L, lane, 0);
+    fp_load<F>(y[g], b + (long)g * (2 * F::N) * L, L, lane, 0);
+  }
+  FP_NO_UNROLL
+  for (int k = 0; k < K; k++) {
+    FP_UNROLL
+    for (int g = 0; g < G; g++) fp_mul_as<F, INLINE>(x[g], x[g], y[g]);
+  }
+  FP_UNROLL
+  for (int g = 0; g < G; g++) fp_store<F>(out + (long)g * (2 * F::N) * L, L, lane, 0, x[g]);
 }

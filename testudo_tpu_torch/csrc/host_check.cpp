@@ -20,6 +20,26 @@
     return 0;                                   \
   } while (0)
 
+template <class F>
+static void host_chain(const int* a, const int* b, int* out, int G, long L, int K, int wide,
+                       int inline_body) {
+  if (wide) {
+    for (long t = 0; t < G * L; t++) {
+      if (inline_body)
+        lane_mont_chain<F, true>(a, b, out, L, t / L, t % L, K);
+      else
+        lane_mont_chain<F, false>(a, b, out, L, t / L, t % L, K);
+    }
+  } else {
+    for (long lane = 0; lane < L; lane++) {
+      if (inline_body)
+        lane_mont_chain_seq<F, true, 6>(a, b, out, L, lane, K);
+      else
+        lane_mont_chain_seq<F, false, 6>(a, b, out, L, lane, K);
+    }
+  }
+}
+
 extern "C" {
 
 int host_mont_mul(const int* a, const int* b, int* out, int nlimbs, long m) {
@@ -31,6 +51,33 @@ int host_mont_mul(const int* a, const int* b, int* out, int nlimbs, long m) {
     else
       return -1;
   }
+  return 0;
+}
+
+// Row-major product of (n, nlimbs) arrays; b is one element when shared_b.
+int host_mont_mul_rm(const int* a, const int* b, int* out, int nlimbs, long n, int shared_b) {
+  for (long lane = 0; lane < n; lane++) {
+    if (nlimbs == 24)
+      lane_mont_mul_rm<FqParams>(a, b, out, lane, shared_b != 0);
+    else if (nlimbs == 16)
+      lane_mont_mul_rm<FrParams>(a, b, out, lane, shared_b != 0);
+    else
+      return -1;
+  }
+  return 0;
+}
+
+// K chained products on (G, nlimbs, L); wide = 0 needs G = 6.  The plain
+// chain on (nlimbs, L) is G = 1, wide = 1.
+int host_mont_chain_group(const int* a, const int* b, int* out, int nlimbs, int G, long L,
+                          int K, int wide, int inline_body) {
+  if (!wide && G != 6) return -1;
+  if (nlimbs == 24)
+    host_chain<FqParams>(a, b, out, G, L, K, wide, inline_body);
+  else if (nlimbs == 16)
+    host_chain<FrParams>(a, b, out, G, L, K, wide, inline_body);
+  else
+    return -1;
   return 0;
 }
 

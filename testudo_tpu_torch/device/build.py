@@ -22,13 +22,15 @@ import re
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("mont_mul.cu", "ec_ops.cu", "ladder.cu", "bucket.cu")
+SOURCES = ("mont_mul.cu", "mont_mul_rm.cu", "mont_chain.cu", "ec_ops.cu", "ladder.cu",
+           "bucket.cu")
 HEADERS = ("fp.cuh", "fp2.cuh", "ec.cuh", "launch.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -43,6 +45,10 @@ _L = ctypes.c_long
 # launchers take `ncomp` (1: G1, 2: G2) just before the stream.
 _SIGNATURES = {
     "mont_mul": ("testudo_mont_mul", (_P, _P, _P, _I, _L, _P)),
+    "mont_mul_rm": ("testudo_mont_mul_rm", (_P, _P, _P, _I, _L, _I, _P)),
+    "mont_chain": ("testudo_mont_chain", (_P, _P, _P, _I, _L, _I, _I, _P)),
+    "mont_chain_group": ("testudo_mont_chain_group",
+                         (_P, _P, _P, _I, _I, _L, _I, _I, _I, _P)),
     "add2": ("testudo_add2", (_P, _P, _P, _L, _I, _P)),
     "add_mask": ("testudo_add_mask", (_P, _P, _P, _P, _L, _I, _I, _P)),
     "step": ("testudo_step", (_P, _P, _P, _P, _P, _L, _I, _P)),
@@ -55,11 +61,15 @@ _SIGNATURES = {
 # Launches per kernel since the last reset_launches().  The mixed and the
 # general bucket kernel are two instantiations of one template and are
 # counted apart, and so are the G1 and the G2 instantiation of every EC
-# kernel: the G1 count keeps the bare name, the G2 count ends in "_g2".
+# kernel: the G1 count keeps the bare name, the G2 count ends in "_g2".  The
+# row-major Montgomery product is counted per field, the grouped chain per
+# variant.
 EC_KERNELS = ("add2", "add_mask", "step", "scan2", "scan2b", "ladder", "bucket",
               "bucket_mixed")
+FIELD_KERNELS = ("mont_mul", "mont_mul_rm_fq", "mont_mul_rm_fr", "mont_chain",
+                 "mont_chain_seq", "mont_chain_wide")
 LAUNCHES = {name: 0 for name in (
-    "mont_mul", *EC_KERNELS, *(k + "_g2" for k in EC_KERNELS))}
+    *FIELD_KERNELS, *EC_KERNELS, *(k + "_g2" for k in EC_KERNELS))}
 
 
 def reset_launches() -> None:
@@ -100,10 +110,16 @@ def build() -> Path:
         cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(CSRC / src), "-o", str(obj)]
         procs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    log, failed = [], []
-    for src, obj, proc in procs:
+    # one reader thread per compiler, so that each source's time is its own
+    def wait(proc):
         out, _ = proc.communicate()
-        log.append(f"== {src} (exit {proc.returncode})\n{out}")
+        return out, time.time() - t0
+
+    with ThreadPoolExecutor(max_workers=len(procs)) as pool:
+        done = list(pool.map(wait, [proc for _, _, proc in procs]))
+    log, failed = [], []
+    for (src, obj, proc), (out, secs) in zip(procs, done):
+        log.append(f"== {src} (exit {proc.returncode}, {secs:.1f} s)\n{out}")
         if proc.returncode != 0:
             failed.append(src)
     (out_dir / "build.log").write_text("\n".join(log))
@@ -159,7 +175,8 @@ def _kernel_name(mangled: str) -> str:
 
 
 def build_report() -> dict:
-    """Seconds the build took and the compiler's resource line for every
+    """Seconds the build took (in all, and until each source's compiler
+    ended: they run side by side) and the compiler's resource line for every
     kernel (registers, stack frame, spills), for the finished build of the
     present sources."""
     out_dir = BUILD_ROOT / _source_hash()
@@ -177,7 +194,9 @@ def build_report() -> dict:
             regs = re.search(r"Used (\d+) registers", ln)
             usage.append(f"{entry}: {regs.group(1) if regs else '?'} registers, {frame}")
             entry = None
-    return {"seconds": float(secs), "ptxas": usage}
+    per_source = {m.group(1): float(m.group(2))
+                  for m in re.finditer(r"^== (\S+) \(exit \d+, ([\d.]+) s\)", log, re.M)}
+    return {"seconds": float(secs), "per_source": per_source, "ptxas": usage}
 
 
 def require_cuda_int32(name: str, **tensors: torch.Tensor) -> None:

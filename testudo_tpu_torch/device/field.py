@@ -1,9 +1,8 @@
 """Vectorised big-field arithmetic on limb tensors (PyTorch).
 
 Counterpart of testudo_tpu/tpu/field.py: `FieldSpec`, `FR`, `FQ`, `add`,
-`sub`, `neg`, `mont_mul`, `mont_sqr`, `select`, `const_array`, `is_zero`.
-`pow_fixed`, `inv`, `reduce_sum` and `_fold_wide` wait for the
-polynomial/sumcheck slice.
+`sub`, `neg`, `mont_mul`, `mont_sqr`, `pow_fixed`, `inv`, `reduce_sum`,
+`_fold_wide`, `select`, `const_array`, `is_zero`.
 
 A field element is `nlimbs` little-endian 16-bit limbs in Montgomery form
 (R = 2^(16 * nlimbs)), the same integers the JAX package holds.  PyTorch's
@@ -12,9 +11,10 @@ CPU backend has no uint32 arithmetic, so limb tensors are `torch.int32`
 elementwise over the leading (batch) axes and run on whatever device the
 tensors lie on.  `add`, `sub`, `neg` and `select` are plain tensor code on
 every device.  `mont_mul` is the exception: on a CUDA tensor it launches
-the hand-written Montgomery kernel (device/packed_field.py), at every
-batch size; `mont_mul_plain` below is that kernel's plain version and is
-what a CPU tensor takes.
+the hand-written row-major Montgomery kernel (device/packed_field.py
+`mont_mul_rm`), at every batch size; `mont_mul_plain` below is that
+kernel's plain version and is what a CPU tensor takes.  `pow_fixed`, `inv`
+and `reduce_sum` are built on `mont_mul`.
 
 Carries are resolved by a carry-lookahead that packs the generate and
 propagate bits of all limbs into one int64 (`_resolve`), which keeps the
@@ -254,18 +254,67 @@ def mont_mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.T
 
 
 def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Montgomery product a*b*R^{-1} mod p.  CUDA tensors go through the
-    hand-written kernel (packed_field.mont_mul) at every batch size; CPU
-    tensors take the plain version."""
+    """Montgomery product a*b*R^{-1} mod p with broadcasting.  CUDA tensors
+    go through the hand-written row-major kernel (packed_field.mont_mul_rm)
+    at every batch size; CPU tensors take the plain version."""
     if a.is_cuda or b.is_cuda:
         from . import packed_field
 
-        return packed_field.mont_mul(spec, a, b)
+        return packed_field.mont_mul_rm(spec, a, b)
     return mont_mul_plain(spec, a, b)
 
 
 def mont_sqr(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     return mont_mul(spec, a, a)
+
+
+def pow_fixed(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
+    """a^e (Montgomery form in and out) for a Python int e >= 0:
+    LSB-first square-and-multiply, one product and one square per bit."""
+    if e < 0:
+        raise ValueError("pow_fixed: negative exponent")
+    one = torch.as_tensor(_int_to_limbs(spec.r_mod_p, spec.nlimbs), device=a.device)
+    res, base = one.expand(a.shape).contiguous(), a
+    for i in range(e.bit_length()):
+        if (e >> i) & 1:
+            res = mont_mul(spec, res, base)
+        if i + 1 < e.bit_length():
+            base = mont_sqr(spec, base)
+    return res
+
+
+def inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """Batched inverse by Fermat: a^(p-2).  0 maps to 0."""
+    return pow_fixed(spec, a, spec.modulus - 2)
+
+
+def _fold_wide(spec: FieldSpec, t: torch.Tensor) -> torch.Tensor:
+    """Relaxed non-negative int64 limbs (each < 2^47, value < 2^(16 (n+2)))
+    -> the canonical int32 element of the value mod p.  value = lo + hi *
+    2^(16 n); lo mod p = mont_mul(lo, R mod p), hi * 2^(16 n) mod p =
+    mont_mul(hi, R^2 mod p)."""
+    n = spec.nlimbs
+    c = _resolve(t, n + 2, True).to(torch.int32)
+    lo = c[..., :n].contiguous()
+    hi = F.pad(c[..., n:], (0, n - 2))
+    r1 = torch.as_tensor(_int_to_limbs(spec.r_mod_p, n), device=t.device)
+    r2 = torch.as_tensor(_int_to_limbs(spec.r2_mod_p, n), device=t.device)
+    return add(spec, mont_mul(spec, lo, r1), mont_mul(spec, hi, r2))
+
+
+def reduce_sum(spec: FieldSpec, a: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Sum of field elements along `axis` (mod p), any domain.  Limbs are
+    below 2^16 and are summed in int64, so up to 2^31 elements need no
+    chunking; the result is the canonical element, whatever the order of
+    the additions."""
+    _check_limbs(spec, a)
+    if axis < 0:
+        axis += a.dim()
+    if not 0 <= axis < a.dim() - 1:
+        raise ValueError(f"reduce_sum: axis {axis} is not a batch axis of {tuple(a.shape)}")
+    if a.shape[axis] >= 1 << 31:
+        raise ValueError("reduce_sum: more than 2^31 - 1 elements along the axis")
+    return _fold_wide(spec, a.sum(dim=axis, dtype=torch.int64))
 
 
 def select(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,12 @@
 """Multi-scalar multiplication (Pippenger) over G1 and G2 on the packed kernels.
 
 Counterpart of the packed path of testudo_tpu/tpu/msm.py (`msm_g1` :1206,
-`msm_g2` :1226 -> `_msm_packed` :755 and the stage functions it calls,
-`msm_segmented` :893, `msm_multi_small` :963).  Every stage takes the
-`PackedGroup` as an argument, so G1 and G2 share one pipeline.  The legacy
-XLA Pippenger, `_multi_msm_packed`, `msm_fp` and the generator/yield form
-used by the multi-device MSM wait for later slices.
+`msm_g2` :1226 -> `msm_pipeline` :1175 -> `_msm_packed_gen` :772 and the
+stage functions it calls, `msm_segmented` :893, `msm_multi_small` :963,
+`_multi_msm_device` :283 -> `_multi_msm_packed` :1113).  Every stage takes
+the `PackedGroup` as an argument, so G1 and G2 share one pipeline.  The
+legacy XLA Pippenger and `msm_fp` (generic prime-field groups) wait for
+later slices.
 
 Algorithm (signed c-bit windows by default):
   1. signed digits of every scalar per window; stable sort of the point
@@ -353,11 +354,34 @@ def _cat_points(points) -> torch.Tensor:
     return torch.cat([comp for coord in points for comp in coord], dim=1).contiguous()
 
 
+def _drive_one(gen):
+    """Run a pipeline generator to completion, returning its value."""
+    while True:
+        try:
+            next(gen)
+        except StopIteration as stop:
+            return stop.value
+
+
 def _msm_packed(Gp: PackedGroup, points, scal: torch.Tensor, c: Optional[int],
                 affine: bool = False, signed_c: int = _SIGNED_C,
                 on_phase: PhaseHook = None):
-    """Packed-kernel Pippenger.  c=None (the default) uses signed windows of
-    width `signed_c`; an explicit c keeps the unsigned plan.
+    """Packed-kernel Pippenger, run to its end (see `_msm_packed_gen`)."""
+    return _drive_one(_msm_packed_gen(Gp, points, scal, c, affine, signed_c, on_phase))
+
+
+def _msm_packed_gen(Gp: PackedGroup, points, scal: torch.Tensor, c: Optional[int],
+                    affine: bool = False, signed_c: int = _SIGNED_C,
+                    on_phase: PhaseHook = None):
+    """Generator form of the packed Pippenger.  c=None (the default) uses
+    signed windows of width `signed_c`; an explicit c keeps the unsigned
+    plan.
+
+    Yields at the two places where the host waits for the device (after the
+    digit sort is enqueued, before its counts are copied to the host for the
+    segment plan; and after the heavy kernels are enqueued, before the
+    caller copies the result), so a caller that drives several pipelines,
+    one per device, can enqueue a stage everywhere before any wait.
 
     affine=True asserts every input point has Z = mont(1) (fresh lifts of
     affine bases, never the identity; nothing checks it): the bucket phase
@@ -383,6 +407,8 @@ def _msm_packed(Gp: PackedGroup, points, scal: torch.Tensor, c: Optional[int],
         order_flat = order.reshape(-1)
     W, B = starts.shape
     phase("digits_sort")
+
+    yield  # digit and sort work enqueued; the copy below waits for it
 
     # host-side segment plan: starts/counts are (W, B) int32, a small copy
     # that waits for the device
@@ -412,6 +438,9 @@ def _msm_packed(Gp: PackedGroup, points, scal: torch.Tensor, c: Optional[int],
     phase("weighted_sum")
     out = _horner_ladder_packed(Gp, wins, c)
     phase("horner")
+
+    yield  # heavy kernels enqueued; the caller's copy of the result waits
+
     return Gp.unpack(out)
 
 
@@ -421,26 +450,36 @@ def _msm_small_packed(Gp: PackedGroup, points, scal: torch.Tensor):
     return Gp.unpack(Gp.tree_reduce(acc))
 
 
-def _msm_entry(Gp: PackedGroup, to_affine, points, scalars, c, affine, signed_c,
-               device, on_phase):
-    """The body `msm_g1` and `msm_g2` share: move the batch to `device`,
-    take the ladder for small batches and Pippenger otherwise, and return
-    the sum as a host affine point."""
-    device = torch.device(device)
-    points = _map_coords(lambda coord: coord.to(device), points)
-    scal = _prep_scalars(scalars, device)
+def msm_pipeline(group_name: str, points, scal: torch.Tensor, c: Optional[int] = None,
+                 affine: bool = False, signed_c: int = _SIGNED_C,
+                 on_phase: PhaseHook = None):
+    """One MSM as a resumable pipeline (generator) over tensors that lie on
+    one device already.  Yields where the host would wait for the device;
+    the generator's return value is the host affine result."""
+    Gp, to_affine, _ = _group(group_name)
     npoints = (points[0] if Gp.ncomp == 1 else points[0][0]).shape[0]
     if scal.shape[0] != npoints:
         raise ValueError(f"msm_{Gp.name}: points and scalars differ in length")
     if scal.shape[0] <= _SMALL_N:
         res = _msm_small_packed(Gp, points, scal)
+        yield
     else:
         points, scal = _pad_pow2(points, scal)
-        res = _msm_packed(Gp, points, scal, c, affine, signed_c, on_phase)
+        res = yield from _msm_packed_gen(Gp, points, scal, c, affine, signed_c, on_phase)
     out = to_affine(res)[0]
     if on_phase:
         on_phase("to_affine")
     return out
+
+
+def _msm_entry(group_name: str, points, scalars, c, affine, signed_c, device, on_phase):
+    """The body `msm_g1` and `msm_g2` share: move the batch to `device` and
+    run its pipeline (the ladder for small batches, Pippenger otherwise) to
+    the end; the sum comes back as a host affine point."""
+    device = torch.device(device)
+    points = _map_coords(lambda coord: coord.to(device), points)
+    scal = _prep_scalars(scalars, device)
+    return _drive_one(msm_pipeline(group_name, points, scal, c, affine, signed_c, on_phase))
 
 
 def msm_g1(points, scalars: Sequence[int] | torch.Tensor, c: Optional[int] = None,
@@ -455,8 +494,7 @@ def msm_g1(points, scalars: Sequence[int] | torch.Tensor, c: Optional[int] = Non
     kernels on a CUDA device, their plain versions on the CPU).
     `affine=True` asserts every point has Z = mont(1) and enables mixed adds
     in the bucket phase.  c=None uses signed windows of `signed_c` bits."""
-    return _msm_entry(G1P, tc.g1_to_affine_host, points, scalars, c, affine,
-                      signed_c, device, on_phase)
+    return _msm_entry("g1", points, scalars, c, affine, signed_c, device, on_phase)
 
 
 def msm_g2(points, scalars: Sequence[int] | torch.Tensor, c: Optional[int] = None,
@@ -467,8 +505,7 @@ def msm_g2(points, scalars: Sequence[int] | torch.Tensor, c: Optional[int] = Non
     `affine=True` asserts every point is an affine lift, Z = (mont(1), 0),
     and none is the identity: a base that may be the identity (a fixed-base
     multiple of a scalar that may be 0) needs `affine=False`."""
-    return _msm_entry(G2P, tc.g2_to_affine_host, points, scalars, c, affine,
-                      signed_c, device, on_phase)
+    return _msm_entry("g2", points, scalars, c, affine, signed_c, device, on_phase)
 
 
 # -- many small MSMs in one ladder launch -------------------------------------------
@@ -541,3 +578,138 @@ def msm_multi_small(group_name: str, parts, device=torch.device("cuda")):
     cat_pts = _map_coords(lambda *coords: torch.cat(coords, dim=0), *[pts for pts, _ in parts])
     cat_scal = torch.cat([scal for _, scal in parts], dim=0)
     return _ladder_parts(Gp, to_affine, cat_pts, cat_scal, bounds)
+
+
+# -- many MSMs over one shared basis: fixed-base shared-table design ---------------
+#
+# sqrt-PST commits K column polynomials against ONE basis of N points.
+# Pippenger per column would sort and bucket K times over few points.
+# Instead tab[j * B + d] = d * G_j for d < 2^c is built once (B - 1 fused adds
+# over N lanes, shared by all columns); the sum of (column k, window w) is
+# then a straight run of N general adds over gathered table rows: W * N adds
+# per column, no sort, and a digit 0 lands on the stored identity row.
+
+
+def _pick_window(n: int) -> int:
+    """Window width of the shared-table multi-MSM, as the JAX package picks
+    it, so both build the same table."""
+    if n <= 1 << 6:
+        return 4
+    return 8
+
+
+def _multi_msm_small(Gp: PackedGroup, points, scal: torch.Tensor):
+    """K MSMs over N <= 64 shared points: ONE ladder launch over K * N
+    lanes, then log2 N folds of every column at once."""
+    K, N, nl = scal.shape
+    base = Gp.pack(points)  # (rows, N)
+    acc = Gp.ladder(base.repeat(1, K), scal.reshape(K * N, nl).T.contiguous())
+    acc = acc.reshape(Gp.rows, K, N)
+    while N > 1:
+        half = N // 2
+        a = acc[:, :, :half].reshape(Gp.rows, K * half).contiguous()
+        b = acc[:, :, half : 2 * half].reshape(Gp.rows, K * half).contiguous()
+        s = Gp.add2(a, b).reshape(Gp.rows, K, half)
+        if N % 2:
+            s = torch.cat([s, acc[:, :, -1:]], dim=2)
+            half += 1
+        acc, N = s, half
+    return acc.reshape(Gp.rows, K)
+
+
+def _multi_msm_table(Gp: PackedGroup, ptcat: torch.Tensor, c: int) -> torch.Tensor:
+    """(N, rows) point-major bases -> (N * B, rows) table, row j * B + d =
+    d * G_j: B - 1 `add2` launches over N lanes; row d = 0 is the identity
+    and every other row the running sum (identity + G + ... + G), the
+    projective representative the JAX package's scan stores."""
+    N = ptcat.shape[0]
+    B = 1 << c
+    base = ptcat.T.contiguous()  # (rows, N)
+    cur = Gp.identity_packed(N, device=ptcat.device)
+    tab = [cur]
+    for _ in range(B - 1):
+        cur = Gp.add2(cur, base)
+        tab.append(cur)
+    return torch.stack(tab, dim=0).permute(2, 0, 1).reshape(N * B, Gp.rows).contiguous()
+
+
+def _multi_msm_index(scal: torch.Tensor, c: int):
+    """The bucket kernel's arguments for the window sums of every column:
+    (idx, start, count) with lanes k-major, lane (k, w) reading the N entries
+    idx[(k W + w) N + t] = t * B + digit_w(scal[k, t]), t = 0..N-1."""
+    K, N, nl = scal.shape
+    B = 1 << c
+    dev = scal.device
+    digits = _digits_from_scalars(scal.reshape(K * N, nl), c)  # (W, K * N)
+    W = digits.shape[0]
+    if N * B >= 1 << 31 or K * W * N >= 1 << 31:
+        raise ValueError("multi-MSM: the table or the index list passes 2^31 entries")
+    offs = torch.arange(N, dtype=torch.int32, device=dev) * B
+    idx = (digits.reshape(W, K, N).permute(1, 0, 2) + offs).reshape(-1).contiguous()
+    lanes = K * W
+    start = torch.arange(lanes, dtype=torch.int32, device=dev) * N
+    count = torch.full((lanes,), N, dtype=torch.int32, device=dev)
+    return idx, start, count
+
+
+def _multi_msm_windows(Gp: PackedGroup, table: torch.Tensor, scal: torch.Tensor, c: int):
+    """Window sums of every column: (rows, K * W), lanes k-major.  ONE launch
+    of the general bucket kernel: lane (k, w) adds its N table rows in order
+    onto the identity; the kernel gathers, so no run tensor is materialised."""
+    return Gp.bucket_phase(table, *_multi_msm_index(scal, c))
+
+
+def _multi_horner_packed(Gp: PackedGroup, wins: torch.Tensor, K: int, c: int) -> torch.Tensor:
+    """wins (rows, K * W), lanes k-major -> (rows, K): one ladder launch by
+    2^(c w), then folds over W (`acc[..., :half] + acc[..., half:]`)."""
+    W = wins.shape[1] // K
+    if W & (W - 1):
+        raise ValueError(f"multi-MSM: the window count {W} must be a power of two")
+    pows = np.zeros((W, FR.nlimbs), dtype=np.int32)
+    for w in range(W):
+        pows[w, (c * w) // 16] = 1 << ((c * w) % 16)
+    scal = torch.as_tensor(np.tile(pows, (K, 1)).T.copy(), device=wins.device)
+    acc = Gp.ladder(wins.contiguous(), scal).reshape(Gp.rows, K, W)
+    while W > 1:
+        half = W // 2
+        a = acc[:, :, :half].reshape(Gp.rows, K * half).contiguous()
+        b = acc[:, :, half:].reshape(Gp.rows, K * half).contiguous()
+        acc = Gp.add2(a, b).reshape(Gp.rows, K, half)
+        W = half
+    return acc.reshape(Gp.rows, K)
+
+
+def _multi_msm_packed(Gp: PackedGroup, points, scal: torch.Tensor, c: int = 8,
+                      on_phase: PhaseHook = None):
+    """K MSMs over one shared basis on the packed kernels -> a projective
+    batch of K points.  scal: (K, N, nlimbs) canonical scalars."""
+    phase = on_phase or (lambda name: None)
+    K = scal.shape[0]
+    table = _multi_msm_table(Gp, _cat_points(points), c)
+    phase("table")
+    wins = _multi_msm_windows(Gp, table, scal, c)
+    phase("bucket")
+    out = _multi_horner_packed(Gp, wins, K, c)
+    phase("horner")
+    return Gp.unpack(out)
+
+
+def _multi_msm_device(group_name: str, points, scalars_canon: torch.Tensor, c: int,
+                      on_phase: PhaseHook = None):
+    """Many MSMs over one shared basis: canonical scalars (K, N, nlimbs) -> a
+    projective batch of K points, on the device the scalars lie on (the
+    sqrt-PST column commitments).  At most 64 points take the ladder; more
+    take the shared-table design with c-bit windows (c in 4, 8, 16)."""
+    Gp, _, _ = _group(group_name)
+    if scalars_canon.dim() != 3 or scalars_canon.shape[2] != FR.nlimbs:
+        raise ValueError(
+            f"multi-MSM: scalars must be (K, N, {FR.nlimbs}), got {tuple(scalars_canon.shape)}"
+        )
+    device = scalars_canon.device
+    points = _map_coords(lambda coord: coord.to(device), points)
+    npoints = (points[0] if Gp.ncomp == 1 else points[0][0]).shape[0]
+    if npoints != scalars_canon.shape[1]:
+        raise ValueError("multi-MSM: the basis and the scalar columns differ in length")
+    if npoints <= _SMALL_N:
+        return Gp.unpack(_multi_msm_small(Gp, points, scalars_canon))
+    return _multi_msm_packed(Gp, points, scalars_canon, c, on_phase)

@@ -5,7 +5,9 @@ groups need: r = x^4 - x^2 + 1, p = (x-1)^2 * r / 3 + x, G1: y^2 = x^3 + 1
 with cofactor h1 = (x-1)^2 / 3, and for G2 the quadratic non-residue of
 Fq2 = Fq[u] / (u^2 + 5) and the cofactor h2 of the twist.  Deriving rather
 than hard-coding keeps the constants self-verifying; the asserts below run
-at import.  The Fq6/Fq12 tower constants wait for the pairing slice.
+at import.  The tower above Fq2 (Fq6 = Fq2[v] / (v^3 - u), Fq12 = Fq6[w] /
+(w^2 - v)) needs no constant of its own: fields/host.py derives its
+Frobenius tables from the non-residue.
 """
 
 X_SEED = 0x8508C00000000001
@@ -17,6 +19,10 @@ TRACE = X_SEED + 1
 
 FR_BITS = R.bit_length()  # 253
 FQ_BITS = P.bit_length()  # 377
+
+# arkworks serialization sizes: 64-bit BigInt limbs * 8 bytes.
+FR_BYTES = 32
+FQ_BYTES = 48
 
 # Montgomery radices of the limb representation (arkworks' 2^(64 * n_limbs)).
 FR_MONT_R = 1 << 256
