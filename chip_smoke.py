@@ -32,7 +32,9 @@ testudo_tpu_torch/csrc/, then
      holds the result against the kernel's plain PyTorch version on the
      same inputs (integers: the tolerance is exact equality, max_abs_err
      must be 0), at a lane count that is no multiple of the block size and
-     with edge cases mixed in, and times both;
+     with edge cases mixed in, and times both; the bucket kernel's rows and a
+     line each give the run-length profile of its launch (lanes, longest run,
+     lanes at T_cap, resident blocks per SM, grid);
   7. checks a small MSM against the host oracle;
   8. prints one JSON line {"kernels": [...]} (each row's `launches` is the
      sum of `launches_by_path`, the kernel's count on each driven path: msm,
@@ -433,7 +435,23 @@ def msm_plan(grp, pts, scal):
     T_cap = msm._pick_t_cap(counts_np, W, B)
     wnd, seg_start, seg_count, lane_off, nseg, L = msm._plan_segments(starts_np, counts_np, T_cap)
     start = (wnd.astype(np.int64) * N + seg_start).astype(np.int32)
-    return table, order_flat, start, seg_count, lane_off, nseg
+    return table, order_flat, start, seg_count, lane_off, nseg, T_cap
+
+
+def run_profile(Gp, count, mixed: bool, cap=None) -> str:
+    """What a bucket launch is given and how it runs it: lanes, the run
+    lengths (longest, how many lanes reach it or `cap`, mean), and the grid
+    (resident blocks of 64 threads per SM and on the card; the grid is the
+    smaller of that and one thread per lane)."""
+    c = np.asarray(count.cpu() if isinstance(count, torch.Tensor) else count, dtype=np.int64)
+    top = int(c.max()) if len(c) else 0
+    cap = top if cap is None else cap
+    resident = Gp.bucket_capacity(mixed)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grid = min(resident, -(-len(c) // 64))
+    return (f"{len(c)} lanes, max count {top}, {int((c == cap).sum())} lanes at {cap}, "
+            f"mean {c.mean() if len(c) else 0:.1f}; {resident // sms} blocks of 64 per SM x {sms} "
+            f"SMs = {resident} resident, grid {grid}")
 
 
 def phase_field_path(dev, grp, proj):
@@ -856,9 +874,11 @@ def kernels_commit_bucket(dev, rep: Report, canon, basis):
     ms = time_ms(lambda: Gp.bucket_phase(table, idx, start, count), 3)
     adds = lanes * N
     b_ms, b_by = bound(adds * (Gp.rows * 4 + 4) + lanes * (8 + Gp.rows * 4), adds * 12 * MADD_FQ)
-    shape = (f"table ({table.shape[0]}, {Gp.rows}), {lanes} lanes x {N} adds = {adds} general adds; "
-             f"compared on {n_cmp} of these lanes ({int(ct.sum())} adds, runs of {N} down to 0), "
-             f"plain_ms from there")
+    profile = run_profile(Gp, count, False)
+    say(f"run-length profile, bucket at the commit's shape: {profile}")
+    shape = (f"table ({table.shape[0]}, {Gp.rows}), {lanes} lanes x {N} adds = {adds} general adds, "
+             f"{profile}; compared on {n_cmp} of these lanes ({int(ct.sum())} adds, runs of {N} "
+             f"down to 0), plain_ms from there")
     say(f"kernel bucket at the commit's shape: equal to plain version at {shape}: "
         f"ms={ms:.3f} plain_ms={plain:.2f} bound_ms={b_ms:.4f} ({b_by})")
     idx_ms = time_ms(lambda: msm._multi_msm_index(canon, c), 3)
@@ -956,10 +976,11 @@ def kernels_group(dev, grp, rep: Report, proj, pts_cmp, scal_cmp, pts_time, scal
             f"plain_ms from there")
 
     # the bucket kernels with the exact arguments of a main path, plus a tail
-    # of hand-made lanes: count 0, a doubling lane, a long lane.  The plain
+    # of hand-made lanes: count 0, a doubling lane, a long lane that ends at
+    # the last entry of idx (the kernel must not read past it).  The plain
     # version walks every lane through the longest run, so it is timed once,
     # on the compared call.
-    table, order_flat, start, count, lane_off, nseg = msm_plan(grp, pts_cmp, scal_cmp)
+    table, order_flat, start, count, lane_off, nseg, T_cap = msm_plan(grp, pts_cmp, scal_cmp)
     extra_idx = torch.as_tensor([5, 5, 9, 11, 13, 17, 19, 23, 29], dtype=torch.int32, device=dev)
     idx = torch.cat([order_flat, extra_idx])
     base = order_flat.shape[0]
@@ -980,12 +1001,14 @@ def kernels_group(dev, grp, rep: Report, proj, pts_cmp, scal_cmp, pts_time, scal
     lo_t, ns_t = torch.as_tensor(lane_off, device=dev), torch.as_tensor(nseg, device=dev)
     got2 = Gp.bucket_phase(tab2, None, lo_t, ns_t)
     want2, plain2 = timed_once(lambda: Gp.bucket_phase_plain(tab2, None, lo_t, ns_t))
-    cmp_note = f"compared at table ({table.shape[0]}, {rows}), {len(st)} lanes, plain_ms from there"
+    cmp_note = (f"compared at table ({table.shape[0]}, {rows}), {len(st)} lanes "
+                f"({run_profile(Gp, ct, True, T_cap)}), plain_ms from there")
+    seg_cmp_note = f"compared at {len(nseg)} lanes ({run_profile(Gp, nseg, False)}), plain_ms from there"
 
     # timing (and the bound) at the plan of the largest size
     if pts_time is not pts_cmp:
         del table, order_flat, idx, tab2, seg_cmp
-        table, order_flat, start, count, lane_off, nseg = msm_plan(grp, pts_time, scal_time)
+        table, order_flat, start, count, lane_off, nseg, T_cap = msm_plan(grp, pts_time, scal_time)
         st_t, ct_t = torch.as_tensor(start, device=dev), torch.as_tensor(count, device=dev)
         s0, c0 = st_t, ct_t
     else:
@@ -994,9 +1017,11 @@ def kernels_group(dev, grp, rep: Report, proj, pts_cmp, scal_cmp, pts_time, scal
     lanes6 = s0.shape[0]
     ms = time_ms(lambda: Gp.bucket_phase(table, order_flat, s0, c0, mixed=True), 3)
     comp_bytes = 24 * 4 * Gp.ncomp  # one coordinate of one point
+    profile = run_profile(Gp, c0, True, T_cap)
+    say(f"run-length profile, {nm('bucket_mixed')} at the timed plan: {profile}")
     rep.add(nm("bucket_mixed"), got, want, ms, plain,
             adds * (2 * comp_bytes + 4) + lanes6 * (8 + pt_bytes), adds * m_mixed,
-            f"table ({table.shape[0]}, {rows}), {lanes6} lanes, {adds} adds; {cmp_note}")
+            f"table ({table.shape[0]}, {rows}), {adds} adds, {profile}; {cmp_note}")
 
     seg_sums = Gp.bucket_phase(table, order_flat, s0, c0, mixed=True)
     if quick:
@@ -1005,11 +1030,12 @@ def kernels_group(dev, grp, rep: Report, proj, pts_cmp, scal_cmp, pts_time, scal
     tab2 = seg_sums.T.contiguous()
     lo_t, ns_t = torch.as_tensor(lane_off, device=dev), torch.as_tensor(nseg, device=dev)
     adds = int(nseg.sum())
+    profile = run_profile(Gp, nseg, False)
+    say(f"run-length profile, {nm('bucket')} (segment reduce) at the timed plan: {profile}")
     rep.add(nm("bucket"), got2, want2,
             time_ms(lambda: Gp.bucket_phase(tab2, None, lo_t, ns_t), 3), plain2,
             adds * pt_bytes + len(nseg) * (8 + pt_bytes), adds * m_add,
-            f"table ({tab2.shape[0]}, {rows}), {len(nseg)} lanes, {adds} adds; "
-            f"compared at {len(want2[0])} lanes, plain_ms from there")
+            f"table ({tab2.shape[0]}, {rows}), {adds} adds, {profile}; {seg_cmp_note}")
     rep.max_nseg[grp.name] = int(nseg.max())
 
 

@@ -20,7 +20,7 @@ from testudo_tpu_torch.curves import host_curve as hc
 from testudo_tpu_torch.device import build, packed_field
 from testudo_tpu_torch.device import curve as tc
 from testudo_tpu_torch.device.field import FQ, FR
-from testudo_tpu_torch.device.packed_curve import G1P, G2P
+from testudo_tpu_torch.device.packed_curve import G1P, G2P, longest_first
 from testudo_tpu_torch.fields.bls12_377 import P, R
 
 # The suite runs in several worker processes and these limb tensors are tiny:
@@ -99,12 +99,12 @@ def test_build_lists_every_source_and_sets_argtypes():
     on_disk = sorted(p.name for p in build.CSRC.iterdir())
     assert sorted(n for n in on_disk if n.endswith(".cu")) == sorted(build.SOURCES)
     assert sorted(n for n in on_disk if n.endswith(".cuh")) == sorted(build.HEADERS)
-    for name, (symbol, argtypes) in build._SIGNATURES.items():
-        src = "".join((build.CSRC / s).read_text() for s in build.SOURCES)
+    src = "".join((build.CSRC / s).read_text() for s in build.SOURCES)
+    for name, (symbol, argtypes) in (*build._SIGNATURES.items(), *build._QUERIES.items()):
         decl = re.search(rf'extern "C" int {symbol}\((.*?)\)', src, re.S).group(1)
         params = [p.strip() for p in decl.split(",")]
         assert len(params) == len(argtypes), name
-        if not name.startswith("mont_"):
+        if name in build._SIGNATURES and not name.startswith("mont_"):
             assert params[-2] == "int ncomp", name
         for p, t in zip(params, argtypes):
             want = ctypes.c_void_p if "*" in p else (ctypes.c_long if p.startswith("long") else ctypes.c_int)
@@ -253,19 +253,55 @@ def test_device_ladder_equals_plain_and_host(host_lib, batches):
     assert tc.g1_to_affine_host(G1P.unpack(out)) == [hc.g1_mul(p, k) for p, k in zip(aff, ks)]
 
 
-@pytest.mark.parametrize("mixed", [0, 1], ids=["general", "mixed"])
-def test_device_bucket_equals_plain(host_lib, mixed):
+# (idx, start, count) of the bucket kernel's per-lane body.  "ragged": a
+# doubling lane (the same point twice) and a count-0 lane; "edges": counts 0
+# and 1, a long run, a lane that ends at the last entry of idx, the last
+# entry alone and an empty lane that starts past the end.
+BUCKET_CASES = {
+    "ragged": ([3, 3, 1, 0, 2, 9, 8, 7, 6, 5, 4, 4], [0, 2, 5, 5, 11], [2, 3, 0, 6, 1]),
+    "edges": ([int(v) for v in np.random.default_rng(76).integers(0, 10, size=40)],
+              [0, 3, 1, 25, 39, 40], [0, 1, 20, 15, 1, 0]),
+}
+BUCKET_PARAMS = pytest.mark.parametrize(
+    "mixed,case", [(0, "ragged"), (1, "ragged"), (0, "edges"), (1, "edges")],
+    ids=["general", "mixed", "general-edges", "mixed-edges"])
+
+
+def _host_bucket(host_lib, Gp, table, idx, start, count, mixed, perm=None):
+    """host_bucket with the kernel's arguments: the lane order (longest
+    first unless given) and a zeroed work counter, which must end past L."""
+    L = start.shape[0]
+    perm = longest_first(count) if perm is None else perm
+    nxt = torch.zeros(1, dtype=torch.int32)
+    out = torch.full((Gp.rows, L), -1, dtype=torch.int32)
+    rc = host_lib.host_bucket(_ptr(table), _ptr(idx) if idx is not None else None, _ptr(start),
+                              _ptr(count), _ptr(perm), _ptr(nxt), _ptr(out), ctypes.c_long(L),
+                              ctypes.c_int(mixed), Gp.ncomp)
+    assert rc == 0 and int(nxt) >= L
+    return out
+
+
+def _check_bucket(host_lib, Gp, pts, mixed, case):
+    table = Gp.pack((tc.g1_from_affine_host if Gp is G1P else tc.g2_from_affine_host)(
+        pts, device="cpu")).T.contiguous()
+    idx, start, count = (torch.tensor(v, dtype=torch.int32) for v in BUCKET_CASES[case])
+    out = _host_bucket(host_lib, Gp, table, idx, start, count, mixed)
+    assert torch.equal(out, Gp.bucket_phase_plain(table, idx, start, count, mixed=bool(mixed)))
+    # a lane's sum does not depend on when the schedule runs it
+    for perm in (torch.arange(len(count), dtype=torch.int32), longest_first(count).flip(0)):
+        assert torch.equal(_host_bucket(host_lib, Gp, table, idx, start, count, mixed, perm), out)
+    return out
+
+
+@BUCKET_PARAMS
+def test_device_bucket_equals_plain(host_lib, mixed, case):
     pts = _points(10)
-    table = G1P.pack(tc.g1_from_affine_host(pts, device="cpu")).T.contiguous()
-    idx = torch.tensor([3, 3, 1, 0, 2, 9, 8, 7, 6, 5, 4, 4], dtype=torch.int32)
-    start = torch.tensor([0, 2, 5, 5, 11], dtype=torch.int32)
-    count = torch.tensor([2, 3, 0, 6, 1], dtype=torch.int32)
-    out = torch.empty((72, 5), dtype=torch.int32)
-    host_lib.host_bucket(_ptr(table), _ptr(idx), _ptr(start), _ptr(count), _ptr(out),
-                         ctypes.c_long(5), ctypes.c_int(mixed), 1)
-    assert torch.equal(out, G1P.bucket_phase_plain(table, idx, start, count, mixed=bool(mixed)))
+    out = _check_bucket(host_lib, G1P, pts, mixed, case)
     aff = tc.g1_to_affine_host(G1P.unpack(out))
-    assert aff[0] == hc.g1_double(pts[3]) and aff[2] is None and aff[4] == pts[4]
+    if case == "ragged":
+        assert aff[0] == hc.g1_double(pts[3]) and aff[2] is None and aff[4] == pts[4]
+    else:
+        assert aff[0] is None and aff[5] is None and aff[1] == pts[BUCKET_CASES[case][0][3]]
 
 
 def test_device_bucket_consecutive_rows_equals_plain(host_lib, batches):
@@ -273,9 +309,7 @@ def test_device_bucket_consecutive_rows_equals_plain(host_lib, batches):
     table = torch.cat([s, a], dim=1).T.contiguous()  # 18 projective rows
     start = torch.tensor([0, 3, 18], dtype=torch.int32)
     count = torch.tensor([3, 15, 0], dtype=torch.int32)
-    out = torch.empty((72, 3), dtype=torch.int32)
-    host_lib.host_bucket(_ptr(table), None, _ptr(start), _ptr(count), _ptr(out),
-                         ctypes.c_long(3), ctypes.c_int(0), 1)
+    out = _host_bucket(host_lib, G1P, table, None, start, count, 0)
     assert torch.equal(out, G1P.bucket_phase_plain(table, None, start, count))
 
 
@@ -373,19 +407,15 @@ def test_device_g2_ladder_equals_plain_and_host(host_lib, batches_g2):
     assert tc.g2_to_affine_host(G2P.unpack(out)) == [hc.g2_mul(p, k) for p, k in zip(aff, ks)]
 
 
-@pytest.mark.parametrize("mixed", [0, 1], ids=["general", "mixed"])
-def test_device_g2_bucket_equals_plain(host_lib, mixed):
+@BUCKET_PARAMS
+def test_device_g2_bucket_equals_plain(host_lib, mixed, case):
     pts = _g2_points(10)
-    table = G2P.pack(tc.g2_from_affine_host(pts, device="cpu")).T.contiguous()
-    idx = torch.tensor([3, 3, 1, 0, 2, 9, 8, 7, 6, 5, 4, 4], dtype=torch.int32)
-    start = torch.tensor([0, 2, 5, 5, 11], dtype=torch.int32)
-    count = torch.tensor([2, 3, 0, 6, 1], dtype=torch.int32)
-    out = torch.empty((144, 5), dtype=torch.int32)
-    host_lib.host_bucket(_ptr(table), _ptr(idx), _ptr(start), _ptr(count), _ptr(out),
-                         ctypes.c_long(5), ctypes.c_int(mixed), 2)
-    assert torch.equal(out, G2P.bucket_phase_plain(table, idx, start, count, mixed=bool(mixed)))
+    out = _check_bucket(host_lib, G2P, pts, mixed, case)
     aff = tc.g2_to_affine_host(G2P.unpack(out))
-    assert aff[0] == hc.g2_double(pts[3]) and aff[2] is None and aff[4] == pts[4]
+    if case == "ragged":
+        assert aff[0] == hc.g2_double(pts[3]) and aff[2] is None and aff[4] == pts[4]
+    else:
+        assert aff[0] is None and aff[5] is None and aff[1] == pts[BUCKET_CASES[case][0][3]]
 
 
 def test_device_g2_bucket_consecutive_rows_equals_plain(host_lib, batches_g2):
@@ -393,9 +423,7 @@ def test_device_g2_bucket_consecutive_rows_equals_plain(host_lib, batches_g2):
     table = torch.cat([s, a], dim=1).T.contiguous()  # 18 projective rows, identities among them
     start = torch.tensor([0, 3, 18], dtype=torch.int32)
     count = torch.tensor([3, 15, 0], dtype=torch.int32)
-    out = torch.empty((144, 3), dtype=torch.int32)
-    host_lib.host_bucket(_ptr(table), None, _ptr(start), _ptr(count), _ptr(out),
-                         ctypes.c_long(3), ctypes.c_int(0), 2)
+    out = _host_bucket(host_lib, G2P, table, None, start, count, 0)
     assert torch.equal(out, G2P.bucket_phase_plain(table, None, start, count))
 
 

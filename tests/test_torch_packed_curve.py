@@ -17,7 +17,7 @@ from testudo_tpu_torch.curves import host_curve as hc
 from testudo_tpu_torch.device import build
 from testudo_tpu_torch.device import curve as tc
 from testudo_tpu_torch.device.field import FR
-from testudo_tpu_torch.device.packed_curve import G1P
+from testudo_tpu_torch.device.packed_curve import G1P, longest_first
 from testudo_tpu_torch.fields.bls12_377 import P, R
 
 # The suite runs in several worker processes and these limb tensors are tiny:
@@ -202,6 +202,18 @@ def test_bucket_phase_all_zero_counts_returns_identity():
     assert torch.equal(got, G1P.identity_packed(3, device="cpu"))
 
 
+@pytest.mark.parametrize("counts", [
+    [], [5], [0, 0, 0], [3, 7, 7, 0, 7, 1, 512, 3],
+    [int(v) for v in np.random.default_rng(42).integers(0, 4, size=97)],
+], ids=["empty", "one", "all-zero", "ties", "random"])
+def test_longest_first_is_a_stable_descending_permutation(counts):
+    """The bucket kernel's lane order: every lane once, longest first, equal
+    counts in lane order."""
+    perm = longest_first(torch.tensor(counts, dtype=torch.int32))
+    assert perm.dtype == torch.int32 and perm.shape == (len(counts),)
+    assert perm.tolist() == sorted(range(len(counts)), key=lambda lane: (-counts[lane], lane))
+
+
 def test_tree_reduce_equals_halving_of_kernel_bodies():
     a = SUM[:, :5]  # odd lane counts on the way down: 5 -> 3 -> 2 -> 1
     got = G1P.tree_reduce(torch.from_numpy(a.copy()))
@@ -271,6 +283,18 @@ def test_wrappers_reject_wrong_dtype_on_cpu(op):
             G1P.ladder(A64, torch.ones((1, L), dtype=torch.int32))
         else:
             G1P.bucket_phase(A64.T.contiguous(), None, mask[:2] * 0, mask[:2])
+
+
+def test_cuda_argument_check_rejects_a_misaligned_table():
+    """The bucket kernel reads table rows as 16-byte words: its wrapper
+    checks that the table starts at a 16-byte aligned address (rows of
+    288 and 576 bytes keep every row aligned then)."""
+    flat = torch.zeros(2 * 72 + 4, dtype=torch.int32)
+    assert flat.data_ptr() % 16 == 0
+    build.require_aligned("bucket_phase", 16, table=flat[4:148].view(2, 72))
+    for off in (1, 2, 3):
+        with pytest.raises(ValueError, match="aligned"):
+            build.require_aligned("bucket_phase", 16, table=flat[off:off + 144].view(2, 72))
 
 
 @pytest.mark.parametrize("fault", ["cpu_tensor", "dtype", "contiguity"])

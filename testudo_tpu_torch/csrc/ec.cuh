@@ -21,8 +21,9 @@
 // L: 72 rows for G1, 144 for G2.
 //
 // Each `lane_*` function is the whole work of one thread of one kernel; the
-// `__global__` functions in the .cu files only compute the lane index.  The
-// same functions compile as plain C++ for csrc/host_check.cpp.
+// `__global__` functions in the .cu files only compute the lane index (the
+// bucket kernel takes its lanes from a work counter).  The same functions
+// compile as plain C++ for csrc/host_check.cpp.
 #pragma once
 #include "fp2.cuh"
 

@@ -129,13 +129,19 @@ int host_ladder(const int* pts, const int* scal, int* out, int nl, long L, int n
                 lane_ladder<C>(pts, scal, out, nl, L, lane));
 }
 
-int host_bucket(const int* table, const int* idx, const int* start,
-                const int* count, int* out, long L, int mixed, int ncomp) {
-  FOR_GROUP(for (long lane = 0; lane < L; lane++) {
-    if (mixed)
-      lane_bucket<C, true>(table, idx, start, count, out, L, lane);
-    else
-      lane_bucket<C, false>(table, idx, start, count, out, L, lane);
+// The bucket kernel's schedule run by one "warp" at a time: take the next 32
+// entries of perm from the counter *next, run their lanes, until none are
+// left.
+int host_bucket(const int* table, const int* idx, const int* start, const int* count,
+                const int* perm, int* next, int* out, long L, int mixed, int ncomp) {
+  FOR_GROUP(for (long first = *next; first < L; first = *next) {
+    *next += 32;
+    for (long i = first; i < first + 32 && i < L; i++) {
+      if (mixed)
+        lane_bucket<C, true>(table, idx, start, count, out, L, perm[i]);
+      else
+        lane_bucket<C, false>(table, idx, start, count, out, L, perm[i]);
+    }
   });
 }
 }

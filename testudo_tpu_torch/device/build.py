@@ -55,7 +55,11 @@ _SIGNATURES = {
     "scan2": ("testudo_scan2", (_P, _P, _P, _P, _P, _L, _I, _P)),
     "scan2b": ("testudo_scan2b", (_P, _P, _P, _P, _P, _L, _I, _P)),
     "ladder": ("testudo_ladder", (_P, _P, _P, _I, _L, _I, _P)),
-    "bucket": ("testudo_bucket", (_P, _P, _P, _P, _P, _L, _I, _I, _P)),
+    "bucket": ("testudo_bucket", (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _P)),
+}
+# C functions that launch nothing and take no stream: (symbol, argtypes).
+_QUERIES = {
+    "bucket_capacity": ("testudo_bucket_capacity", (_I, _I)),
 }
 
 # Launches per kernel since the last reset_launches().  The mixed and the
@@ -141,7 +145,7 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     lib = ctypes.CDLL(str(build()))
-    for symbol, argtypes in _SIGNATURES.values():
+    for symbol, argtypes in (*_SIGNATURES.values(), *_QUERIES.values()):
         fn = getattr(lib, symbol)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
@@ -215,6 +219,20 @@ def require_cuda_int32(name: str, **tensors: torch.Tensor) -> None:
             device = t.device
         elif t.device != device:
             raise ValueError(f"{name}: tensors lie on different devices")
+
+
+def require_aligned(name: str, nbytes: int, **tensors: torch.Tensor) -> None:
+    """A kernel that reads rows as `nbytes`-byte words needs each tensor's
+    data to start at a multiple of `nbytes` (its rows' lengths are)."""
+    for arg, t in tensors.items():
+        if t.data_ptr() % nbytes:
+            raise ValueError(f"{name}: {arg} must start at a {nbytes}-byte aligned address")
+
+
+def query(name: str, *args) -> int:
+    """Call the C query `name` (no launch, no stream) on the current device."""
+    symbol, _ = _QUERIES[name]
+    return getattr(library(), symbol)(*args)
 
 
 def launch(name: str, *args, counted_as: str | None = None) -> None:

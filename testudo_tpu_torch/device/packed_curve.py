@@ -17,7 +17,8 @@ held against its plain version on the card; they never launch a kernel.
 
 What differs from the JAX package: `ladder` is one launch (not one `step`
 launch per bit); `bucket_phase` gathers by index inside the kernel from a
-point-major table instead of streaming a materialised run tensor; masks are
+point-major table instead of streaming a materialised run tensor, and runs
+its lanes longest first on a grid that stays resident; masks are
 one int per lane; `add_mask` also takes ONE point for all lanes (a single
 column: the fixed-base ladder's table entry); no lane padding to tiles
 anywhere.
@@ -30,6 +31,14 @@ import torch
 from . import build
 from . import curve as tc
 from .field import FQ, FieldSpec, LIMB_BITS
+
+
+def longest_first(count: torch.Tensor) -> torch.Tensor:
+    """The bucket kernel's lane order: lane indices by `count`, longest
+    first, equal counts in lane order (int32, on count's device; empty for
+    no lanes)."""
+    return torch.argsort(count, descending=True, stable=True).to(torch.int32)
+
 
 class PackedGroup:
     """One EC group in packed-rows layout (G1: ncomp = 1, G2: ncomp = 2).
@@ -263,7 +272,9 @@ class PackedGroup:
     def bucket_phase(self, table, idx, start, count, mixed: bool = False):
         """Per-lane run sums.  Lane l adds, in order onto the identity, the
         `count[l]` points table[idx[start[l] + t]] (idx given) or
-        table[start[l] + t] (idx None), t = 0 .. count[l] - 1.
+        table[start[l] + t] (idx None), t = 0 .. count[l] - 1.  The kernel
+        starts the longest lanes first (`longest_first`); that changes
+        when a lane runs, never its sum.
 
         table: (npoints, rows) int32, POINT-major; idx: (m,) int32 or None;
         start, count: (L,) int32.  Returns (rows, L).  A lane with count 0
@@ -284,16 +295,31 @@ class PackedGroup:
         if idx is not None:
             tensors["idx"] = idx
         build.require_cuda_int32("bucket_phase", **tensors)
+        build.require_aligned("bucket_phase", 16, table=table)
         L = start.shape[0]
-        out = torch.empty((self.rows, L), dtype=torch.int32, device=table.device)
+        if L > 1 << 30:
+            raise ValueError(f"bucket_phase: {L} lanes, at most 2^30")
         with torch.cuda.device(table.device):
+            out = torch.empty((self.rows, L), dtype=torch.int32, device=table.device)
+            # the kernel takes lanes in this order, 32 per warp, from `nxt`
+            perm = longest_first(count)
+            nxt = torch.zeros(1, dtype=torch.int32, device=table.device)
             build.launch(
                 "bucket", table.data_ptr(), idx.data_ptr() if idx is not None else None,
-                start.data_ptr(), count.data_ptr(), out.data_ptr(), L, int(mixed),
-                self.ncomp,
+                start.data_ptr(), count.data_ptr(), perm.data_ptr(), nxt.data_ptr(),
+                out.data_ptr(), L, int(mixed), self.ncomp,
                 counted_as=self._counter("bucket_mixed" if mixed else "bucket"),
             )
         return out
+
+    def bucket_capacity(self, mixed: bool) -> int:
+        """Blocks of 64 threads the bucket kernel keeps resident on the
+        current card (its grid is the smaller of this and one thread per
+        lane).  Builds the kernels if needed; CUDA only."""
+        n = build.query("bucket_capacity", int(mixed), self.ncomp)
+        if n <= 0:
+            raise RuntimeError(f"bucket_capacity: the occupancy query failed ({n})")
+        return n
 
     # -- reductions built on add2 ------------------------------------------------
 
