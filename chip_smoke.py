@@ -25,7 +25,7 @@ testudo_tpu_torch/csrc/, then
      the affine column commitments, spot columns equal host MSMs, the proof
      has its hardware-independent size; commit, open and verify are timed
      with their parts, and the launches of one warm commit, open and verify
-     are counted;
+     are counted, and the device time of one open's ladder launches;
   5. runs the chained-product harness (tools/exp_montmul.py), which
      measures the card's Montgomery products per second;
   6. calls every kernel's wrapper at the shapes the main paths gave it and
@@ -34,7 +34,11 @@ testudo_tpu_torch/csrc/, then
      must be 0), at a lane count that is no multiple of the block size and
      with edge cases mixed in, and times both; the bucket kernel's rows and a
      line each give the run-length profile of its launch (lanes, longest run,
-     lanes at T_cap, resident blocks per SM, grid);
+     lanes at T_cap, resident blocks per SM, grid); the two ladder kernels
+     (the team kernel, a team of threads per lane, on narrow launches; one
+     thread per lane on wide ones) are held against the plain ladder at the
+     widths each takes (20 lanes of Horner scalars and 1,024 random lanes;
+     the commit's 32,768 lanes) beside each other and `latency_bound_ms`;
   7. checks a small MSM against the host oracle;
   8. prints one JSON line {"kernels": [...]} (each row's `launches` is the
      sum of `launches_by_path`, the kernel's count on each driven path: msm,
@@ -76,7 +80,7 @@ from testudo_tpu_torch.device.packed_curve import G1P, G2P
 from testudo_tpu_torch.fields.bls12_377 import R
 from testudo_tpu_torch.poly import dense
 from testudo_tpu_torch.poseidon.transcript import PoseidonTranscript, fq_params
-from testudo_tpu_torch.tools import exp_montmul
+from testudo_tpu_torch.tools import exp_montmul, time_open
 from testudo_tpu_torch.utils import timer
 
 # Least-time model.  Bytes: every input read once, every output written
@@ -104,7 +108,7 @@ _REPLACES = {
     "mont_chain_wide": "tools/exp_mulmany_wide.py:60",
     "add_mask": _EC + ":403", "add2": _EC + ":415", "step": _EC + ":424",
     "scan2": _EC + ":437", "scan2b": _EC + ":450", "bucket": _EC + ":461",
-    "bucket_mixed": _EC + ":509", "ladder": _EC + ":733",
+    "bucket_mixed": _EC + ":509", "ladder": _EC + ":733", "ladder_team": _EC + ":733",
 }
 _CSRC = "testudo_tpu_torch/csrc/"
 _SOURCE = {
@@ -113,7 +117,8 @@ _SOURCE = {
     "mont_chain_wide": "mont_chain.cu",
     "mont_mul": "mont_mul.cu", "add_mask": "ec_ops.cu", "add2": "ec_ops.cu",
     "step": "ec_ops.cu", "scan2": "ec_ops.cu", "scan2b": "ec_ops.cu",
-    "ladder": "ladder.cu", "bucket": "bucket.cu", "bucket_mixed": "bucket.cu",
+    "ladder": "ladder.cu", "ladder_team": "ladder_team.cu", "bucket": "bucket.cu",
+    "bucket_mixed": "bucket.cu",
 }
 # proof bytes (PST opening + MIPP proof) of sqrt-PST per number of variables:
 # counts of group and field elements, the same on any hardware
@@ -121,10 +126,13 @@ PROOF_BYTES = {10: 7136, 14: 9920, 20: 14096}
 # The paths on which each kernel must be launched at least once (each path is
 # driven with the counters zeroed just before and read just after).  K1
 # (`mont_mul`) serves (n, m) callers and `scan2` is on no path: both are
-# launched in the kernel phase only.
-_MSM_KERNELS = ("add2", "step", "scan2b", "ladder", "bucket", "bucket_mixed")
+# launched in the kernel phase only.  So is the one-thread G2 ladder: every
+# G2 ladder of the paths is at most TEAM_LADDER_MAX_LANES wide (the MSM's
+# 20-lane Horner, the open's folds), so the team kernel takes it; the
+# one-thread G1 ladder runs the commit's 32,768-lane Horner.
+_MSM_KERNELS = ("add2", "step", "scan2b", "ladder_team", "bucket", "bucket_mixed")
 MUST_LAUNCH = {
-    "mont_mul": (), "scan2": (), "scan2_g2": (),
+    "mont_mul": (), "scan2": (), "scan2_g2": (), "ladder_g2": (),
     "mont_mul_rm_fq": ("field", "open"),
     "mont_mul_rm_fr": ("commit", "open"),
     "mont_chain": ("harness",), "mont_chain_seq": ("harness",), "mont_chain_wide": ("harness",),
@@ -133,9 +141,10 @@ MUST_LAUNCH = {
     **{k + "_g2": ("msm",) for k in _MSM_KERNELS},
 }
 MUST_LAUNCH.update({
-    "add2": ("msm", "commit", "open"), "ladder": ("msm", "commit", "open"),
+    "add2": ("msm", "commit", "open"), "ladder": ("commit",),
+    "ladder_team": ("msm", "open"), "ladder_team_g2": ("msm", "open"),
     "bucket": ("msm", "commit", "open"), "step": ("msm", "open"), "scan2b": ("msm", "open"),
-    "add2_g2": ("msm", "open"), "ladder_g2": ("msm", "open"),
+    "add2_g2": ("msm", "open"),
 })
 N_UNIQUE = 1 << 13
 ODD = 37  # extra lanes so no compared batch is a multiple of a block size
@@ -206,6 +215,11 @@ def bound(nbytes: float, madds: float):
 def counter(grp, kernel: str) -> str:
     """Name of a kernel's row and launch counter: bare for G1, `_g2` for G2."""
     return grp.Gp._counter(kernel)
+
+
+def ladder_launches(grp) -> int:
+    """Launches of either ladder kernel of the group since the last reset."""
+    return sum(build.LAUNCHES[counter(grp, k)] for k in ("ladder", "ladder_team"))
 
 
 class Report:
@@ -521,7 +535,7 @@ def phase_small_msms(dev, grp, affine_pts, ks):
     got = msm.msm_segmented(grp.name, take(0, n), torch.as_tensor(scal_np, device=dev), 2, device=dev)
     want = [grp.mul(G, dlog_of_msm(scal_np[s * 1024:(s + 1) * 1024], ks[s * 1024:(s + 1) * 1024]))
             for s in range(2)]
-    if got != want or build.LAUNCHES[counter(grp, "ladder")] != 1:
+    if got != want or ladder_launches(grp) != 1:
         raise AssertionError(f"msm_segmented({grp.name}) disagrees with the host")
 
     sizes = [1 << e for e in range(9, -1, -1)]  # 512 ... 1
@@ -533,7 +547,7 @@ def phase_small_msms(dev, grp, affine_pts, ks):
         off += sz
     build.reset_launches()
     got = msm.msm_multi_small(grp.name, parts, device=dev)
-    if got != want or build.LAUNCHES[counter(grp, "ladder")] != 1:
+    if got != want or ladder_launches(grp) != 1:
         raise AssertionError(f"msm_multi_small({grp.name}) disagrees with the host")
     say(f"{grp.name}: scalar_mul_batch (64 lanes), msm_segmented (2 x 2^10, one ladder launch) "
         f"and msm_multi_small ({len(sizes)} parts of 512..1, one ladder launch) equal the host")
@@ -647,6 +661,11 @@ def phase_sqrt_pst(dev, nv: int, full: bool):
     counts_open = dict(build.LAUNCHES)
     if U2 != U or proofs.ser_mipp(mipp2) != proofs.ser_mipp(mipp_proof):
         raise AssertionError("a second opening differs from the first")
+    # one more warm open, with CUDA events around every ladder launch
+    (_, open_ms), ladders = time_open.ladder_device_ms(lambda: timed_once(do_open))
+    lad = ", ".join(f"{g} {ms:.3f} ms over {n} launches" for g, (ms, n) in sorted(ladders.items()))
+    say(f"  ladder device time of one warm open (CUDA events around each launch): {lad}; "
+        f"together {sum(v[0] for v in ladders.values()):.3f} ms of the open's {open_ms:.1f} ms")
     build.reset_launches()
     with timer.record() as rec:
         ok, verify_warm = timed_once(lambda: do_verify(v))
@@ -891,7 +910,7 @@ def kernels_commit_bucket(dev, rep: Report, canon, basis):
 
 
 def kernels_group(dev, grp, rep: Report, proj, pts_cmp, scal_cmp, pts_time, scal_time,
-                  quick: bool):
+                  lat_us: float, quick: bool):
     """Every EC kernel of one group against its plain version.  The bucket
     kernels are compared at the plan of (pts_cmp, scal_cmp) and timed at the
     plan of (pts_time, scal_time); the two may be the same batch."""
@@ -953,27 +972,82 @@ def kernels_group(dev, grp, rep: Report, proj, pts_cmp, scal_cmp, pts_time, scal
             (2 * pt_bytes + 4) * na + pt_bytes, m_add * int(bits0.sum()),
             f"({rows}, {na}) + one shared column, {int(bits0.sum())} lanes masked in")
 
-    # the ladder at the Horner combine's shape and data: 20 window sums times
-    # 2^(13 w); behind them lanes with scalars 0, 1, r-1, 2 and random ones
+    # The ladders.  The team kernel takes the narrow launches: compared with
+    # the plain version at the Horner combine's shape and data (20 window
+    # sums times 2^(13 w); behind them lanes with scalars 0, 1, r-1, 2 and
+    # random ones), timed there and at the open's widest fold (1,024 lanes,
+    # random scalars).  The one-thread kernel takes the commit's Horner
+    # (32,768 lanes, scalars 2^(8 w)): compared on a stride of those lanes.
+    # At every shape the other kernel must give the same limbs, and is timed
+    # beside it.  The plain ladder is a chain of 512 group operations whose
+    # time hardly depends on the lane count: it is timed once, on the
+    # compared call.  latency_bound_ms: the scalars' top bit times the rounds
+    # of dependent products a step needs (2, G2 3) times one dependent
+    # product's latency at one warp (the harness's latency mode).
+    rounds = 2 if Gp.ncomp == 1 else 3
+    team = lambda p, k: Gp.ladder_launch("ladder_team", p, k)
+    one = lambda p, k: Gp.ladder_launch("ladder", p, k)
+
+    def ladder_need(ks):  # products an add per set bit and a double per bit need
+        return sum(grp.muls[0] * bin(k).count("1") + grp.muls[2] * k.bit_length() for k in ks)
+
+    def latency_ms(ks):
+        return max(k.bit_length() for k in ks) * rounds * lat_us / 1e3
+
+    def rows_of(ks):
+        return torch.as_tensor(FR.to_limbs(ks).T.copy(), device=dev)
+
     Lh = 20 + ODD
     pts_h, _ = edge_points(dev, grp, proj, Lh)
     ks = [1 << (msm._SIGNED_C * w) for w in range(20)] + [0, 1, R - 1, 2]
     ks += [int(v) for v in FR.from_limbs(random_scalars(Lh - len(ks), 23))]
-    scal_h = torch.as_tensor(FR.to_limbs(ks).T.copy(), device=dev)
+    scal_h = rows_of(ks)
     if quick:  # the plain ladder walks all 256 bits: two limb rows are enough here
         scal_h = scal_h[:2].contiguous()
-    # the plain ladder is a chain of 512 group operations whose time hardly
-    # depends on the lane count: it is timed once, on the compared call
-    got = Gp.ladder(pts_h, scal_h)
+    got = team(pts_h, scal_h)
     want, plain = timed_once(lambda: Gp.ladder_plain(pts_h, scal_h))
-    scal_full = torch.as_tensor(FR.to_limbs(ks[:20]).T.copy(), device=dev)
-    p0 = pts_h[:, :20].contiguous()
-    # what these scalars need: an add per set bit, a double per bit below the top one
-    need = sum(grp.muls[0] * bin(k).count("1") + grp.muls[2] * k.bit_length() for k in ks[:20])
-    rep.add(nm("ladder"), got, want, time_ms(lambda: Gp.ladder(p0, scal_full), 5), plain,
-            (2 * pt_bytes + 16 * 4) * 20, need * MADD_FQ,
-            f"({rows}, 20) x 256 bits, scalars 2^(13 w); compared at {Lh} lanes, "
-            f"plain_ms from there")
+    if not torch.equal(one(pts_h, scal_h), want):
+        raise AssertionError(f"kernel {nm('ladder')} differs from its plain version at the Horner shape")
+    p20, s20 = pts_h[:, :20].contiguous(), rows_of(ks[:20])
+    t20, o20 = time_ms(lambda: team(p20, s20), 5), time_ms(lambda: one(p20, s20), 5)
+    L1 = 64 if quick else 1024
+    p1, _ = edge_points(dev, grp, proj, L1)
+    k1 = [int(v) for v in FR.from_limbs(random_scalars(L1, 29))]
+    s1 = rows_of(k1)
+    if not torch.equal(team(p1, s1), one(p1, s1)):
+        raise AssertionError(f"{nm('ladder_team')} and {nm('ladder')} differ at {L1} lanes")
+    t1, o1 = time_ms(lambda: team(p1, s1), 5), time_ms(lambda: one(p1, s1), 5)
+    b1, _ = bound((2 * pt_bytes + 16 * 4) * L1, ladder_need(k1) * MADD_FQ)
+    rep.add(nm("ladder_team"), got, want, t20, plain, (2 * pt_bytes + 16 * 4) * 20,
+            ladder_need(ks[:20]) * MADD_FQ,
+            f"({rows}, 20) x 256 bits, scalars 2^(13 w); compared at "
+            f"{Lh} lanes, plain_ms from there; also timed at ({rows}, {L1}), random scalars")
+    rep.rows[nm("ladder_team")].update({
+        "latency_bound_ms": latency_ms(ks[:20]), "latency_us_per_product": lat_us,
+        "one_thread_ms": o20, f"ms_{L1}": t1, f"one_thread_ms_{L1}": o1,
+        f"bound_ms_{L1}": b1, f"latency_bound_ms_{L1}": latency_ms(k1)})
+    say(f"  {nm('ladder_team')}: 20 lanes {t20:.4f} ms (one thread {o20:.4f}), {L1} lanes "
+        f"{t1:.4f} ms (one thread {o1:.4f}); latency bound {latency_ms(ks[:20]):.4f} / "
+        f"{latency_ms(k1):.4f} ms")
+
+    Lc = 2048 if quick else 32768
+    pc, _ = edge_points(dev, grp, proj, Lc)
+    kc = [1 << (8 * (l % 32)) for l in range(Lc)]
+    sc = rows_of(kc)
+    gotc = one(pc, sc)
+    if not torch.equal(team(pc, sc), gotc):
+        raise AssertionError(f"{nm('ladder_team')} and {nm('ladder')} differ at {Lc} lanes")
+    pick = torch.as_tensor(sorted({int(i) for i in np.linspace(0, Lc - 1, 64 + ODD)}), device=dev)
+    wantc, plainc = timed_once(
+        lambda: Gp.ladder_plain(pc[:, pick].contiguous(), sc[:, pick].contiguous()))
+    tc_one, tc_team = time_ms(lambda: one(pc, sc), 3), time_ms(lambda: team(pc, sc), 3)
+    rep.add(nm("ladder"), gotc[:, pick].contiguous(), wantc, tc_one, plainc,
+            (2 * pt_bytes + 16 * 4) * Lc, ladder_need(kc) * MADD_FQ,
+            f"({rows}, {Lc}) x 256 bits, scalars 2^(8 w) (the commit's Horner); compared on "
+            f"{len(pick)} of these lanes, plain_ms from there")
+    rep.rows[nm("ladder")].update({"latency_bound_ms": latency_ms(kc),
+                                   "latency_us_per_product": lat_us, "team_ms": tc_team})
+    say(f"  {nm('ladder')} at {Lc} lanes: {tc_one:.4f} ms (team kernel {tc_team:.4f})")
 
     # the bucket kernels with the exact arguments of a main path, plus a tail
     # of hand-made lanes: count 0, a doubling lane, a long lane that ends at
@@ -1059,6 +1133,10 @@ def main(argv=None) -> int:
     for grp in (g1, g2):
         proj[grp.name], affine[grp.name], ks[grp.name] = make_points(dev, grp, t_start)
 
+    # one dependent Fq product at one warp: the ladders' latency bound
+    lat_us = exp_montmul.measure_latency(FQ, dev)["inline"]["us_per_product"]
+    say(f"latency of one dependent Fq product at one warp (inlined): {lat_us:.4f} us")
+
     if args.kernels_only:
         N = 1 << 14
         kernels_montgomery(dev, rep, quick=True)
@@ -1068,7 +1146,7 @@ def main(argv=None) -> int:
         for grp in (g1, g2):
             pts = tile(affine[grp.name], N // N_UNIQUE)
             scal = torch.as_tensor(random_scalars(N, 7), device=dev)
-            kernels_group(dev, grp, rep, proj[grp.name], pts, scal, pts, scal, quick=True)
+            kernels_group(dev, grp, rep, proj[grp.name], pts, scal, pts, scal, lat_us, quick=True)
         say("kernels-only pass done; run without arguments for the full check")
         return 0
 
@@ -1122,10 +1200,12 @@ def main(argv=None) -> int:
     kernels_montgomery(dev, rep, quick=False)
     kernels_rowmajor(dev, rep, quick=False)
     kernels_chain(dev, rep, quick=False)
-    kernels_group(dev, g1, rep, proj["g1"], *batches["g1", 20], *batches["g1", 20], quick=False)
+    kernels_group(dev, g1, rep, proj["g1"], *batches["g1", 20], *batches["g1", 20], lat_us,
+                  quick=False)
     kernels_commit_bucket(dev, rep, canon, basis)
     del canon, basis
-    kernels_group(dev, g2, rep, proj["g2"], *batches["g2", 16], *batches["g2", 20], quick=False)
+    kernels_group(dev, g2, rep, proj["g2"], *batches["g2", 16], *batches["g2", 20], lat_us,
+                  quick=False)
 
     for name, row in rep.rows.items():
         row["launches_by_path"] = {path: tot[name] for path, tot in by_path.items() if tot[name]}

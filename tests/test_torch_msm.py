@@ -256,3 +256,21 @@ def test_msm_packed_stages_equal_reference_packed_msm(monkeypatch):
     got = tmsm.msm_g1(tc.g1_from_affine_host(pts_h, device="cpu"), scalars, affine=True,
                       signed_c=c, device="cpu")
     assert got == jout == jhc.g1_msm(pts_h, scalars)
+
+
+def test_msm_seg_buckets_rejects_positions_past_int32():
+    """The bucket kernel takes int32 positions: a sorted index table of 2^31
+    entries (a view, no memory) raises before anything is cast, and so does
+    a segment past the table's end (so no start + count passes 2^31 - 1)."""
+    table = torch.zeros((2, G1P.rows), dtype=torch.int32)
+    one = np.ones(1, dtype=np.int64)
+    huge = torch.zeros(1, dtype=torch.int32).expand(1 << 31)
+    with pytest.raises(ValueError, match="2\\^31 entries"):
+        tmsm._msm_seg_buckets(G1P, table, huge, one * 0, one * 0, one.astype(np.int32), 1, True)
+    small = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="past the sorted index table"):
+        tmsm._msm_seg_buckets(G1P, table, small, one, one * 3, one.astype(np.int32), 2, True)
+    # in range: the segment sums come back
+    out = tmsm._msm_seg_buckets(G1P, table, small, one * 0, one * 0,
+                                one.astype(np.int32), 2, False)
+    assert out.shape == (G1P.rows, 1)

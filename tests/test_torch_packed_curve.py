@@ -244,7 +244,8 @@ def test_cpu_path_launches_no_kernel():
     G1P.bucket_phase(A.T.contiguous(), None, torch.zeros(2, dtype=torch.int32),
                      torch.ones(2, dtype=torch.int32))
     assert all(v == 0 for v in build.LAUNCHES.values()), build.LAUNCHES
-    ec = {"add2", "add_mask", "step", "scan2", "scan2b", "ladder", "bucket", "bucket_mixed"}
+    ec = {"add2", "add_mask", "step", "scan2", "scan2b", "ladder", "ladder_team", "bucket",
+          "bucket_mixed"}
     field = {"mont_mul", "mont_mul_rm_fq", "mont_mul_rm_fr", "mont_chain", "mont_chain_seq",
              "mont_chain_wide"}
     assert set(build.LAUNCHES) == field | ec | {k + "_g2" for k in ec}

@@ -3,7 +3,9 @@
 // with the same C interface minus the stream.  tests/test_torch_csrc.py
 // builds this with the host compiler and holds it against the plain PyTorch
 // versions, so the field and group code is checked where there is no GPU.
-#include "ec.cuh"
+#include <vector>
+
+#include "ec_team.cuh"
 
 // Run the statement given (it names the policy C) for the group `ncomp` names.
 #define FOR_GROUP(...)                          \
@@ -38,6 +40,37 @@ static void host_chain(const int* a, const int* b, int* out, int G, long L, int 
         lane_mont_chain_seq<F, false, 6>(a, b, out, L, lane, K);
     }
   }
+}
+
+// The team ladder (ladder_team.cu) on the CPU: the same table and the same
+// per-rank functions, each stage's operations run one rank after another
+// (TEAM_T at a time, as the kernel's sub-rounds), lane by lane.
+template <class C>
+static int host_team(const int* pts, const int* scal, int* out, int nl, long L) {
+  constexpr int NC = C::COMP_ROWS / (2 * FQN);
+  constexpr int T = TEAM_T(NC);
+  static TeamTable tab;
+  if (team_table(tab, NC) != 0) return -2;
+  const int ns = tab.nslots;
+  std::vector<u32> region((std::size_t)ns * FQN);
+  for (long lane = 0; lane < L; lane++) {
+    for (int r = 0; r < T; r++) team_init<C>(region.data(), ns, pts, L, lane, r);
+    for (int k = 0; k < nl; k++) {
+      const u32 limb = (u32)scal[(long)k * L + lane];
+      for (int bit = 0; bit < 16; bit++) {
+        const bool set = ((limb >> bit) & 1u) != 0;
+        for (int s = 0; s < tab.nstages; s++) {
+          const u32 st = tab.stage[s];
+          const int count = (int)((st >> 16) & 0x7fffu);
+          for (int i = 0; i < count; i += T)
+            for (int r = 0; r < T; r++)
+              team_op(region.data(), ns, team_pick(tab.op, st, i + r, NC), (st >> 31) != 0, set);
+        }
+      }
+    }
+    for (int r = 0; r < T; r++) team_store<C>(out, region.data(), ns, L, lane, r);
+  }
+  return 0;
 }
 
 extern "C" {
@@ -127,6 +160,27 @@ int host_scan2b(const int* run, const int* tot, const int* bl, int* out_run,
 int host_ladder(const int* pts, const int* scal, int* out, int nl, long L, int ncomp) {
   FOR_GROUP(for (long lane = 0; lane < L; lane++)
                 lane_ladder<C>(pts, scal, out, nl, L, lane));
+}
+
+int host_ladder_team(const int* pts, const int* scal, int* out, int nl, long L, int ncomp) {
+  if (ncomp == 1) return host_team<FqCoord>(pts, scal, out, nl, L);
+  if (ncomp == 2) return host_team<Fq2Coord>(pts, scal, out, nl, L);
+  return -1;
+}
+
+// The team ladder's table for a group: dims = (nops, nstages, nslots,
+// nfixed), ops and stages as the kernel receives them (room for
+// TEAM_MAX_OPS and TEAM_MAX_STAGES words).
+int host_team_table(int ncomp, u32* ops, u32* stages, int* dims) {
+  TeamTable tab;
+  if (team_table(tab, ncomp) != 0) return -1;
+  for (int i = 0; i < tab.nops; i++) ops[i] = tab.op[i];
+  for (int s = 0; s < tab.nstages; s++) stages[s] = tab.stage[s];
+  dims[0] = tab.nops;
+  dims[1] = tab.nstages;
+  dims[2] = tab.nslots;
+  dims[3] = tab.nfixed;
+  return 0;
 }
 
 // The bucket kernel's schedule run by one "warp" at a time: take the next 32

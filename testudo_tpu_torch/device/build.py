@@ -30,8 +30,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("mont_mul.cu", "mont_mul_rm.cu", "mont_chain.cu", "ec_ops.cu", "ladder.cu",
-           "bucket.cu")
-HEADERS = ("fp.cuh", "fp2.cuh", "ec.cuh", "launch.cuh")
+           "ladder_team.cu", "bucket.cu")
+HEADERS = ("fp.cuh", "fp2.cuh", "ec.cuh", "ec_team.cuh", "launch.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -55,6 +55,7 @@ _SIGNATURES = {
     "scan2": ("testudo_scan2", (_P, _P, _P, _P, _P, _L, _I, _P)),
     "scan2b": ("testudo_scan2b", (_P, _P, _P, _P, _P, _L, _I, _P)),
     "ladder": ("testudo_ladder", (_P, _P, _P, _I, _L, _I, _P)),
+    "ladder_team": ("testudo_ladder_team", (_P, _P, _P, _I, _L, _I, _P)),
     "bucket": ("testudo_bucket", (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _P)),
 }
 # C functions that launch nothing and take no stream: (symbol, argtypes).
@@ -68,8 +69,8 @@ _QUERIES = {
 # kernel: the G1 count keeps the bare name, the G2 count ends in "_g2".  The
 # row-major Montgomery product is counted per field, the grouped chain per
 # variant.
-EC_KERNELS = ("add2", "add_mask", "step", "scan2", "scan2b", "ladder", "bucket",
-              "bucket_mixed")
+EC_KERNELS = ("add2", "add_mask", "step", "scan2", "scan2b", "ladder", "ladder_team",
+              "bucket", "bucket_mixed")
 FIELD_KERNELS = ("mont_mul", "mont_mul_rm_fq", "mont_mul_rm_fr", "mont_chain",
                  "mont_chain_seq", "mont_chain_wide")
 LAUNCHES = {name: 0 for name in (

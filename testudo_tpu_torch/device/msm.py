@@ -253,6 +253,10 @@ def _msm_seg_buckets(Gp: PackedGroup, table, order_flat, wnd, seg_start,
     points table[order_flat[wnd[l] * n_sorted + seg_start[l] + t]].
     wnd / seg_start / seg_count are host (numpy) plans; returns (rows, L)."""
     start = wnd.astype(np.int64) * n_sorted + seg_start
+    # the kernel takes int32 positions: with the table below 2^31 entries
+    # and no segment past its end, every start + count fits
+    if order_flat.shape[0] >= 1 << 31:
+        raise ValueError("segment plan: the sorted index table has 2^31 entries or more")
     if len(start) and int((start + seg_count).max()) > order_flat.shape[0]:
         raise ValueError("segment plan reads past the sorted index table")
     dev = table.device

@@ -8,8 +8,9 @@ along L.  The row of coordinate c, component comp, limb k is
 `(c * ncomp + comp) * 24 + k`: 72 rows for G1 (ncomp 1), 144 for G2.
 
 Every fused op has a wrapper that, on CUDA tensors, checks its arguments,
-launches the hand-written kernel (csrc/ec_ops.cu, ladder.cu, bucket.cu) on
-the current stream and raises on failure; on CPU tensors it runs the plain
+launches the hand-written kernel (csrc/ec_ops.cu, ladder_team.cu or
+ladder.cu by width, bucket.cu) on the current stream and raises on failure;
+on CPU tensors it runs the plain
 PyTorch version defined beside it (`*_plain`), which evaluates the same
 RCB16 formulas (device/curve.py) in int64 tensor ops.  The plain versions
 also run on CUDA tensors when called directly, which is how a kernel is
@@ -38,6 +39,17 @@ def longest_first(count: torch.Tensor) -> torch.Tensor:
     first, equal counts in lane order (int32, on count's device; empty for
     no lanes)."""
     return torch.argsort(count, descending=True, stable=True).to(torch.int32)
+
+
+# The widest launch the team ladder (csrc/ladder_team.cu) takes, per group
+# (ncomp); wider ones go to one thread per lane (csrc/ladder.cu).  Measured on
+# an H100 with tools/exp_ladder.py (PERF.md section 6, the ladder crossover
+# table): at 1,024 lanes the team kernel beats one thread for Horner and
+# random scalars alike (G1 1.58 against 3.82 ms on Horner scalars, G2 4.18
+# against 14.07 ms); at 4,096 it loses for G1 (3.93 against 3.82 ms) and
+# wins G2 by 2% only (13.78 against 14.08 ms).  Every path's G2 ladder is
+# 1,024 lanes or fewer.
+TEAM_LADDER_MAX_LANES = {1: 1024, 2: 1024}
 
 
 class PackedGroup:
@@ -229,9 +241,17 @@ class PackedGroup:
                 base = tc._complete_double(self._plain, base)
         return self.pack(acc)
 
+    def ladder_kernel(self, L: int) -> str:
+        """The kernel `ladder` launches for L lanes: the team ladder up to
+        TEAM_LADDER_MAX_LANES of this group, the one-thread ladder above."""
+        return "ladder_team" if L <= TEAM_LADDER_MAX_LANES[self.ncomp] else "ladder"
+
     def ladder(self, pts: torch.Tensor, scal_rows: torch.Tensor) -> torch.Tensor:
         """pts (rows, L) x canonical scalars (nscal_limbs, L) int32 ->
-        [s_l] P_l: LSB-first double-and-add over all 16 * nscal_limbs bits."""
+        [s_l] P_l: LSB-first double-and-add over all 16 * nscal_limbs bits.
+        On the card a narrow batch goes to the team kernel (a team of
+        threads per lane), a wide one to one thread per lane
+        (`ladder_kernel`); both give the plain version's limbs."""
         L = self._check_points("ladder", pts)
         if scal_rows.dim() != 2 or scal_rows.shape[1] != L:
             raise ValueError(
@@ -239,13 +259,20 @@ class PackedGroup:
             )
         if not self._on_cuda(pts, scal_rows):
             return self.ladder_plain(pts, scal_rows)
-        build.require_cuda_int32("ladder", pts=pts, scal_rows=scal_rows)
+        return self.ladder_launch(self.ladder_kernel(L), pts, scal_rows)
+
+    def ladder_launch(self, kernel: str, pts: torch.Tensor,
+                      scal_rows: torch.Tensor) -> torch.Tensor:
+        """Launch ladder kernel `kernel` ("ladder" or "ladder_team") on
+        checked CUDA tensors: what `ladder` calls, and what a measurement
+        calls to time either kernel at any width."""
+        build.require_cuda_int32(kernel, pts=pts, scal_rows=scal_rows)
         out = torch.empty_like(pts)
         with torch.cuda.device(pts.device):
             build.launch(
-                "ladder", pts.data_ptr(), scal_rows.data_ptr(), out.data_ptr(),
-                scal_rows.shape[0], L, self.ncomp,
-                counted_as=self._counter("ladder"),
+                kernel, pts.data_ptr(), scal_rows.data_ptr(), out.data_ptr(),
+                scal_rows.shape[0], pts.shape[1], self.ncomp,
+                counted_as=self._counter(kernel),
             )
         return out
 

@@ -19,6 +19,12 @@ It prints, for Fq and Fr:
 at the TPU harnesses' own sizes (L = 1024; 6 x 256) and at a size that fills
 the card (132 SMs x 2048 lanes).  The last lines give the measured
 multiply-adds per second beside the derived peak the bounds in PERF.md use.
+
+The latency mode (`--latency`, and the last figures of every run) launches
+the single chain at one warp (32 lanes) with K = 256 dependent Fq products,
+inlined and called: the slope between K = 8 and K = 256 is what one product
+costs a thread that waits for it, the floor of any kernel whose products
+depend on each other (the ladders: PERF.md).
 """
 from __future__ import annotations
 
@@ -37,6 +43,7 @@ GROUP = pf.CHAIN_GROUP
 L_REFERENCE = 1024  # tools/exp_montmul_block.py
 L_REFERENCE_GROUP = 256  # tools/exp_mulmany_wide.py
 L_CARD = 132 * 2048  # every SM holds 2048 resident threads
+L_LATENCY, K_LATENCY = 32, 256  # one warp, a chain as long as a ladder's
 # 32-bit multiply-adds a second: 67 TFLOP/s float32 is 33.5e12 fused
 # multiply-adds on 128 lanes per SM; an SM has 64 int32 lanes
 DERIVED_INT32_MADD_PER_S = 67e12 / 2 / 2
@@ -111,6 +118,34 @@ def measure_group(spec: FieldSpec, L: int, device) -> dict:
     return out
 
 
+def measure_latency(spec: FieldSpec, device) -> dict:
+    """One warp of single chains, K = 8 and K = 256, both formulations:
+    microseconds per dependent product from the slope."""
+    a = random_rows(spec, (spec.nlimbs, L_LATENCY), 4, device)
+    b = random_rows(spec, (spec.nlimbs, L_LATENCY), 5, device)
+    out = {"field": spec.name, "L": L_LATENCY, "K": K_LATENCY}
+    for name, flag in (("inline", True), ("call", False)):
+        call = lambda K: pf.mont_mul_chain(spec, a, b, K, inline_body=flag)
+        lo, hi = _time_ms(lambda: call(K_LO)), _time_ms(lambda: call(K_LATENCY))
+        out[name] = {"k8_ms": lo, "k256_ms": hi,
+                     "us_per_product": (hi - lo) / (K_LATENCY - K_LO) * 1e3}
+    return out
+
+
+def run_latency(device=torch.device("cuda"), say=print) -> dict:
+    """The latency mode alone: Fq then Fr."""
+    if torch.device(device).type != "cuda":
+        raise RuntimeError("the harness times kernels: it needs a CUDA device")
+    results = {}
+    for spec in (FQ, FR):
+        r = results[spec.name] = measure_latency(spec, device)
+        for name in ("inline", "call"):
+            m = r[name]
+            say(f"latency {spec.name} ({spec.nlimbs}, {L_LATENCY}), {name:6s}: K8 {m['k8_ms']:.4f} ms "
+                f"K{K_LATENCY} {m['k256_ms']:.4f} ms -> {m['us_per_product']:.4f} us per dependent product")
+    return results
+
+
 def run(device=torch.device("cuda"), sizes=(L_REFERENCE, L_CARD), say=print) -> dict:
     """The whole harness; returns every figure it printed."""
     device = torch.device(device)
@@ -153,19 +188,22 @@ def run(device=torch.device("cuda"), sizes=(L_REFERENCE, L_CARD), say=print) -> 
             f"(derived peak {DERIVED_INT32_MADD_PER_S:.4g})")
     results["peak"] = peak
     results["derived_madds_per_s"] = DERIVED_INT32_MADD_PER_S
+    results["latency"] = run_latency(device, say)
     return results
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", action="store_true", help="print the figures as one JSON line too")
+    ap.add_argument("--latency", action="store_true",
+                    help="the latency mode alone: one warp, K = 256 dependent products")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("exp_montmul: no CUDA device; the harness times kernels on the GPU",
               file=sys.stderr)
         return 1
     print(torch.cuda.get_device_name(0))
-    results = run()
+    results = run_latency() if args.latency else run()
     if args.json:
         print(json.dumps(results))
     return 0
