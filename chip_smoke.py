@@ -39,6 +39,10 @@ testudo_tpu_torch/csrc/, then
      thread per lane on wide ones) are held against the plain ladder at the
      widths each takes (20 lanes of Horner scalars and 1,024 random lanes;
      the commit's 32,768 lanes) beside each other and `latency_bound_ms`;
+     the weighted-sum kernel (a team of threads per lane, one launch for
+     all per-group sums of an MSM) against the plain sequence of scan,
+     ladder and add steps at the MSM's 2,560 lanes (one more window) and
+     at 2,560 + ODD lanes, timed beside the launch sequence it replaced;
   7. checks a small MSM against the host oracle;
   8. prints one JSON line {"kernels": [...]} (each row's `launches` is the
      sum of `launches_by_path`, the kernel's count on each driven path: msm,
@@ -109,6 +113,7 @@ _REPLACES = {
     "add_mask": _EC + ":403", "add2": _EC + ":415", "step": _EC + ":424",
     "scan2": _EC + ":437", "scan2b": _EC + ":450", "bucket": _EC + ":461",
     "bucket_mixed": _EC + ":509", "ladder": _EC + ":733", "ladder_team": _EC + ":733",
+    "wsum": _EC + ":450",
 }
 _CSRC = "testudo_tpu_torch/csrc/"
 _SOURCE = {
@@ -118,7 +123,7 @@ _SOURCE = {
     "mont_mul": "mont_mul.cu", "add_mask": "ec_ops.cu", "add2": "ec_ops.cu",
     "step": "ec_ops.cu", "scan2": "ec_ops.cu", "scan2b": "ec_ops.cu",
     "ladder": "ladder.cu", "ladder_team": "ladder_team.cu", "bucket": "bucket.cu",
-    "bucket_mixed": "bucket.cu",
+    "bucket_mixed": "bucket.cu", "wsum": "wsum_team.cu",
 }
 # proof bytes (PST opening + MIPP proof) of sqrt-PST per number of variables:
 # counts of group and field elements, the same on any hardware
@@ -126,13 +131,18 @@ PROOF_BYTES = {10: 7136, 14: 9920, 20: 14096}
 # The paths on which each kernel must be launched at least once (each path is
 # driven with the counters zeroed just before and read just after).  K1
 # (`mont_mul`) serves (n, m) callers and `scan2` is on no path: both are
-# launched in the kernel phase only.  So is the one-thread G2 ladder: every
-# G2 ladder of the paths is at most TEAM_LADDER_MAX_LANES wide (the MSM's
-# 20-lane Horner, the open's folds), so the team kernel takes it; the
-# one-thread G1 ladder runs the commit's 32,768-lane Horner.
-_MSM_KERNELS = ("add2", "step", "scan2b", "ladder_team", "bucket", "bucket_mixed")
+# launched in the kernel phase only.  So are `scan2b` and `step`, whose work
+# on the paths the weighted-sum kernel does in one launch, and the
+# one-thread G2 ladder: every G2 ladder of the paths is at most
+# TEAM_LADDER_MAX_LANES wide (the MSM's 20-lane Horner, the open's folds),
+# so the team kernel takes it; the one-thread G1 ladder runs the commit's
+# 32,768-lane Horner.  A kernel of the kernel phase only must show no launch
+# on any path.
+_MSM_KERNELS = ("add2", "wsum", "ladder_team", "bucket", "bucket_mixed")
+_KERNEL_PHASE_ONLY = ("mont_mul", "scan2", "scan2_g2", "ladder_g2", "step", "step_g2", "scan2b",
+                      "scan2b_g2")
 MUST_LAUNCH = {
-    "mont_mul": (), "scan2": (), "scan2_g2": (), "ladder_g2": (),
+    **{k: () for k in _KERNEL_PHASE_ONLY},
     "mont_mul_rm_fq": ("field", "open"),
     "mont_mul_rm_fr": ("commit", "open"),
     "mont_chain": ("harness",), "mont_chain_seq": ("harness",), "mont_chain_wide": ("harness",),
@@ -143,7 +153,7 @@ MUST_LAUNCH = {
 MUST_LAUNCH.update({
     "add2": ("msm", "commit", "open"), "ladder": ("commit",),
     "ladder_team": ("msm", "open"), "ladder_team_g2": ("msm", "open"),
-    "bucket": ("msm", "commit", "open"), "step": ("msm", "open"), "scan2b": ("msm", "open"),
+    "bucket": ("msm", "commit", "open"), "wsum": ("msm", "open"),
     "add2_g2": ("msm", "open"),
 })
 N_UNIQUE = 1 << 13
@@ -734,6 +744,21 @@ def edge_points(dev, grp, proj, L: int):
     return a.contiguous(), b.contiguous()
 
 
+def wsum_buckets(dev, grp, proj, ncols: int):
+    """(rows, ncols) buckets for the weighted sum: the projective multiples
+    tiled, with the identity in columns 0, 5 and 33, and in the first group
+    of 32 columns 31 = 30 (the scan's run doubles) and 29 = -(30 + 31) (the
+    run returns to the identity)."""
+    Gp = grp.Gp
+    b = proj.repeat(1, -(-ncols // N_UNIQUE))[:, :ncols].clone()
+    for i in (0, 5, 33):
+        b[:, i] = Gp.identity_packed(1, device=dev)[:, 0]
+    b[:, 31] = b[:, 30]
+    two = Gp.add2(b[:, 30:31].contiguous(), b[:, 31:32].contiguous())
+    b[:, 29] = Gp.pack(grp.neg(Gp.unpack(two)))[:, 0]
+    return b.contiguous()
+
+
 def kernels_montgomery(dev, rep: Report, quick: bool):
     """K1 Montgomery product: the field path's stacked shape (6 products of
     2^16 lanes) for Fq, 2^16 lanes for Fr, edge values mixed in."""
@@ -909,6 +934,59 @@ def kernels_commit_bucket(dev, rep: Report, canon, basis):
                                "commit_bound_by": b_by})
 
 
+def kernels_wsum(dev, grp, rep: Report, proj, rounds: int, lat_us: float, quick: bool):
+    """The weighted-sum kernel of one group: one launch for all per-group
+    sums of an MSM.  Compared with the plain version (the sequence of scan,
+    ladder and add steps on the plain ops) at the signed c = 13 plan's shape
+    with one more window (21 x 128 lanes: every weight bit, plus_one), and
+    at 2,560 + ODD lanes of one group of 32 each (c = 5: a ragged last
+    block), plus_one both ways; the buckets hold the identity and
+    neighbours that make the scan double and cancel.  Timed at the plan's
+    2,560 lanes beside the plain version (once, on the compared call) and
+    the launch sequence it replaced (32 scan2b, 12 step, 2 add2 and the host
+    loop).  latency_bound_ms: the lane's chain of dependent group operations
+    (h scan steps, maxbits ladder steps, the closing adds) times the
+    `rounds` of dependent products each needs (2 for G1, 3 for G2) times one
+    product's latency."""
+    Gp = grp.Gp
+    rows = Gp.rows
+    pt_bytes = rows * 4
+    m_add, _, m_double = (m * MADD_FQ for m in grp.muls)
+    nm = lambda kernel: counter(grp, kernel)
+
+    cw = msm._SIGNED_C - 1
+    Ww = 2 if quick else 20
+    Wo = 256 + ODD if quick else 20 * 128 + ODD
+    g_buckets = wsum_buckets(dev, grp, proj, (Ww + 1) << cw)
+    o_buckets = wsum_buckets(dev, grp, proj, Wo << 5)
+    got = (Gp.weighted_sum(g_buckets, Ww + 1, cw, True),
+           Gp.weighted_sum(o_buckets, Wo, 5, True), Gp.weighted_sum(o_buckets, Wo, 5, False))
+    want_w, plain = timed_once(lambda: Gp.weighted_sum_plain(g_buckets, Ww + 1, cw, True))
+    want = (want_w, Gp.weighted_sum_plain(o_buckets, Wo, 5, True),
+            Gp.weighted_sum_plain(o_buckets, Wo, 5, False))
+    t_buckets = g_buckets[:, : Ww << cw].contiguous()
+    ms = time_ms(lambda: Gp.weighted_sum(t_buckets, Ww, cw, True), 20)
+    seq = lambda: Gp.weighted_sum_steps(t_buckets, Ww, cw, True, Gp.scan2b, Gp.step, Gp.add2)
+    if not torch.equal(seq(), Gp.weighted_sum(t_buckets, Ww, cw, True)):
+        raise AssertionError(f"kernel {nm('wsum')} differs from the launch sequence it replaced")
+    seq_ms = time_ms(seq, 5)
+    h, groups, maxbits = Gp.wsum_plan(cw)
+    nl = Ww * groups
+    chain = h + maxbits + 2  # plus_one: two closing adds
+    rep.add(nm("wsum"), got, want, ms, plain, (Ww << cw) * pt_bytes + nl * pt_bytes,
+            nl * ((2 * h + maxbits + 2) * m_add + maxbits * m_double),
+            f"({rows}, {Ww << cw}) buckets -> {nl} lanes (W = {Ww}, c = {cw}: {h} buckets a "
+            f"group, {maxbits} weight bits, plus_one); compared at {(Ww + 1) * groups} lanes and "
+            f"at {Wo} lanes of c = 5 (plus_one both ways), plain_ms from the first")
+    rep.rows[nm("wsum")].update({
+        # with scan2b (:450), the step kernel as the reference's weighted sum drives them
+        "replaces_also": [_EC + ":424", "testudo_tpu/tpu/msm.py:673"],
+        "latency_bound_ms": chain * rounds * lat_us / 1e3, "latency_us_per_product": lat_us,
+        "launch_sequence_ms": seq_ms})
+    say(f"  {nm('wsum')}: {ms:.4f} ms at {nl} lanes (the launch sequence it replaced: "
+        f"{seq_ms:.4f} ms); latency bound {chain * rounds * lat_us / 1e3:.4f} ms")
+
+
 def kernels_group(dev, grp, rep: Report, proj, pts_cmp, scal_cmp, pts_time, scal_time,
                   lat_us: float, quick: bool):
     """Every EC kernel of one group against its plain version.  The bucket
@@ -1048,6 +1126,8 @@ def kernels_group(dev, grp, rep: Report, proj, pts_cmp, scal_cmp, pts_time, scal
     rep.rows[nm("ladder")].update({"latency_bound_ms": latency_ms(kc),
                                    "latency_us_per_product": lat_us, "team_ms": tc_team})
     say(f"  {nm('ladder')} at {Lc} lanes: {tc_one:.4f} ms (team kernel {tc_team:.4f})")
+
+    kernels_wsum(dev, grp, rep, proj, rounds, lat_us, quick)
 
     # the bucket kernels with the exact arguments of a main path, plus a tail
     # of hand-made lanes: count 0, a doubling lane, a long lane that ends at
@@ -1217,6 +1297,9 @@ def main(argv=None) -> int:
                 continue  # one segment per bucket: the segment reduce only copies
             if by_path[path][name] == 0:
                 raise AssertionError(f"path {path} did not launch kernel {name}")
+        if not MUST_LAUNCH[name] and row["launches"]:
+            raise AssertionError(f"kernel {name} belongs to the kernel phase only, but the paths "
+                                 f"launched it: {row['launches_by_path']}")
     missing = set(build.LAUNCHES) - set(rep.rows)
     if missing:
         raise AssertionError(f"kernels without a row: {sorted(missing)}")

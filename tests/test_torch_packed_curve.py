@@ -245,7 +245,7 @@ def test_cpu_path_launches_no_kernel():
                      torch.ones(2, dtype=torch.int32))
     assert all(v == 0 for v in build.LAUNCHES.values()), build.LAUNCHES
     ec = {"add2", "add_mask", "step", "scan2", "scan2b", "ladder", "ladder_team", "bucket",
-          "bucket_mixed"}
+          "bucket_mixed", "wsum"}
     field = {"mont_mul", "mont_mul_rm_fq", "mont_mul_rm_fr", "mont_chain", "mont_chain_seq",
              "mont_chain_wide"}
     assert set(build.LAUNCHES) == field | ec | {k + "_g2" for k in ec}

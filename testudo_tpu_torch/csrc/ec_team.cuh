@@ -1,5 +1,9 @@
-// The LSB-first ladder of ec.cuh's `lane_ladder`, worked by a TEAM of
-// threads per lane: the schedule, as a table, and the work of one rank.
+// Group operations of ec.cuh worked by a TEAM of threads per lane: the
+// schedule of a short program of them, as a table, and the work of one rank.
+// Two kernels run such tables: the LSB-first ladder of ec.cuh's
+// `lane_ladder` (ladder_team.cu: one program, the ladder step) and the
+// weighted bucket sum of the MSM (wsum_team.cu: three programs, the scan
+// step, the same ladder step and one complete add).
 //
 // One ladder step (acc = bit ? acc + base : acc; base = 2 base) runs the
 // complete add and the complete double of ec.cuh, whose products mostly do
@@ -7,27 +11,29 @@
 // double's t0, t1, t2, txy are ten independent products, then a1..a6 and
 // b1..b4 ten more.  One thread runs them one after the other (20 Fq
 // products, 63 for G2, where every Fq2 product is three Fq products by
-// Karatsuba); a team runs each round's products side by side.
+// Karatsuba); a team runs each round's products side by side.  A scan step
+// of the weighted sum is two independent complete adds (24 products, 76 for
+// G2) in the same two (three) rounds.
 //
-// The step is written once, below (`team_step`), over the same formulas as
-// ec_add / ec_double / fp2_mul / fp2_mul_b3 and in the same order, but on
-// slot numbers instead of values: it records a program of Fq operations,
-// each a product or a sum / difference of two slots.  `team_schedule` puts
-// every operation in the first STAGE after its operands are ready (a stage
-// holds products only or sums only), gives each value a slot of the lane's
-// shared memory once the slot's last value has been read, and writes the
-// table: per stage, its operations, one 32-bit word each (operand slots a
-// and b, result slot, subtract, select).  Rank r of a team runs operation r
-// of every stage (T at a time when a stage holds more than T, T = TEAM_T)
-// and the team syncs after each; ranks without one multiply zeros into a
-// dummy slot, so every thread runs the same code and reaches every sync.  A
-// stage never
-// writes a slot that another operation of it reads, so the ranks of a stage
-// may run in any order: csrc/host_check.cpp runs them one after another on
-// the CPU, from this table and these functions.
+// Each program is written once, below (`team_step`, `team_scan`,
+// `team_add_opd`), over the same formulas as ec_add / ec_double / fp2_mul /
+// fp2_mul_b3 and in the same order, but on slot numbers instead of values:
+// it records a program of Fq operations, each a product or a sum /
+// difference of two slots.  `team_schedule` puts every operation in the
+// first STAGE after its operands are ready (a stage holds products only or
+// sums only), gives each value a slot of the lane's shared memory once the
+// slot's last value has been read, and writes the table: per stage, its
+// operations, one 32-bit word each (operand slots a and b, result slot,
+// subtract, select).  Rank r of a team runs operation r of every stage (T at
+// a time when a stage holds more than T) and the team syncs after each;
+// ranks without one multiply zeros into a dummy slot, so every thread runs
+// the same code and reaches every sync.  A stage never writes a slot that
+// another operation of it reads, so the ranks of a stage may run in any
+// order: csrc/host_check.cpp runs them one after another on the CPU, from
+// these tables and these functions.
 //
-// The values are the same canonical Fq elements the one-thread ladder
-// computes (every operation reduces strictly), so the result is equal limb
+// The values are the same canonical Fq elements the one-thread kernels
+// compute (every operation reduces strictly), so the results are equal limb
 // for limb; only which thread computes which product changes.
 #pragma once
 #include "ec.cuh"
@@ -37,7 +43,7 @@
 #define TEAM_SLOT_BITS 10
 #define TEAM_SLOT_MASK ((1u << TEAM_SLOT_BITS) - 1u)
 
-// The schedule of one ladder step, handed to the kernel by value.
+// The schedule of one program, as the kernels receive it.
 // op word: a | b << 10 | out << 20 | subtract << 30 | select << 31
 // stage word: first op | count << 16 | products << 31
 struct TeamTable {
@@ -46,23 +52,51 @@ struct TeamTable {
   u32 stage[TEAM_MAX_STAGES];
 };
 
-// Fixed slots of a lane, for a group of nc Fq components per coordinate:
-// acc X, Y, Z (component-major, as the packed rows), then base X, Y, Z, then
-// zero, the constant k of G2's b3 (fp2.cuh), and the dummy that idle ranks
-// write.  Temporaries follow.
-#define TEAM_ZERO_SLOT(nc) (6 * (nc))
-#define TEAM_KB3_SLOT(nc) (6 * (nc) + 1)
-#define TEAM_DUMMY_SLOT(nc) (6 * (nc) + 2)
-#define TEAM_NFIXED(nc) (6 * (nc) + 3)
-// Threads per lane: 16 for G1 (two lanes a warp, 10 products a round), 32
-// for G2 (one lane a warp, 30 Fq products a round); each beat the half size
-// on an H100 (PERF.md section 6).  A divisor of 32: a team never spans warps.
-#define TEAM_T(nc) ((nc) == 1 ? 16 : 32)
-static_assert(32 % TEAM_T(1) == 0 && 32 % TEAM_T(2) == 0, "a team must not span warps");
+// Fixed slots of a lane that holds `npts` points of a group with nc Fq
+// components per coordinate: point k's X, Y, Z at 3 nc k (component-major,
+// as the packed rows), then zero, the constant k of G2's b3 (fp2.cuh), and
+// the dummy that idle ranks write.  Temporaries follow.  The constants sit
+// at the end, so they are found from the number of fixed slots `nf`.
+#define TEAM_NFIXED(nc, npts) (3 * (nc) * (npts) + 3)
+#define TEAM_ZERO_SLOT(nf) ((nf)-3)
+#define TEAM_KB3_SLOT(nf) ((nf)-2)
+#define TEAM_DUMMY_SLOT(nf) ((nf)-1)
 // zero times zero into the dummy slot
-#define TEAM_DUMMY_OP(nc)                                                  \
-  ((u32)TEAM_ZERO_SLOT(nc) | ((u32)TEAM_ZERO_SLOT(nc) << TEAM_SLOT_BITS) | \
-   ((u32)TEAM_DUMMY_SLOT(nc) << (2 * TEAM_SLOT_BITS)))
+#define TEAM_DUMMY_OP(nf)                                                  \
+  ((u32)TEAM_ZERO_SLOT(nf) | ((u32)TEAM_ZERO_SLOT(nf) << TEAM_SLOT_BITS) | \
+   ((u32)TEAM_DUMMY_SLOT(nf) << (2 * TEAM_SLOT_BITS)))
+
+// The points of a ladder lane: acc, then base.
+#define LADDER_NPTS 2
+// The points of a weighted-sum lane: the accumulator of the weight ladder,
+// the run (the ladder's base), the bucket being scanned, a copy of the run
+// before the ladder, and the second operand of the closing adds (the scan's
+// tot until then).
+enum { WS_ACC = 0, WS_RUN = 1, WS_BKT = 2, WS_RUN0 = 3, WS_OPD = 4, WS_NPTS = 5 };
+// Buckets a group of the weighted sum at window bits c, and its lanes for W
+// windows (one a group).
+#define WSUM_H(c) ((c) < 5 ? 1 << (c) : 32)
+#define WSUM_LANES(W, c) ((long)(W) * ((1L << (c)) / WSUM_H(c)))
+
+// Threads per lane, a divisor of 32 (a team never spans warps).  Ladder: 16
+// for G1 (two lanes a warp, 10 products a round), 32 for G2 (one lane a
+// warp, 30 Fq products a round); each beat the half size on an H100
+// (PERF.md section 6).  Weighted sum: chosen at 2,560 lanes with
+// tools/exp_wsum.py (PERF.md section 6).
+#define TEAM_T(nc) ((nc) == 1 ? 16 : 32)
+#define WSUM_T(nc) ((nc) == 1 ? 16 : 32)
+static_assert(32 % TEAM_T(1) == 0 && 32 % TEAM_T(2) == 0, "a team must not span warps");
+static_assert(32 % WSUM_T(1) == 0 && 32 % WSUM_T(2) == 0, "a team must not span warps");
+
+// A team syncs after every stage: the warp's sync on the card.  On the CPU
+// (csrc/host_check.cpp) one thread runs the ranks one after another.
+#ifdef __CUDACC__
+#define TEAM_SYNC() __syncwarp()
+#define TEAM_ONE_THREAD 0
+#else
+#define TEAM_SYNC()
+#define TEAM_ONE_THREAD 1
+#endif
 
 // ---------------------------------------------------------------------------
 // The work of one rank (device and host)
@@ -118,57 +152,193 @@ FP_FN void team_op(u32* region, int ns, u32 op, bool mul, bool bit) {
 
 // Operation i of the stage whose word is `stage`, or the dummy where the
 // stage has no operation i (its last sub-round, or a rank it leaves idle).
-FP_FN u32 team_pick(const u32* ops, u32 stage, int i, int nc) {
+FP_FN u32 team_pick(const u32* ops, u32 stage, int i, u32 dummy) {
   const int count = (int)((stage >> 16) & 0x7fffu);
-  return i < count ? ops[(stage & 0xffffu) + i] : TEAM_DUMMY_OP(nc);
+  return i < count ? ops[(stage & 0xffffu) + i] : dummy;
 }
 
-// The rank's share of a lane's start: acc = identity, base = the lane's
-// point, zero, k, dummy; component c goes to slot c.
-template <class C>
-FP_FN void team_init(u32* region, int ns, const int* pts, long L, long lane, int rank) {
-  constexpr int NC = C::COMP_ROWS / (2 * FQN);
-  for (int c = rank; c < TEAM_NFIXED(NC); c += TEAM_T(NC)) {
-    u32 v[FQN];
-    if (c < 3 * NC) {  // identity: (0, 1, 0), 1 in the first component of Y
-      if (c == NC)
-        fp_copy<Fq>(v, FQ_ONE);
-      else
-        fp_zero<Fq>(v);
-    } else if (c < 6 * NC) {
-      fp_load<Fq>(v, pts, L, lane, (c - 3 * NC) * 2 * FQN);
-    } else if (c == TEAM_KB3_SLOT(NC)) {
-      fp_copy<Fq>(v, FQ_B3K);
-    } else {
-      fp_zero<Fq>(v);
+// A table as a kernel holds it: its operations and stages (in shared
+// memory on the card).
+struct TeamCode {
+  const u32* ops;
+  const u32* stages;
+  int nstages;
+};
+
+// One run of a table on a lane: rank r runs operation r, r + T, ... of every
+// stage, the team syncing after each sub-round of T; `bit` drives the
+// selects.  On the CPU one thread runs the T ranks of a sub-round in turn.
+template <int T>
+FP_FN void team_run(u32* region, int ns, const TeamCode& code, u32 dummy, int rank, bool bit) {
+  FP_NO_UNROLL
+  for (int s = 0; s < code.nstages; s++) {
+    const u32 st = code.stages[s];
+    const bool mul = (st >> 31) != 0;
+    const int count = (int)((st >> 16) & 0x7fffu);
+    FP_NO_UNROLL
+    for (int i = 0; i < count; i += T) {
+      if (TEAM_ONE_THREAD) {
+        for (int r = 0; r < T; r++) team_op(region, ns, team_pick(code.ops, st, i + r, dummy), mul, bit);
+      } else {
+        team_op(region, ns, team_pick(code.ops, st, i + rank, dummy), mul, bit);
+      }
+      TEAM_SYNC();
     }
-    team_slot_store(region, ns, c, v);
   }
 }
 
-// The rank's share of a lane's end: acc's components to out.
-template <class C>
-FP_FN void team_store(int* out, const u32* region, int ns, long L, long lane, int rank) {
-  constexpr int NC = C::COMP_ROWS / (2 * FQN);
-  for (int c = rank; c < 3 * NC; c += TEAM_T(NC)) {
+// A team member's share of the work on whole points: slots first, first +
+// step, ... of the point's 3 nc.  The kernels pass (rank, T); the CPU, with
+// one thread for the team, (0, 1).
+
+// The constants of a lane with nf fixed slots: zero, k, dummy.
+FP_FN void team_consts(u32* region, int ns, int nf, int first, int step) {
+  for (int c = first; c < 3; c += step) {
     u32 v[FQN];
-    team_slot_load(v, region, ns, c);
-    fp_store<Fq>(out, L, lane, c * 2 * FQN, v);
+    if (c == 1)
+      fp_copy<Fq>(v, FQ_B3K);
+    else
+      fp_zero<Fq>(v);
+    team_slot_store(region, ns, TEAM_ZERO_SLOT(nf) + c, v);
+  }
+}
+
+// point pt = the identity (0, 1, 0), 1 in the first component of Y
+template <int NC>
+FP_FN void team_identity(u32* region, int ns, int pt, int first, int step) {
+  for (int c = first; c < 3 * NC; c += step) {
+    u32 v[FQN];
+    if (c == NC)
+      fp_copy<Fq>(v, FQ_ONE);
+    else
+      fp_zero<Fq>(v);
+    team_slot_store(region, ns, 3 * NC * pt + c, v);
+  }
+}
+
+// point pt = column `col` of a packed (C::ROWS, L) batch
+template <class C>
+FP_FN void team_load(u32* region, int ns, int pt, const int* src, long L, long col, int first,
+                     int step) {
+  constexpr int NC = C::COMP_ROWS / (2 * FQN);
+  for (int c = first; c < 3 * NC; c += step) {
+    u32 v[FQN];
+    fp_load<Fq>(v, src, L, col, c * 2 * FQN);
+    team_slot_store(region, ns, 3 * NC * pt + c, v);
+  }
+}
+
+// column `col` of a packed (C::ROWS, L) batch = point pt
+template <class C>
+FP_FN void team_store(int* out, const u32* region, int ns, int pt, long L, long col, int first,
+                      int step) {
+  constexpr int NC = C::COMP_ROWS / (2 * FQN);
+  for (int c = first; c < 3 * NC; c += step) {
+    u32 v[FQN];
+    team_slot_load(v, region, ns, 3 * NC * pt + c);
+    fp_store<Fq>(out, L, col, c * 2 * FQN, v);
+  }
+}
+
+// point dst = point src
+template <int NC>
+FP_FN void team_copy(u32* region, int ns, int dst, int src, int first, int step) {
+  for (int c = first; c < 3 * NC; c += step) {
+    u32 v[FQN];
+    team_slot_load(v, region, ns, 3 * NC * src + c);
+    team_slot_store(region, ns, 3 * NC * dst + c, v);
   }
 }
 
 // ---------------------------------------------------------------------------
-// The program of one step and its schedule (host code: the launcher builds
-// the table once per group)
+// The work of one lane (device and host)
 // ---------------------------------------------------------------------------
 
-// Values are numbered: 0 .. nfixed-1 are the fixed slots as the step finds
-// them, nfixed + i the result of operation i.
+// out[lane] = [s] P of ec.cuh's `lane_ladder`, by the ladder table `step`:
+// the lane's points and temporaries in `region` (ns slots), the team's
+// member `rank` of T.  Lanes past L run on with clamped loads and store
+// nothing.
+template <class C, int T>
+FP_FN void lane_ladder_team(u32* region, int ns, const TeamCode& step, const int* pts,
+                            const int* scal, int* out, int nl, long L, long lane, int rank) {
+  constexpr int NC = C::COMP_ROWS / (2 * FQN);
+  constexpr int NF = TEAM_NFIXED(NC, LADDER_NPTS);
+  const int first = TEAM_ONE_THREAD ? 0 : rank, stride = TEAM_ONE_THREAD ? 1 : T;
+  const long src = lane < L ? lane : L - 1;
+  team_identity<NC>(region, ns, 0, first, stride);
+  team_load<C>(region, ns, 1, pts, L, src, first, stride);
+  team_consts(region, ns, NF, first, stride);
+  TEAM_SYNC();
+  FP_NO_UNROLL
+  for (int k = 0; k < nl; k++) {
+    const u32 limb = (u32)scal[(long)k * L + src];
+    FP_NO_UNROLL
+    for (int bit = 0; bit < 16; bit++)
+      team_run<T>(region, ns, step, TEAM_DUMMY_OP(NF), rank, ((limb >> bit) & 1u) != 0);
+  }
+  if (lane < L) team_store<C>(out, region, ns, 0, L, lane, first, stride);
+}
+
+// The per-group weighted sum of msm.py's `_weighted_sum_packed` for lane
+// (w, g), g < groups = 2^c / h, h = min(2^c, 32), by the tables `code`
+// (scan step, ladder step, add): over the buckets B = (C::ROWS, W 2^c)
+//   run = tot = O; for l = h-1 .. 0: (run, tot) = (run + B_l, tot + run)
+//   acc = O; for bit < maxbits: acc = bit of (g h) ? acc + run : acc; run = 2 run
+//   out = acc + tot (+ the scan's run when plus_one)
+// with B_l = B[:, w 2^c + g h + l] and maxbits = max(1, bit length of
+// (groups - 1) h): the adds of scan2b, step and add2 in their order and
+// with their operands.  out is (C::ROWS, W groups).
+template <class C, int T>
+FP_FN void lane_wsum_team(u32* region, int ns, const TeamCode* code, const int* buckets,
+                          int* out, int W, int c, bool plus_one, long lane, int rank) {
+  constexpr int NC = C::COMP_ROWS / (2 * FQN);
+  constexpr u32 DUMMY = TEAM_DUMMY_OP(TEAM_NFIXED(NC, WS_NPTS));
+  const int first = TEAM_ONE_THREAD ? 0 : rank, stride = TEAM_ONE_THREAD ? 1 : T;
+  const int h = WSUM_H(c);
+  const long groups = (1L << c) / h;
+  const long L = WSUM_LANES(W, c);
+  const long src = lane < L ? lane : L - 1;
+  const long g = src % groups;
+  const long col0 = ((src / groups) << c) + g * h;
+  const long weight = g * h;
+  int maxbits = 1;
+  while (((groups - 1) * h) >> maxbits) maxbits++;
+  team_consts(region, ns, TEAM_NFIXED(NC, WS_NPTS), first, stride);
+  team_identity<NC>(region, ns, WS_ACC, first, stride);
+  team_identity<NC>(region, ns, WS_RUN, first, stride);
+  team_identity<NC>(region, ns, WS_OPD, first, stride);
+  FP_NO_UNROLL
+  for (int l = h - 1; l >= 0; l--) {
+    team_load<C>(region, ns, WS_BKT, buckets, (long)W << c, col0 + l, first, stride);
+    TEAM_SYNC();
+    team_run<T>(region, ns, code[0], DUMMY, rank, false);
+  }
+  team_copy<NC>(region, ns, WS_RUN0, WS_RUN, first, stride);
+  TEAM_SYNC();
+  FP_NO_UNROLL
+  for (int bit = 0; bit < maxbits; bit++)
+    team_run<T>(region, ns, code[1], DUMMY, rank, ((weight >> bit) & 1) != 0);
+  team_run<T>(region, ns, code[2], DUMMY, rank, false);
+  if (plus_one) {  // the same for the whole grid
+    team_copy<NC>(region, ns, WS_OPD, WS_RUN0, first, stride);
+    TEAM_SYNC();
+    team_run<T>(region, ns, code[2], DUMMY, rank, false);
+  }
+  if (lane < L) team_store<C>(out, region, ns, WS_ACC, L, lane, first, stride);
+}
+
+// ---------------------------------------------------------------------------
+// The programs and their schedule (host code: a launcher builds its tables
+// once per group)
+// ---------------------------------------------------------------------------
+
+// Values are numbered: 0 .. nfixed-1 are the fixed slots as the program
+// finds them, nfixed + i the result of operation i.
 struct TeamProg {
   int nfixed, n;
   int mul[TEAM_MAX_OPS], a[TEAM_MAX_OPS], b[TEAM_MAX_OPS], sub[TEAM_MAX_OPS];
   int out_fixed[TEAM_MAX_OPS], sel[TEAM_MAX_OPS];
-  bool written[TEAM_MAX_OPS];  // per fixed slot: the step has stored to it
+  bool written[TEAM_MAX_OPS];  // per fixed slot: the program has stored to it
   bool bad;
 
   void init(int nf) {
@@ -177,7 +347,7 @@ struct TeamProg {
     bad = false;
     for (int i = 0; i < TEAM_MAX_OPS; i++) written[i] = false;
   }
-  // a fixed slot is read only as the step found it, a selected value never
+  // a fixed slot is read only as the program found it, a selected value never
   bool readable(int v) const { return v < nfixed ? !written[v] : !sel[v - nfixed]; }
   int op(int is_mul, int x, int y, int is_sub) {
     if (n >= TEAM_MAX_OPS || !readable(x) || !readable(y)) {
@@ -195,7 +365,8 @@ struct TeamProg {
   int lin(int x, int y, int is_sub) { return op(0, x, y, is_sub); }
   int prod(int x, int y) { return op(1, x, y, 0); }
   // The operation that made v writes fixed slot f instead (with `select`:
-  // only when the step's bit is set).  Nothing may read v afterwards.
+  // only when the step's bit is set).  Nothing may read v afterwards; every
+  // reader of f's old value runs in an earlier stage (team_dependencies).
   void store(int f, int v, bool select) {
     int i = v - nfixed;
     if (i < 0 || out_fixed[i] >= 0 || written[f] || (select && mul[i])) {
@@ -242,7 +413,7 @@ struct TeamFq2 {
   static E mul3(TeamProg& p, E x) { return {TeamFq::mul3(p, x.c0), TeamFq::mul3(p, x.c1)}; }
   static E mul_b3(TeamProg& p, E x) {  // fp2_mul_b3: (3 a1, k a0)
     int t = TeamFq::mul3(p, x.c1);
-    return {t, p.prod(x.c0, TEAM_KB3_SLOT(NC))};
+    return {t, p.prod(x.c0, TEAM_KB3_SLOT(p.nfixed))};
   }
   static void store(TeamProg& p, int slot, E v, bool select) {
     p.store(slot, v.c0, select);
@@ -250,15 +421,32 @@ struct TeamFq2 {
   }
 };
 
-// One ladder step: s = acc + base (ec_add), base = 2 base (ec_double),
-// acc = bit ? s : acc, in ec.cuh's formulas and order.
+// A point of the recorder: its three coordinates' values.
 template <class TC>
-static void team_step(TeamProg& p) {
+struct TeamPt {
+  typename TC::E x, y, z;
+};
+
+// point pt of the fixed slots, as the program finds it
+template <class TC>
+static TeamPt<TC> team_pt(int pt) {
+  const int s = 3 * TC::NC * pt;
+  return {TC::at(s), TC::at(s + TC::NC), TC::at(s + 2 * TC::NC)};
+}
+
+template <class TC>
+static void team_put(TeamProg& p, int pt, const TeamPt<TC>& v, bool select) {
+  const int s = 3 * TC::NC * pt;
+  TC::store(p, s, v.x, select);
+  TC::store(p, s + TC::NC, v.y, select);
+  TC::store(p, s + 2 * TC::NC, v.z, select);
+}
+
+// P + Q, ec_add's formulas and order
+template <class TC>
+static TeamPt<TC> team_rec_add(TeamProg& p, const TeamPt<TC>& P, const TeamPt<TC>& Q) {
   typedef typename TC::E E;
-  const int nc = TC::NC;
-  const E px = TC::at(0), py = TC::at(nc), pz = TC::at(2 * nc);
-  const E qx = TC::at(3 * nc), qy = TC::at(4 * nc), qz = TC::at(5 * nc);
-  // ec_add(s, acc, base)
+  const E px = P.x, py = P.y, pz = P.z, qx = Q.x, qy = Q.y, qz = Q.z;
   E t0 = TC::mul(p, px, qx), t1 = TC::mul(p, py, qy), t2 = TC::mul(p, pz, qz);
   E t3 = TC::mul(p, TC::add(p, px, py), TC::add(p, qx, qy));  // m3
   E t4 = TC::mul(p, TC::add(p, py, pz), TC::add(p, qy, qz));  // m4
@@ -275,7 +463,14 @@ static void team_step(TeamProg& p) {
   E sx = TC::sub(p, TC::mul(p, t3, t1), TC::mul(p, t4, y3b));   // a2 - a1
   E sy = TC::add(p, TC::mul(p, t1, z3), TC::mul(p, y3b, t0));   // a4 + a3
   E sz = TC::add(p, TC::mul(p, z3, t4), TC::mul(p, t0, t3));    // a6 + a5
-  // ec_double(base, base)
+  return {sx, sy, sz};
+}
+
+// 2 Q, ec_double's formulas and order
+template <class TC>
+static TeamPt<TC> team_rec_double(TeamProg& p, const TeamPt<TC>& Q) {
+  typedef typename TC::E E;
+  const E qx = Q.x, qy = Q.y, qz = Q.z;
   E d0 = TC::mul(p, qy, qy), d1 = TC::mul(p, qy, qz), d2 = TC::mul(p, qz, qz);
   E dxy = TC::mul(p, qx, qy);
   E dz3 = TC::add(p, d0, d0);
@@ -288,16 +483,41 @@ static void team_step(TeamProg& p) {
   E by = TC::add(p, TC::mul(p, d2b, dz3), TC::mul(p, d0, dy3));  // b1 + b3
   E u = TC::mul(p, d0, dxy);                                     // b4
   E bx = TC::add(p, u, u);
-  TC::store(p, 0, sx, true);
-  TC::store(p, nc, sy, true);
-  TC::store(p, 2 * nc, sz, true);
-  TC::store(p, 3 * nc, bx, false);
-  TC::store(p, 4 * nc, by, false);
-  TC::store(p, 5 * nc, bz, false);
+  return {bx, by, bz};
 }
 
-// dep[i][j]: operation i must run in a later stage than operation j (j < i):
-// it reads j's value, or it writes a fixed slot whose value j reads.
+// One ladder step on points acc and base: s = acc + base (ec_add), base =
+// 2 base (ec_double), acc = bit ? s : acc, as lane_step / lane_ladder.
+template <class TC>
+static void team_step(TeamProg& p, int acc, int base) {
+  const TeamPt<TC> A = team_pt<TC>(acc), B = team_pt<TC>(base);
+  const TeamPt<TC> s = team_rec_add<TC>(p, A, B);
+  const TeamPt<TC> d = team_rec_double<TC>(p, B);
+  team_put<TC>(p, acc, s, true);
+  team_put<TC>(p, base, d, false);
+}
+
+// One scan step of the weighted sum, as lane_scan2b: run' = run + bucket,
+// tot' = tot + run (the old run); tot lives in WS_OPD.
+template <class TC>
+static void team_scan(TeamProg& p) {
+  const TeamPt<TC> run = team_pt<TC>(WS_RUN), tot = team_pt<TC>(WS_OPD);
+  const TeamPt<TC> r = team_rec_add<TC>(p, run, team_pt<TC>(WS_BKT));
+  const TeamPt<TC> t = team_rec_add<TC>(p, tot, run);
+  team_put<TC>(p, WS_RUN, r, false);
+  team_put<TC>(p, WS_OPD, t, false);
+}
+
+// acc = acc + opd, as lane_add2
+template <class TC>
+static void team_add_opd(TeamProg& p) {
+  team_put<TC>(p, WS_ACC, team_rec_add<TC>(p, team_pt<TC>(WS_ACC), team_pt<TC>(WS_OPD)), false);
+}
+
+// dep[i][j]: operation i must run in a later stage than operation j: it
+// reads j's value (then j < i), or it writes a fixed slot whose old value j
+// reads (j may come before or after i in the program: a program stores its
+// results to fixed slots at its end).
 static bool team_dep[TEAM_MAX_OPS][TEAM_MAX_OPS];
 static bool team_feeds_product[TEAM_MAX_OPS];
 
@@ -306,12 +526,12 @@ static void team_dependencies(const TeamProg& p) {
   for (int i = 0; i < n; i++) {
     const int f = p.out_fixed[i];
     for (int j = 0; j < n; j++)
-      team_dep[i][j] = j < i && (p.a[i] == nf + j || p.b[i] == nf + j ||
-                                 (f >= 0 && (p.a[j] == f || p.b[j] == f)));
+      team_dep[i][j] = j != i && ((j < i && (p.a[i] == nf + j || p.b[i] == nf + j)) ||
+                                  (f >= 0 && (p.a[j] == f || p.b[j] == f)));
   }
   for (int j = 0; j < n; j++) {
     team_feeds_product[j] = false;
-    for (int i = j + 1; i < n; i++)
+    for (int i = 0; i < n; i++)
       if (p.mul[i] && team_dep[i][j]) team_feeds_product[j] = true;
   }
 }
@@ -324,7 +544,7 @@ static int team_fill(const TeamProg& p, int* stage, int s, int k, int* count) {
   bool any[2] = {false, false}, urgent_sum = false;
   for (int i = 0; i < p.n; i++) {
     ready[i] = stage[i] < 0;
-    for (int j = 0; j < i && ready[i]; j++)
+    for (int j = 0; j < p.n && ready[i]; j++)
       if (team_dep[i][j] && (stage[j] < 0 || stage[j] == s)) ready[i] = false;
     if (ready[i]) {
       any[p.mul[i]] = true;
@@ -353,7 +573,7 @@ static int team_cost(const TeamProg& p, const int* stage0, int s) {
   return cost;
 }
 
-// Stages, slots and the table of the step's program; 0, or -1 if it does
+// Stages, slots and the table of a program; 0, or -1 if it does
 // not fit the table.  Each stage takes the kind (products or sums) whose
 // choice leaves the cheaper rest of the schedule (team_cost), and every
 // ready operation of that kind.
@@ -376,6 +596,7 @@ static int team_schedule(const TeamProg& p, TeamTable& t) {
         best_cost = cost;
       }
     }
+    if (best < 0) return -1;  // nothing ready: the dependencies form a cycle
     kind[nst] = team_fill(p, stage, nst, best, &count);
     placed += count;
   }
@@ -424,17 +645,31 @@ static int team_schedule(const TeamProg& p, TeamTable& t) {
   return 0;
 }
 
-// The table of one step for the group with nc components (1: G1, 2: G2);
-// 0, or -1 if the program does not fit.
-static int team_table(TeamTable& t, int nc) {
-  static TeamProg p;  // large: kept off the stack
-  p.init(TEAM_NFIXED(nc));
-  if (nc == 1)
-    team_step<TeamFq>(p);
-  else if (nc == 2)
-    team_step<TeamFq2>(p);
+// The programs a table can hold.
+enum { TEAM_LADDER_STEP = 0, TEAM_WSUM_SCAN = 1, TEAM_WSUM_STEP = 2, TEAM_WSUM_ADD = 3 };
+
+template <class TC>
+static void team_record(TeamProg& p, int program) {
+  if (program == TEAM_LADDER_STEP)
+    team_step<TC>(p, 0, 1);
+  else if (program == TEAM_WSUM_SCAN)
+    team_scan<TC>(p);
+  else if (program == TEAM_WSUM_STEP)
+    team_step<TC>(p, WS_ACC, WS_RUN);
   else
-    return -1;
+    team_add_opd<TC>(p);
+}
+
+// The table of `program` for the group with nc components (1: G1, 2: G2);
+// 0, or -1 if the program does not fit.
+static int team_table(TeamTable& t, int nc, int program) {
+  static TeamProg p;  // large: kept off the stack
+  if ((nc != 1 && nc != 2) || program < TEAM_LADDER_STEP || program > TEAM_WSUM_ADD) return -1;
+  p.init(TEAM_NFIXED(nc, program == TEAM_LADDER_STEP ? LADDER_NPTS : WS_NPTS));
+  if (nc == 1)
+    team_record<TeamFq>(p, program);
+  else
+    team_record<TeamFq2>(p, program);
   if (p.bad) return -1;
   return team_schedule(p, t);
 }

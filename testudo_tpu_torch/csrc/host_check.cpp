@@ -42,34 +42,37 @@ static void host_chain(const int* a, const int* b, int* out, int G, long L, int 
   }
 }
 
-// The team ladder (ladder_team.cu) on the CPU: the same table and the same
-// per-rank functions, each stage's operations run one rank after another
-// (TEAM_T at a time, as the kernel's sub-rounds), lane by lane.
+// The team kernels (ladder_team.cu, wsum_team.cu) on the CPU: the same
+// tables and the same lane and per-rank functions, each stage's operations
+// run one rank after another (T at a time, as the kernels' sub-rounds),
+// lane by lane.
 template <class C>
 static int host_team(const int* pts, const int* scal, int* out, int nl, long L) {
   constexpr int NC = C::COMP_ROWS / (2 * FQN);
-  constexpr int T = TEAM_T(NC);
   static TeamTable tab;
-  if (team_table(tab, NC) != 0) return -2;
-  const int ns = tab.nslots;
-  std::vector<u32> region((std::size_t)ns * FQN);
-  for (long lane = 0; lane < L; lane++) {
-    for (int r = 0; r < T; r++) team_init<C>(region.data(), ns, pts, L, lane, r);
-    for (int k = 0; k < nl; k++) {
-      const u32 limb = (u32)scal[(long)k * L + lane];
-      for (int bit = 0; bit < 16; bit++) {
-        const bool set = ((limb >> bit) & 1u) != 0;
-        for (int s = 0; s < tab.nstages; s++) {
-          const u32 st = tab.stage[s];
-          const int count = (int)((st >> 16) & 0x7fffu);
-          for (int i = 0; i < count; i += T)
-            for (int r = 0; r < T; r++)
-              team_op(region.data(), ns, team_pick(tab.op, st, i + r, NC), (st >> 31) != 0, set);
-        }
-      }
-    }
-    for (int r = 0; r < T; r++) team_store<C>(out, region.data(), ns, L, lane, r);
+  if (team_table(tab, NC, TEAM_LADDER_STEP) != 0) return -2;
+  std::vector<u32> region((std::size_t)tab.nslots * FQN);
+  const TeamCode step = {tab.op, tab.stage, tab.nstages};
+  for (long lane = 0; lane < L; lane++)
+    lane_ladder_team<C, TEAM_T(NC)>(region.data(), tab.nslots, step, pts, scal, out, nl, L, lane, 0);
+  return 0;
+}
+
+template <class C>
+static int host_wsum(const int* buckets, int* out, int W, int c, bool plus_one) {
+  constexpr int NC = C::COMP_ROWS / (2 * FQN);
+  static TeamTable tab[3];
+  TeamCode code[3];
+  int ns = 0;
+  for (int k = 0; k < 3; k++) {
+    if (team_table(tab[k], NC, TEAM_WSUM_SCAN + k) != 0) return -2;
+    code[k] = {tab[k].op, tab[k].stage, tab[k].nstages};
+    if (tab[k].nslots > ns) ns = tab[k].nslots;
   }
+  const long L = WSUM_LANES(W, c);
+  std::vector<u32> region((std::size_t)ns * FQN);
+  for (long lane = 0; lane < L; lane++)
+    lane_wsum_team<C, WSUM_T(NC)>(region.data(), ns, code, buckets, out, W, c, plus_one, lane, 0);
   return 0;
 }
 
@@ -168,12 +171,22 @@ int host_ladder_team(const int* pts, const int* scal, int* out, int nl, long L, 
   return -1;
 }
 
-// The team ladder's table for a group: dims = (nops, nstages, nslots,
-// nfixed), ops and stages as the kernel receives them (room for
-// TEAM_MAX_OPS and TEAM_MAX_STAGES words).
-int host_team_table(int ncomp, u32* ops, u32* stages, int* dims) {
+// Per-group weighted sums of (rows, W 2^c) buckets into (rows, W groups),
+// as wsum_team.cu.
+int host_wsum_team(const int* buckets, int* out, int W, int c, int plus_one, int ncomp) {
+  if (W <= 0 || c < 0 || c > 24) return -3;
+  if (ncomp == 1) return host_wsum<FqCoord>(buckets, out, W, c, plus_one != 0);
+  if (ncomp == 2) return host_wsum<Fq2Coord>(buckets, out, W, c, plus_one != 0);
+  return -1;
+}
+
+// The table of a team program (ec_team.cuh: 0 the ladder step, 1-3 the
+// weighted sum's scan step, ladder step and add) for a group: dims =
+// (nops, nstages, nslots, nfixed), ops and stages as the kernels receive
+// them (room for TEAM_MAX_OPS and TEAM_MAX_STAGES words).
+int host_team_program(int ncomp, int program, u32* ops, u32* stages, int* dims) {
   TeamTable tab;
-  if (team_table(tab, ncomp) != 0) return -1;
+  if (team_table(tab, ncomp, program) != 0) return -1;
   for (int i = 0; i < tab.nops; i++) ops[i] = tab.op[i];
   for (int s = 0; s < tab.nstages; s++) stages[s] = tab.stage[s];
   dims[0] = tab.nops;
@@ -181,6 +194,11 @@ int host_team_table(int ncomp, u32* ops, u32* stages, int* dims) {
   dims[2] = tab.nslots;
   dims[3] = tab.nfixed;
   return 0;
+}
+
+// The team ladder's table for a group.
+int host_team_table(int ncomp, u32* ops, u32* stages, int* dims) {
+  return host_team_program(ncomp, TEAM_LADDER_STEP, ops, stages, dims);
 }
 
 // The bucket kernel's schedule run by one "warp" at a time: take the next 32

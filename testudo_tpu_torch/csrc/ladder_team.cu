@@ -39,34 +39,13 @@ k_ladder_team(const int* pts, const int* scal, int* out, int nl, long L, TeamTab
   u32* stages = smem + tab.nops;
   for (int i = threadIdx.x; i < tab.nops; i += TPB_TEAM) ops[i] = tab.op[i];
   for (int i = threadIdx.x; i < tab.nstages; i += TPB_TEAM) stages[i] = tab.stage[i];
-  const int ns = tab.nslots, nst = tab.nstages;
-  const int rank = threadIdx.x % T;
+  __syncthreads();
+  const int ns = tab.nslots;
   const int team = threadIdx.x / T;
   u32* region = smem + tab.nops + tab.nstages + team * ns * FQN;
   const long lane = (long)blockIdx.x * (TPB_TEAM / T) + team;
-  const long src = lane < L ? lane : L - 1;  // past L: run on, store nothing
-  team_init<C>(region, ns, pts, L, src, rank);
-  __syncthreads();
-  FP_NO_UNROLL
-  for (int k = 0; k < nl; k++) {
-    const u32 limb = (u32)scal[(long)k * L + src];
-    FP_NO_UNROLL
-    for (int bit = 0; bit < 16; bit++) {
-      const bool set = ((limb >> bit) & 1u) != 0;
-      FP_NO_UNROLL
-      for (int s = 0; s < nst; s++) {
-        const u32 st = stages[s];
-        const bool mul = (st >> 31) != 0;
-        const int count = (int)((st >> 16) & 0x7fffu);
-        FP_NO_UNROLL
-        for (int i = 0; i < count; i += T) {
-          team_op(region, ns, team_pick(ops, st, i + rank, NC), mul, set);
-          __syncwarp();
-        }
-      }
-    }
-  }
-  if (lane < L) team_store<C>(out, region, ns, L, lane, rank);
+  lane_ladder_team<C, T>(region, ns, TeamCode{ops, stages, tab.nstages}, pts, scal, out, nl, L,
+                         lane, threadIdx.x % T);
 }
 
 // The step's table for this group, built on the first launch and kept; null
@@ -75,7 +54,7 @@ static const TeamTable* team_table_for(int ncomp) {
   static TeamTable tables[2];
   static int state[2] = {0, 0};  // 0: not built, 1: built, -1: failed
   int g = ncomp - 1;
-  if (state[g] == 0) state[g] = team_table(tables[g], ncomp) == 0 ? 1 : -1;
+  if (state[g] == 0) state[g] = team_table(tables[g], ncomp, TEAM_LADDER_STEP) == 0 ? 1 : -1;
   return state[g] == 1 ? &tables[g] : nullptr;
 }
 

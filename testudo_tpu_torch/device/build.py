@@ -30,7 +30,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("mont_mul.cu", "mont_mul_rm.cu", "mont_chain.cu", "ec_ops.cu", "ladder.cu",
-           "ladder_team.cu", "bucket.cu")
+           "ladder_team.cu", "bucket.cu", "wsum_team.cu")
 HEADERS = ("fp.cuh", "fp2.cuh", "ec.cuh", "ec_team.cuh", "launch.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -57,6 +57,7 @@ _SIGNATURES = {
     "ladder": ("testudo_ladder", (_P, _P, _P, _I, _L, _I, _P)),
     "ladder_team": ("testudo_ladder_team", (_P, _P, _P, _I, _L, _I, _P)),
     "bucket": ("testudo_bucket", (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _P)),
+    "wsum": ("testudo_wsum_team", (_P, _P, _I, _I, _I, _I, _P)),
 }
 # C functions that launch nothing and take no stream: (symbol, argtypes).
 _QUERIES = {
@@ -70,7 +71,7 @@ _QUERIES = {
 # row-major Montgomery product is counted per field, the grouped chain per
 # variant.
 EC_KERNELS = ("add2", "add_mask", "step", "scan2", "scan2b", "ladder", "ladder_team",
-              "bucket", "bucket_mixed")
+              "bucket", "bucket_mixed", "wsum")
 FIELD_KERNELS = ("mont_mul", "mont_mul_rm_fq", "mont_mul_rm_fr", "mont_chain",
                  "mont_chain_seq", "mont_chain_wide")
 LAUNCHES = {name: 0 for name in (
@@ -142,6 +143,31 @@ def build() -> Path:
     return lib_path
 
 
+def build_tool(name: str, code: str) -> Path:
+    """Compile one more CUDA source, `code`, which may include the kernel
+    sources of csrc/, into a library of its own with the kernels' flags:
+    `_build/<name>-<hash>/lib<name>.so`, reused while the sources and the
+    code stay the same.  For measurement tools that instantiate a kernel
+    template at arguments the kernel library does not."""
+    digest = hashlib.sha256((_source_hash() + code).encode()).hexdigest()[:16]
+    out_dir = BUILD_ROOT / f"{name}-{digest}"
+    lib_path = out_dir / f"lib{name}.so"
+    if lib_path.exists():
+        return lib_path
+    nvcc = find_nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    src = out_dir / f"{name}.cu"
+    src.write_text(code)
+    tmp = out_dir / f"lib{name}.{os.getpid()}.so"
+    done = subprocess.run([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-shared", "-o", str(tmp), str(src)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    (out_dir / "build.log").write_text(done.stdout)
+    if done.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}\n{done.stdout}")
+    os.replace(tmp, lib_path)
+    return lib_path
+
+
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
@@ -155,8 +181,8 @@ def library() -> ctypes.CDLL:
 
 def _kernel_name(mangled: str) -> str:
     """`_Z8k_bucketI8Fq2CoordLb1EEv...` -> `k_bucket<Fq2Coord, true>`: enough
-    of the Itanium scheme for this library's kernels (a name, then type and
-    bool template arguments); anything else comes back as it is."""
+    of the Itanium scheme for this library's kernels (a name, then type,
+    bool and int template arguments); anything else comes back as it is."""
     m = re.match(r"_Z(\d+)", mangled)
     if not m:
         return mangled
@@ -165,10 +191,11 @@ def _kernel_name(mangled: str) -> str:
     if mangled[pos:pos + 1] == "I":
         pos += 1
         while pos < len(mangled) and mangled[pos] != "E":
-            lit = re.match(r"Lb([01])E", mangled[pos:])
+            lit = re.match(r"L([bi])(\d+)E", mangled[pos:])
             num = re.match(r"\d+", mangled[pos:])
             if lit:
-                args.append("true" if lit.group(1) == "1" else "false")
+                kind, value = lit.groups()
+                args.append(value if kind == "i" else "true" if value == "1" else "false")
                 pos += lit.end()
             elif num:
                 start = pos + num.end()

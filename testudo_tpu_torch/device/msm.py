@@ -18,9 +18,10 @@ Algorithm (signed c-bit windows by default):
      index inside the kernel (mixed adds when the bases are affine);
   4. segment reduce: the consecutive segment lanes of a bucket are summed
      by the same kernel (general add);
-  5. weighted bucket sum per window: a suffix scan over groups of 32
-     buckets (`scan2b`), a shared double-and-add chain for the group
-     offsets (`step`), pairwise folds (`add2`);
+  5. weighted bucket sum per window: per group of 32 buckets a suffix scan
+     (the reference's `scan2b`) and a double-and-add chain for the group
+     offset (its `step`), all in ONE launch of the team kernel
+     (`PackedGroup.weighted_sum`), then pairwise folds (`add2`);
   6. Horner combine of the window sums: one ladder launch by 2^(c w) and a
      tree reduction; the result goes to the host as an affine point.
 
@@ -297,31 +298,10 @@ def _weighted_sum_packed(Gp: PackedGroup, buckets, W: int, c: int,
                          plus_one: bool = False):
     """sum_j w(j)*B_j per window on packed buckets (rows, W*2^c) ->
     (rows, W); w(j) = j, or j+1 when plus_one (signed windows store
-    magnitude m at slot m-1)."""
-    dev = buckets.device
-    B = 1 << c
-    h = min(B, 32)
-    groups = B // h
-    lanes = W * groups
-    bg = buckets.reshape(Gp.rows, W, groups, h)
-
-    run = Gp.identity_packed(lanes, device=dev)
-    tot = Gp.identity_packed(lanes, device=dev)
-    # scan l = h-1..0 with tot-before-run update => tot = sum_l l*B_l
-    for l in range(h - 1, -1, -1):
-        run, tot = Gp.scan2b(run, tot, bg[:, :, :, l].reshape(Gp.rows, lanes).contiguous())
-
-    # acc = (g*h) * run_g via a shared double-and-add chain (static masks)
-    weights = np.tile(np.arange(groups, dtype=np.int64) * h, W)
-    maxbits = max(1, int((groups - 1) * h).bit_length())
-    acc = Gp.identity_packed(lanes, device=dev)
-    run0 = run  # step() doubles its base operand; keep sum_l B_l per group
-    for bit in range(maxbits):
-        sel = torch.as_tensor(((weights >> bit) & 1).astype(np.int32), device=dev)
-        acc, run = Gp.step(acc, run, sel)
-    res = Gp.add2(acc, tot)
-    if plus_one:  # + sum_l B_l per group shifts every weight by one
-        res = Gp.add2(res, run0)
+    magnitude m at slot m-1).  The per-group sums take one `weighted_sum`
+    launch; the groups of a window are then folded pairwise."""
+    res = Gp.weighted_sum(buckets.contiguous(), W, c, plus_one)
+    groups = res.shape[1] // W
 
     # fold groups per window
     res = res.reshape(Gp.rows, W, groups)

@@ -9,7 +9,8 @@ along L.  The row of coordinate c, component comp, limb k is
 
 Every fused op has a wrapper that, on CUDA tensors, checks its arguments,
 launches the hand-written kernel (csrc/ec_ops.cu, ladder_team.cu or
-ladder.cu by width, bucket.cu) on the current stream and raises on failure;
+ladder.cu by width, bucket.cu, wsum_team.cu) on the current stream and
+raises on failure;
 on CPU tensors it runs the plain
 PyTorch version defined beside it (`*_plain`), which evaluates the same
 RCB16 formulas (device/curve.py) in int64 tensor ops.  The plain versions
@@ -17,7 +18,8 @@ also run on CUDA tensors when called directly, which is how a kernel is
 held against its plain version on the card; they never launch a kernel.
 
 What differs from the JAX package: `ladder` is one launch (not one `step`
-launch per bit); `bucket_phase` gathers by index inside the kernel from a
+launch per bit); so is `weighted_sum` (not a `scan2b` launch per bucket of
+a group and a `step` launch per weight bit); `bucket_phase` gathers by index inside the kernel from a
 point-major table instead of streaming a materialised run tensor, and runs
 its lanes longest first on a grid that stays resident; masks are
 one int per lane; `add_mask` also takes ONE point for all lanes (a single
@@ -347,6 +349,76 @@ class PackedGroup:
         if n <= 0:
             raise RuntimeError(f"bucket_capacity: the occupancy query failed ({n})")
         return n
+
+    # -- weighted sum --------------------------------------------------------------
+
+    @staticmethod
+    def wsum_plan(c: int) -> tuple[int, int, int]:
+        """(h, groups, maxbits) of the per-group weighted sum at window bits
+        c: groups of h = min(2^c, 32) buckets, 2^c / h groups a window, and
+        maxbits bits of the largest group weight (groups - 1) h, at least 1."""
+        h = min(1 << c, 32)
+        groups = (1 << c) // h
+        return h, groups, max(1, ((groups - 1) * h).bit_length())
+
+    def weighted_sum_steps(self, buckets, W: int, c: int, plus_one: bool, scan2b, step, add2):
+        """The per-group weighted sum as a sequence of `scan2b`, `step` and
+        `add2` calls (the ones given: the plain versions, or the kernels,
+        one launch per call).  For lane (w, g) over its group's buckets
+        B_l = buckets[:, w 2^c + g h + l], l < h: a scan from l = h - 1 down
+        that leaves run = sum_l B_l and tot = sum_l l B_l, then acc = (g h)
+        run by a double-and-add chain of `step`s, then acc + tot (+ run when
+        plus_one).  Returns (rows, W groups)."""
+        dev = buckets.device
+        h, groups, maxbits = self.wsum_plan(c)
+        lanes = W * groups
+        bg = buckets.reshape(self.rows, W, groups, h)
+        run = self.identity_packed(lanes, device=dev)
+        tot = self.identity_packed(lanes, device=dev)
+        # scan l = h-1..0 with tot-before-run update => tot = sum_l l*B_l
+        for l in range(h - 1, -1, -1):
+            run, tot = scan2b(run, tot, bg[:, :, :, l].reshape(self.rows, lanes).contiguous())
+        # acc = (g*h) * run_g via a shared double-and-add chain (static masks)
+        weights = np.tile(np.arange(groups, dtype=np.int64) * h, W)
+        acc = self.identity_packed(lanes, device=dev)
+        run0 = run  # step() doubles its base operand; keep sum_l B_l per group
+        for bit in range(maxbits):
+            sel = torch.as_tensor(((weights >> bit) & 1).astype(np.int32), device=dev)
+            acc, run = step(acc, run, sel)
+        res = add2(acc, tot)
+        if plus_one:  # + sum_l B_l per group shifts every weight by one
+            res = add2(res, run0)
+        return res
+
+    def weighted_sum_plain(self, buckets, W: int, c: int, plus_one: bool = False):
+        return self.weighted_sum_steps(buckets, W, c, plus_one, self.scan2b_plain,
+                                       self.step_plain, self.add2_plain)
+
+    def weighted_sum(self, buckets: torch.Tensor, W: int, c: int,
+                     plus_one: bool = False) -> torch.Tensor:
+        """Per-group weighted bucket sums: buckets (rows, W 2^c), W windows of
+        2^c buckets, -> (rows, W groups), lane w groups + g holding
+        sum_l w(g h + l) B_(g h + l) over its group, w(j) = j, or j + 1 when
+        plus_one (see `weighted_sum_steps`, the same adds in the same order).
+        On the card one launch of the team kernel (csrc/wsum_team.cu)."""
+        if W < 1 or not 0 <= c <= 24:
+            raise ValueError(f"weighted_sum: W = {W}, c = {c}; need W >= 1 and 0 <= c <= 24")
+        if buckets.dim() != 2 or buckets.shape != (self.rows, W << c):
+            raise ValueError(
+                f"weighted_sum: expected ({self.rows}, {W << c}) packed buckets, "
+                f"got {tuple(buckets.shape)}"
+            )
+        if buckets.dtype != torch.int32:
+            raise TypeError(f"weighted_sum: buckets must be int32, got {buckets.dtype}")
+        if not self._on_cuda(buckets):
+            return self.weighted_sum_plain(buckets, W, c, plus_one)
+        build.require_cuda_int32("weighted_sum", buckets=buckets)
+        _, groups, _ = self.wsum_plan(c)
+        out = torch.empty((self.rows, W * groups), dtype=torch.int32, device=buckets.device)
+        with torch.cuda.device(buckets.device):
+            build.launch("wsum", buckets.data_ptr(), out.data_ptr(), W, c, int(plus_one),
+                         self.ncomp, counted_as=self._counter("wsum"))
+        return out
 
     # -- reductions built on add2 ------------------------------------------------
 
