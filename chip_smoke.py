@@ -25,7 +25,8 @@ testudo_tpu_torch/csrc/, then
      the affine column commitments, spot columns equal host MSMs, the proof
      has its hardware-independent size; commit, open and verify are timed
      with their parts, and the launches of one warm commit, open and verify
-     are counted, and the device time of one open's ladder launches;
+     are counted, and the device time of one open's ladder launches and of
+     its trees of adds;
   5. runs the chained-product harness (tools/exp_montmul.py), which
      measures the card's Montgomery products per second;
   6. calls every kernel's wrapper at the shapes the main paths gave it and
@@ -43,6 +44,11 @@ testudo_tpu_torch/csrc/, then
      all per-group sums of an MSM) against the plain sequence of scan,
      ladder and add steps at the MSM's 2,560 lanes (one more window) and
      at 2,560 + ODD lanes, timed beside the launch sequence it replaced;
+     the chain kernel (the commit's table of multiples) at 1,024 + ODD bases
+     x 255 adds and the fold kernel (every tree of pairwise adds) at each
+     path's segments plus one of ODD points, against their plain versions
+     (the `add2_plain` sequences) and timed beside the `add2` launches they
+     replaced;
   7. checks a small MSM against the host oracle;
   8. prints one JSON line {"kernels": [...]} (each row's `launches` is the
      sum of `launches_by_path`, the kernel's count on each driven path: msm,
@@ -113,7 +119,7 @@ _REPLACES = {
     "add_mask": _EC + ":403", "add2": _EC + ":415", "step": _EC + ":424",
     "scan2": _EC + ":437", "scan2b": _EC + ":450", "bucket": _EC + ":461",
     "bucket_mixed": _EC + ":509", "ladder": _EC + ":733", "ladder_team": _EC + ":733",
-    "wsum": _EC + ":450",
+    "wsum": _EC + ":450", "chain_team": _EC + ":415", "fold_team": _EC + ":415",
 }
 _CSRC = "testudo_tpu_torch/csrc/"
 _SOURCE = {
@@ -123,7 +129,8 @@ _SOURCE = {
     "mont_mul": "mont_mul.cu", "add_mask": "ec_ops.cu", "add2": "ec_ops.cu",
     "step": "ec_ops.cu", "scan2": "ec_ops.cu", "scan2b": "ec_ops.cu",
     "ladder": "ladder.cu", "ladder_team": "ladder_team.cu", "bucket": "bucket.cu",
-    "bucket_mixed": "bucket.cu", "wsum": "wsum_team.cu",
+    "bucket_mixed": "bucket.cu", "wsum": "wsum_team.cu", "chain_team": "chain_team.cu",
+    "fold_team": "fold_team.cu",
 }
 # proof bytes (PST opening + MIPP proof) of sqrt-PST per number of variables:
 # counts of group and field elements, the same on any hardware
@@ -132,15 +139,17 @@ PROOF_BYTES = {10: 7136, 14: 9920, 20: 14096}
 # driven with the counters zeroed just before and read just after).  K1
 # (`mont_mul`) serves (n, m) callers and `scan2` is on no path: both are
 # launched in the kernel phase only.  So are `scan2b` and `step`, whose work
-# on the paths the weighted-sum kernel does in one launch, and the
-# one-thread G2 ladder: every G2 ladder of the paths is at most
-# TEAM_LADDER_MAX_LANES wide (the MSM's 20-lane Horner, the open's folds),
-# so the team kernel takes it; the one-thread G1 ladder runs the commit's
-# 32,768-lane Horner.  A kernel of the kernel phase only must show no launch
-# on any path.
-_MSM_KERNELS = ("add2", "wsum", "ladder_team", "bucket", "bucket_mixed")
+# on the paths the weighted-sum kernel does in one launch; `add2`, whose
+# work on the paths the chain kernel (the commit's table) and the fold
+# kernel (every tree of pairwise sums) do in one launch each; the G2 chain
+# (the commit is over G1 only); and the one-thread G2 ladder: every G2
+# ladder of the paths is at most TEAM_LADDER_MAX_LANES wide (the MSM's
+# 20-lane Horner, the open's folds), so the team kernel takes it; the
+# one-thread G1 ladder runs the commit's 32,768-lane Horner.  A kernel of
+# the kernel phase only must show no launch on any path.
+_MSM_KERNELS = ("fold_team", "wsum", "ladder_team", "bucket", "bucket_mixed")
 _KERNEL_PHASE_ONLY = ("mont_mul", "scan2", "scan2_g2", "ladder_g2", "step", "step_g2", "scan2b",
-                      "scan2b_g2")
+                      "scan2b_g2", "add2", "add2_g2", "chain_team_g2")
 MUST_LAUNCH = {
     **{k: () for k in _KERNEL_PHASE_ONLY},
     "mont_mul_rm_fq": ("field", "open"),
@@ -151,10 +160,10 @@ MUST_LAUNCH = {
     **{k + "_g2": ("msm",) for k in _MSM_KERNELS},
 }
 MUST_LAUNCH.update({
-    "add2": ("msm", "commit", "open"), "ladder": ("commit",),
+    "chain_team": ("commit",), "fold_team": ("msm", "commit", "open"),
+    "fold_team_g2": ("msm", "open"), "ladder": ("commit",),
     "ladder_team": ("msm", "open"), "ladder_team_g2": ("msm", "open"),
     "bucket": ("msm", "commit", "open"), "wsum": ("msm", "open"),
-    "add2_g2": ("msm", "open"),
 })
 N_UNIQUE = 1 << 13
 ODD = 37  # extra lanes so no compared batch is a multiple of a block size
@@ -671,11 +680,13 @@ def phase_sqrt_pst(dev, nv: int, full: bool):
     counts_open = dict(build.LAUNCHES)
     if U2 != U or proofs.ser_mipp(mipp2) != proofs.ser_mipp(mipp_proof):
         raise AssertionError("a second opening differs from the first")
-    # one more warm open, with CUDA events around every ladder launch
-    (_, open_ms), ladders = time_open.ladder_device_ms(lambda: timed_once(do_open))
-    lad = ", ".join(f"{g} {ms:.3f} ms over {n} launches" for g, (ms, n) in sorted(ladders.items()))
-    say(f"  ladder device time of one warm open (CUDA events around each launch): {lad}; "
-        f"together {sum(v[0] for v in ladders.values()):.3f} ms of the open's {open_ms:.1f} ms")
+    # one more warm open, with CUDA events around every ladder launch and
+    # every tree of pairwise adds
+    (_, open_ms), timed = time_open.device_ms(lambda: timed_once(do_open))
+    for kind, sums in timed.items():
+        each = ", ".join(f"{g} {ms:.3f} ms over {n} calls" for g, (ms, n) in sorted(sums.items()))
+        say(f"  {kind} device time of one warm open (CUDA events around each call): {each}; "
+            f"together {sum(v[0] for v in sums.values()):.3f} ms of the open's {open_ms:.1f} ms")
     build.reset_launches()
     with timer.record() as rec:
         ok, verify_warm = timed_once(lambda: do_verify(v))
@@ -927,8 +938,10 @@ def kernels_commit_bucket(dev, rep: Report, canon, basis):
         f"ms={ms:.3f} plain_ms={plain:.2f} bound_ms={b_ms:.4f} ({b_by})")
     idx_ms = time_ms(lambda: msm._multi_msm_index(canon, c), 3)
     tab_ms = time_ms(lambda: msm._multi_msm_table(Gp, ptcat, c), 3)
-    say(f"  digit extraction and index build: {idx_ms:.3f} ms; table build ({(1 << c) - 1} add2 "
-        f"launches over {N} lanes + the re-layout): {tab_ms:.3f} ms")
+    seq_ms = time_ms(lambda: Gp.chain_steps(ptcat, 1 << c, Gp.add2), 3)
+    say(f"  digit extraction and index build: {idx_ms:.3f} ms; table build (one chain_team launch "
+        f"over {N} bases): {tab_ms:.3f} ms; the {(1 << c) - 1} add2 launches and re-layout it "
+        f"replaced: {seq_ms:.3f} ms")
     rep.rows["bucket"].update({"commit_shape": shape, "commit_max_abs_err": err, "commit_ms": ms,
                                "commit_plain_ms": plain, "commit_bound_ms": b_ms,
                                "commit_bound_by": b_by})
@@ -987,6 +1000,120 @@ def kernels_wsum(dev, grp, rep: Report, proj, rounds: int, lat_us: float, quick:
         f"{seq_ms:.4f} ms); latency bound {chain * rounds * lat_us / 1e3:.4f} ms")
 
 
+def ptxas_of(kernel: str, ncomp: int) -> list:
+    """The compiler's resource lines of a kernel template's instantiations
+    for the group (build report)."""
+    coord = "FqCoord" if ncomp == 1 else "Fq2Coord"
+    return [ln for ln in build.build_report()["ptxas"] if ln.startswith(f"{kernel}<{coord},")]
+
+
+def fold_shapes(ncomp: int, quick: bool) -> dict:
+    """The segments (offsets, lengths) each path hands the fold kernel: the
+    MSM's fold of 20 windows' 128 groups, its Horner tree of 20, the open's
+    parts 512 .. 1 (`msm_multi_small`) and two segments of 512
+    (`msm_segmented`), and for G1 the commit's 1,024 columns of 32 windows."""
+    k = 8 if quick else 1  # quick: narrower segments
+    shapes = {
+        "msm": ([128 * w for w in range(20)], [128] * 20),
+        "horner": ([0], [20]),
+        "open_parts": ([1024 // k - (1 << (e + 1)) for e in range(9 - k.bit_length() + 1, -1, -1)],
+                       [1 << e for e in range(9 - k.bit_length() + 1, -1, -1)]),
+        "open_segments": ([0, 512 // k], [512 // k] * 2),
+    }
+    if ncomp == 1:
+        shapes["commit"] = ([32 * i for i in range(1024 // k)], [32] * (1024 // k))
+    return shapes
+
+
+def fold_batch(dev, grp, proj, L: int) -> torch.Tensor:
+    """(rows, L) projective points for the folds: the multiples tiled, the
+    identity in columns 3 and 4, and where L > 65 column 64 = column 0 (a
+    doubling in the first level of a segment of 128) and column 65 =
+    -column 1 (a sum that is the identity)."""
+    Gp = grp.Gp
+    a, _ = edge_points(dev, grp, proj, L)
+    if L > 65:
+        a[:, 64] = a[:, 0]
+        a[:, 65] = Gp.pack(grp.neg(Gp.unpack(a[:, 1:2].contiguous())))[:, 0]
+    return a.contiguous()
+
+
+def kernels_chain_fold(dev, grp, rep: Report, proj, rounds: int, lat_us: float, quick: bool):
+    """The chain kernel (the commit's table of multiples) and the fold kernel
+    (every tree of pairwise adds) of one group against their plain versions,
+    the sequences of `add2_plain` calls they replaced, and timed beside the
+    `add2` launch sequences (`chain_steps`, `fold_steps` on the kernel).
+
+    Chain: compared at 1,024 + ODD bases (the identity and a base and its
+    negative among them) and B = 256, timed at the commit's 1,024.  Fold:
+    compared at every shape of `fold_shapes` with one more segment of ODD
+    points, timed at each shape as it is; the row's `ms` is the MSM's.
+    bound_ms: the points read and written once against the adds' products;
+    latency_bound_ms: the dependent adds of a lane (B - 1; a fold's levels)
+    times the add's rounds of dependent products times one product's
+    latency."""
+    Gp = grp.Gp
+    rows = Gp.rows
+    pt_bytes = rows * 4
+    m_add = grp.muls[0] * MADD_FQ
+    nm = lambda kernel: counter(grp, kernel)
+    lat = lambda chain: chain * rounds * lat_us / 1e3
+
+    N, B = (64, 16) if quick else (1024, 256)
+    ptcat = fold_batch(dev, grp, proj, N + ODD).T.contiguous()
+    got = Gp.chain(ptcat, B)
+    want, plain = timed_once(lambda: Gp.chain_plain(ptcat, B))
+    p0 = ptcat[:N].contiguous()
+    ms = time_ms(lambda: Gp.chain(p0, B), 5)
+    seq = lambda: Gp.chain_steps(p0, B, Gp.add2)
+    if not torch.equal(seq(), Gp.chain(p0, B)):
+        raise AssertionError(f"kernel {nm('chain_team')} differs from the launch sequence it replaced")
+    seq_ms = time_ms(seq, 2)
+    rep.add(nm("chain_team"), got, want, ms, plain, N * pt_bytes + N * B * pt_bytes,
+            N * (B - 1) * m_add,
+            f"({N}, {rows}) bases -> ({N * B}, {rows}) table, {B - 1} adds a base; compared at "
+            f"{N + ODD} bases, plain_ms from there")
+    rep.rows[nm("chain_team")].update({
+        "replaces_also": ["testudo_tpu/tpu/msm.py:1045"],
+        "latency_bound_ms": lat(B - 1), "latency_us_per_product": lat_us,
+        "launch_sequence_ms": seq_ms, "ptxas": ptxas_of("k_chain_team", Gp.ncomp)})
+    say(f"  {nm('chain_team')}: {ms:.4f} ms at {N} bases x {B - 1} adds (the {B - 1} add2 "
+        f"launches it replaced: {seq_ms:.4f} ms); latency bound {lat(B - 1):.4f} ms")
+
+    gots, wants, extra, plain = [], [], {}, None
+    for name, (off, ln) in fold_shapes(Gp.ncomp, quick).items():
+        end = max(o + n for o, n in zip(off, ln))
+        a = fold_batch(dev, grp, proj, end + ODD)
+        off_c, ln_c = off + [end], ln + [ODD]
+        gots.append(Gp.fold(a, off_c, ln_c))
+        want, p_ms = timed_once(lambda: Gp.fold_plain(a, off_c, ln_c))
+        wants.append(want)
+        a0 = a[:, :end].contiguous()
+        k_ms = time_ms(lambda: Gp.fold(a0, off, ln), 10)
+        seq = lambda: Gp.fold_steps(a0, off, ln, Gp.add2)
+        if not torch.equal(seq(), Gp.fold(a0, off, ln)):
+            raise AssertionError(f"kernel {nm('fold_team')} differs from the add2 sequence at {name}")
+        s_ms = time_ms(seq, 5)
+        b_ms, b_by = bound(sum(ln) * pt_bytes + len(ln) * pt_bytes, (sum(ln) - len(ln)) * m_add)
+        l_ms = lat(max((n - 1).bit_length() for n in ln))
+        if name == "msm":
+            main = (k_ms, p_ms, sum(ln) * pt_bytes + len(ln) * pt_bytes, (sum(ln) - len(ln)) * m_add)
+            extra.update({"latency_bound_ms": l_ms, "launch_sequence_ms": s_ms})
+        extra.update({f"ms_{name}": k_ms, f"launch_sequence_ms_{name}": s_ms,
+                      f"bound_ms_{name}": b_ms, f"latency_bound_ms_{name}": l_ms,
+                      f"segments_{name}": f"{len(ln)} of {min(ln)}..{max(ln)}"})
+        say(f"  {nm('fold_team')} at {name} ({len(ln)} segments of {min(ln)}..{max(ln)}): "
+            f"{k_ms:.4f} ms (the add2 launches it replaced: {s_ms:.4f} ms); bound {b_ms:.5f} "
+            f"({b_by}), latency bound {l_ms:.4f} ms")
+    k_ms, p_ms, nbytes, madds = main
+    rep.add(nm("fold_team"), tuple(gots), tuple(wants), k_ms, p_ms, nbytes, madds,
+            f"({rows}, 2560) -> 20 segments of 128 (the MSM's fold of the groups); compared at "
+            f"every path's segments plus one of {ODD} points, plain_ms from the MSM's")
+    rep.rows[nm("fold_team")].update({
+        "replaces_also": [_EC + ":717", "testudo_tpu/tpu/msm.py:712", "testudo_tpu/tpu/msm.py:1100"],
+        "latency_us_per_product": lat_us, "ptxas": ptxas_of("k_fold_team", Gp.ncomp), **extra})
+
+
 def kernels_group(dev, grp, rep: Report, proj, pts_cmp, scal_cmp, pts_time, scal_time,
                   lat_us: float, quick: bool):
     """Every EC kernel of one group against its plain version.  The bucket
@@ -1008,10 +1135,13 @@ def kernels_group(dev, grp, rep: Report, proj, pts_cmp, scal_cmp, pts_time, scal
     n0 = L - ODD
     shape = f"({rows}, {n0})"
 
+    rounds = 2 if Gp.ncomp == 1 else 3  # rounds of dependent products of an add or a step
     got, want = Gp.add2(a, b), Gp.add2_plain(a, b)
     rep.add(nm("add2"), got, want, time_ms(lambda: Gp.add2(a0, b0), 20),
             time_ms(lambda: Gp.add2_plain(a0, b0), 1),
             3 * pt_bytes * n0, m_add * n0, shape)
+    rep.rows[nm("add2")].update({"latency_bound_ms": rounds * lat_us / 1e3,
+                                 "latency_us_per_product": lat_us})
 
     mask = torch.as_tensor(np.random.default_rng(22).integers(0, 2, size=L).astype(np.int32), device=dev)
     mask[:5] = 1
@@ -1062,7 +1192,6 @@ def kernels_group(dev, grp, rep: Report, proj, pts_cmp, scal_cmp, pts_time, scal
     # compared call.  latency_bound_ms: the scalars' top bit times the rounds
     # of dependent products a step needs (2, G2 3) times one dependent
     # product's latency at one warp (the harness's latency mode).
-    rounds = 2 if Gp.ncomp == 1 else 3
     team = lambda p, k: Gp.ladder_launch("ladder_team", p, k)
     one = lambda p, k: Gp.ladder_launch("ladder", p, k)
 
@@ -1128,6 +1257,7 @@ def kernels_group(dev, grp, rep: Report, proj, pts_cmp, scal_cmp, pts_time, scal
     say(f"  {nm('ladder')} at {Lc} lanes: {tc_one:.4f} ms (team kernel {tc_team:.4f})")
 
     kernels_wsum(dev, grp, rep, proj, rounds, lat_us, quick)
+    kernels_chain_fold(dev, grp, rep, proj, rounds, lat_us, quick)
 
     # the bucket kernels with the exact arguments of a main path, plus a tail
     # of hand-made lanes: count 0, a doubling lane, a long lane that ends at

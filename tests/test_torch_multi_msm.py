@@ -1,10 +1,11 @@
 """The shared-basis multi-MSM of the port (testudo_tpu_torch/device/msm.py:
 `_multi_msm_device`, `_multi_msm_small`, `_multi_msm_packed`) against the host
 oracle, column by column, for both groups and both paths, and the generator
-form of the single MSM.  One slow-marked test runs the JAX package's packed
-multi-MSM itself (Pallas interpret mode: tens of minutes of CPU compile) and
-compares table rows, window sums and Horner output limb for limb.  Integers:
-exact equality."""
+form of the single MSM.  Two slow-marked tests run the JAX package's kernels
+in Pallas interpret mode: one holds the table against the reference's scan
+of `add2` (one kernel to compile), the other runs the packed multi-MSM
+itself (tens of minutes of CPU compile) and compares table rows, window sums
+and Horner output limb for limb.  Integers: exact equality."""
 import numpy as np
 import pytest
 import torch
@@ -153,6 +154,36 @@ def test_msm_pipeline_yields_at_its_two_waits_and_returns_the_sum():
 
 
 # -- against the JAX packed multi-MSM itself (slow: Pallas interpret mode) ------------
+
+
+@pytest.mark.slow
+def test_multi_msm_table_stage_equals_reference_tab_build():
+    """`_multi_msm_table` (on the CPU the chain kernel's plain version: B - 1
+    `add2_plain` calls and the re-layout) against the reference's table as
+    `tab_build` builds it (testudo_tpu/tpu/msm.py:1038-1045: a `lax.scan` of
+    the `add2` kernel from the identity, each step storing the previous
+    value), the kernel in Pallas interpret mode, at N = 8 numpy-made points
+    and c = 4: all N * 16 rows limb for limb.  Split out of the stage test
+    below, which never ran to its end: this one compiles a single
+    interpret-mode kernel.  Slow all the same (minutes of CPU compile)."""
+    import jax
+
+    from testudo_tpu.tpu import curve as jc
+    from testudo_tpu.tpu import msm as jmsm
+    from testudo_tpu.tpu import pallas_curve as pcu
+
+    N, c = 8, 4
+    B = 1 << c
+    pts = _rand_g1(N)
+    table = tmsm._multi_msm_table(G1P, tmsm._cat_points(tc.g1_from_affine_host(pts, device="cpu")), c)
+    base = jmsm._cat_points("g1", jc.g1_from_affine_host(pts)).T  # (rows, N) packed
+
+    def tab_step(prev, _):  # tpu/msm.py:1038-1043
+        return pcu.G1P.add2(prev, base), prev
+
+    _, tab = jax.lax.scan(tab_step, pcu.G1P.identity_packed(N), None, length=B)
+    want = np.asarray(tab).transpose(2, 0, 1).reshape(N * B, 72).astype(np.int32)
+    assert np.array_equal(table.numpy(), want)
 
 
 @pytest.mark.slow

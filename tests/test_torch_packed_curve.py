@@ -243,9 +243,11 @@ def test_cpu_path_launches_no_kernel():
     G1P.ladder(A, torch.ones((1, L), dtype=torch.int32))
     G1P.bucket_phase(A.T.contiguous(), None, torch.zeros(2, dtype=torch.int32),
                      torch.ones(2, dtype=torch.int32))
+    G1P.chain(A.T[:2].contiguous(), 3)
+    G1P.fold(A, [0, 3], [3, 4])
     assert all(v == 0 for v in build.LAUNCHES.values()), build.LAUNCHES
     ec = {"add2", "add_mask", "step", "scan2", "scan2b", "ladder", "ladder_team", "bucket",
-          "bucket_mixed", "wsum"}
+          "bucket_mixed", "wsum", "chain_team", "fold_team"}
     field = {"mont_mul", "mont_mul_rm_fq", "mont_mul_rm_fr", "mont_chain", "mont_chain_seq",
              "mont_chain_wide"}
     assert set(build.LAUNCHES) == field | ec | {k + "_g2" for k in ec}

@@ -1,9 +1,11 @@
 // Group operations of ec.cuh worked by a TEAM of threads per lane: the
 // schedule of a short program of them, as a table, and the work of one rank.
-// Two kernels run such tables: the LSB-first ladder of ec.cuh's
-// `lane_ladder` (ladder_team.cu: one program, the ladder step) and the
+// Four kernels run such tables: the LSB-first ladder of ec.cuh's
+// `lane_ladder` (ladder_team.cu: one program, the ladder step), the
 // weighted bucket sum of the MSM (wsum_team.cu: three programs, the scan
-// step, the same ladder step and one complete add).
+// step, the same ladder step and one complete add), and two on one complete
+// add of a pair of points (`team_pair_add`): the chain of the commit's
+// table (chain_team.cu) and the pairwise folds of every path (fold_team.cu).
 //
 // One ladder step (acc = bit ? acc + base : acc; base = 2 base) runs the
 // complete add and the complete double of ec.cuh, whose products mostly do
@@ -16,7 +18,7 @@
 // G2) in the same two (three) rounds.
 //
 // Each program is written once, below (`team_step`, `team_scan`,
-// `team_add_opd`), over the same formulas as ec_add / ec_double / fp2_mul /
+// `team_add_opd`, `team_pair_add`), over the same formulas as ec_add / ec_double / fp2_mul /
 // fp2_mul_b3 and in the same order, but on slot numbers instead of values:
 // it records a program of Fq operations, each a product or a sum /
 // difference of two slots.  `team_schedule` puts every operation in the
@@ -73,6 +75,8 @@ struct TeamTable {
 // before the ladder, and the second operand of the closing adds (the scan's
 // tot until then).
 enum { WS_ACC = 0, WS_RUN = 1, WS_BKT = 2, WS_RUN0 = 3, WS_OPD = 4, WS_NPTS = 5 };
+// The points of a chain or fold lane: the sum, then the point added to it.
+#define PAIR_NPTS 2
 // Buckets a group of the weighted sum at window bits c, and its lanes for W
 // windows (one a group).
 #define WSUM_H(c) ((c) < 5 ? 1 << (c) : 32)
@@ -85,16 +89,40 @@ enum { WS_ACC = 0, WS_RUN = 1, WS_BKT = 2, WS_RUN0 = 3, WS_OPD = 4, WS_NPTS = 5 
 // tools/exp_wsum.py (PERF.md section 6).
 #define TEAM_T(nc) ((nc) == 1 ? 16 : 32)
 #define WSUM_T(nc) ((nc) == 1 ? 16 : 32)
+// Chain and fold: threads a lane and lanes (teams) a block, chosen at the
+// paths' shapes with tools/exp_fold.py on an H100 (PERF.md section 6).  A
+// G1 add's stages hold at most 6 operations, a G2 add's 18.  A fold launch
+// of S segments gives a block FOLD_CARD_TEAMS / S teams, within
+// FOLD_TEAMS_MIN .. FOLD_TEAMS(nc): many where few segments leave the card
+// room, few for many segments (the commit's 1,024, where the idle teams of a
+// level's late rounds cost issue slots), and never more than the widest
+// segment has pairs, nor than fit the shared memory (fold_team.cu).
+#define CHAIN_T(nc) ((nc) == 1 ? 8 : 16)
+#define CHAIN_TEAMS(nc) ((nc) == 1 ? 4 : 2)
+#define FOLD_T(nc) ((nc) == 1 ? 8 : 16)
+#define FOLD_TEAMS(nc) ((nc) == 1 ? 32 : 16)
+#define FOLD_TEAMS_MIN 4
+#define FOLD_CARD_TEAMS 4096
 static_assert(32 % TEAM_T(1) == 0 && 32 % TEAM_T(2) == 0, "a team must not span warps");
 static_assert(32 % WSUM_T(1) == 0 && 32 % WSUM_T(2) == 0, "a team must not span warps");
+static_assert(32 % CHAIN_T(1) == 0 && 32 % CHAIN_T(2) == 0, "a team must not span warps");
+static_assert(32 % FOLD_T(1) == 0 && 32 % FOLD_T(2) == 0, "a team must not span warps");
 
 // A team syncs after every stage: the warp's sync on the card.  On the CPU
 // (csrc/host_check.cpp) one thread runs the ranks one after another.
+// The fold's teams sync as a block between the levels of its tree, after
+// their stores to device memory (the next level's loads are other teams').
 #ifdef __CUDACC__
 #define TEAM_SYNC() __syncwarp()
+#define TEAM_BLOCK_SYNC() \
+  do {                    \
+    __threadfence_block(); \
+    __syncthreads();      \
+  } while (0)
 #define TEAM_ONE_THREAD 0
 #else
 #define TEAM_SYNC()
+#define TEAM_BLOCK_SYNC()
 #define TEAM_ONE_THREAD 1
 #endif
 
@@ -216,30 +244,6 @@ FP_FN void team_identity(u32* region, int ns, int pt, int first, int step) {
   }
 }
 
-// point pt = column `col` of a packed (C::ROWS, L) batch
-template <class C>
-FP_FN void team_load(u32* region, int ns, int pt, const int* src, long L, long col, int first,
-                     int step) {
-  constexpr int NC = C::COMP_ROWS / (2 * FQN);
-  for (int c = first; c < 3 * NC; c += step) {
-    u32 v[FQN];
-    fp_load<Fq>(v, src, L, col, c * 2 * FQN);
-    team_slot_store(region, ns, 3 * NC * pt + c, v);
-  }
-}
-
-// column `col` of a packed (C::ROWS, L) batch = point pt
-template <class C>
-FP_FN void team_store(int* out, const u32* region, int ns, int pt, long L, long col, int first,
-                      int step) {
-  constexpr int NC = C::COMP_ROWS / (2 * FQN);
-  for (int c = first; c < 3 * NC; c += step) {
-    u32 v[FQN];
-    team_slot_load(v, region, ns, 3 * NC * pt + c);
-    fp_store<Fq>(out, L, col, c * 2 * FQN, v);
-  }
-}
-
 // point dst = point src
 template <int NC>
 FP_FN void team_copy(u32* region, int ns, int dst, int src, int first, int step) {
@@ -247,6 +251,33 @@ FP_FN void team_copy(u32* region, int ns, int dst, int src, int first, int step)
     u32 v[FQN];
     team_slot_load(v, region, ns, 3 * NC * src + c);
     team_slot_store(region, ns, 3 * NC * dst + c, v);
+  }
+}
+
+// Point pt = point p of a batch whose int k of point p lies at ptr[p sp +
+// k sr] (a packed (rows, L) batch: sp = 1, sr = L; a point-major table: sp
+// = rows, sr = 1), and back.  A member moves words first, first + step, ...
+// of the point's 3 nc 12 words (word j of component c: ints 24 c + 2 j and
+// + 1), so on a point-major row a team's stores are side by side.
+template <int NC>
+FP_FN void team_load(u32* region, int ns, int pt, const int* ptr, long sp, long sr, long p,
+                     int first, int step) {
+  for (int w = first; w < 3 * NC * FQN; w += step) {
+    const int c = w / FQN, j = w % FQN;
+    const int* q = ptr + p * sp + (long)(2 * FQN * c + 2 * j) * sr;
+    region[j * ns + 3 * NC * pt + c] = (u32)q[0] | ((u32)q[sr] << 16);
+  }
+}
+
+template <int NC>
+FP_FN void team_store(int* ptr, long sp, long sr, long p, const u32* region, int ns, int pt,
+                      int first, int step) {
+  for (int w = first; w < 3 * NC * FQN; w += step) {
+    const int c = w / FQN, j = w % FQN;
+    const u32 v = region[j * ns + 3 * NC * pt + c];
+    int* q = ptr + p * sp + (long)(2 * FQN * c + 2 * j) * sr;
+    q[0] = (int)(v & 0xffffu);
+    q[sr] = (int)(v >> 16);
   }
 }
 
@@ -266,7 +297,7 @@ FP_FN void lane_ladder_team(u32* region, int ns, const TeamCode& step, const int
   const int first = TEAM_ONE_THREAD ? 0 : rank, stride = TEAM_ONE_THREAD ? 1 : T;
   const long src = lane < L ? lane : L - 1;
   team_identity<NC>(region, ns, 0, first, stride);
-  team_load<C>(region, ns, 1, pts, L, src, first, stride);
+  team_load<NC>(region, ns, 1, pts, 1, L, src, first, stride);
   team_consts(region, ns, NF, first, stride);
   TEAM_SYNC();
   FP_NO_UNROLL
@@ -276,7 +307,7 @@ FP_FN void lane_ladder_team(u32* region, int ns, const TeamCode& step, const int
     for (int bit = 0; bit < 16; bit++)
       team_run<T>(region, ns, step, TEAM_DUMMY_OP(NF), rank, ((limb >> bit) & 1u) != 0);
   }
-  if (lane < L) team_store<C>(out, region, ns, 0, L, lane, first, stride);
+  if (lane < L) team_store<NC>(out, 1, L, lane, region, ns, 0, first, stride);
 }
 
 // The per-group weighted sum of msm.py's `_weighted_sum_packed` for lane
@@ -309,7 +340,7 @@ FP_FN void lane_wsum_team(u32* region, int ns, const TeamCode* code, const int* 
   team_identity<NC>(region, ns, WS_OPD, first, stride);
   FP_NO_UNROLL
   for (int l = h - 1; l >= 0; l--) {
-    team_load<C>(region, ns, WS_BKT, buckets, (long)W << c, col0 + l, first, stride);
+    team_load<NC>(region, ns, WS_BKT, buckets, 1, (long)W << c, col0 + l, first, stride);
     TEAM_SYNC();
     team_run<T>(region, ns, code[0], DUMMY, rank, false);
   }
@@ -324,7 +355,99 @@ FP_FN void lane_wsum_team(u32* region, int ns, const TeamCode* code, const int* 
     TEAM_SYNC();
     team_run<T>(region, ns, code[2], DUMMY, rank, false);
   }
-  if (lane < L) team_store<C>(out, region, ns, WS_ACC, L, lane, first, stride);
+  if (lane < L) team_store<NC>(out, 1, L, lane, region, ns, WS_ACC, first, stride);
+}
+
+// Lane j of the commit's table (msm.py's `_multi_msm_table`), by the table
+// `add` of `team_pair_add`: from the point-major bases (N, C::ROWS), row
+// j B + d of the point-major table out (N B, C::ROWS) is d G_j as the chain
+//   cur = O; for d = 1 .. B-1: cur = cur + G_j
+// leaves it (row j B the identity): the adds of `add2` in their order and
+// with their operands.  Lanes past N run on with clamped loads and store
+// nothing.
+template <class C, int T>
+FP_FN void lane_chain_team(u32* region, int ns, const TeamCode& add, const int* base, int* out,
+                           long N, int B, long lane, int rank) {
+  constexpr int NC = C::COMP_ROWS / (2 * FQN);
+  constexpr u32 DUMMY = TEAM_DUMMY_OP(TEAM_NFIXED(NC, PAIR_NPTS));
+  const int first = TEAM_ONE_THREAD ? 0 : rank, stride = TEAM_ONE_THREAD ? 1 : T;
+  const long src = lane < N ? lane : N - 1;
+  team_consts(region, ns, TEAM_NFIXED(NC, PAIR_NPTS), first, stride);
+  team_identity<NC>(region, ns, 0, first, stride);
+  team_load<NC>(region, ns, 1, base, C::ROWS, 1, src, first, stride);
+  TEAM_SYNC();
+  if (lane < N) team_store<NC>(out, C::ROWS, 1, lane * B, region, ns, 0, first, stride);
+  // the stores read the sum's slots, which only the last stages of the
+  // next add write, after a sync
+  FP_NO_UNROLL
+  for (int d = 1; d < B; d++) {
+    team_run<T>(region, ns, add, DUMMY, rank, false);
+    if (lane < N) team_store<NC>(out, C::ROWS, 1, lane * B + d, region, ns, 0, first, stride);
+  }
+}
+
+// Segment s of the pairwise fold (`PackedGroup.fold`): the n points of
+// columns off .. off + n - 1 of a packed (C::ROWS, L) batch are reduced as
+// `tree_reduce` does, level by level: while m > 1 points are left, point i
+// = point i + point i + half for i < half = m / 2, and an odd level carries
+// its last point to slot half.  The sum goes to column s of the packed
+// (C::ROWS, S) out.  The block's P teams (team t of them, `add` the table
+// of `team_pair_add`) take a level's pairs P at a time; the levels live in
+// two halves of the segment's scratch (2 half_max points, point-major) and
+// the block syncs between levels.  A team without a pair in its round
+// clamps its loads, runs the stages and skips the store: every thread
+// reaches every sync.  On the CPU one thread runs P = 1 team.
+template <class C, int T>
+FP_FN void block_fold_team(u32* region, int ns, const TeamCode& add, const int* a, long L,
+                           long off, int n, int* scratch, int half_max, int* out, long S, long s,
+                           int team, int P, int rank) {
+  constexpr int NC = C::COMP_ROWS / (2 * FQN);
+  constexpr u32 DUMMY = TEAM_DUMMY_OP(TEAM_NFIXED(NC, PAIR_NPTS));
+  const int first = TEAM_ONE_THREAD ? 0 : rank, stride = TEAM_ONE_THREAD ? 1 : T;
+  const int bfirst = TEAM_ONE_THREAD ? 0 : team * T + rank, bstride = TEAM_ONE_THREAD ? 1 : P * T;
+  team_consts(region, ns, TEAM_NFIXED(NC, PAIR_NPTS), first, stride);
+  const int* src = a + off;
+  long sp = 1, sr = L;
+  int m = n, buf = 0;
+  if (m == 1) {  // a segment of one point is its own sum
+    for (int k = bfirst; k < C::ROWS; k += bstride) out[k * S + s] = src[k * sr];
+    return;
+  }
+  FP_NO_UNROLL
+  while (m > 1) {
+    const int half = m >> 1;
+    int* dst;
+    long dp, dr;
+    if (m == 2) {  // the last level writes the sum
+      dst = out + s;
+      dp = 1;
+      dr = S;
+    } else {
+      dst = scratch + ((long)s * 2 + buf) * half_max * C::ROWS;
+      dp = C::ROWS;
+      dr = 1;
+    }
+    FP_NO_UNROLL
+    for (int base = 0; base < half; base += P) {
+      const int i = base + team;
+      const int ii = i < half ? i : half - 1;
+      team_load<NC>(region, ns, 0, src, sp, sr, ii, first, stride);
+      team_load<NC>(region, ns, 1, src, sp, sr, ii + half, first, stride);
+      TEAM_SYNC();
+      team_run<T>(region, ns, add, DUMMY, rank, false);
+      if (i < half) team_store<NC>(dst, dp, dr, i, region, ns, 0, first, stride);
+      TEAM_SYNC();
+    }
+    if (m & 1)
+      for (int k = bfirst; k < C::ROWS; k += bstride)
+        dst[half * dp + k * dr] = src[(long)(m - 1) * sp + k * sr];
+    TEAM_BLOCK_SYNC();
+    src = dst;
+    sp = dp;
+    sr = dr;
+    buf ^= 1;
+    m = half + (m & 1);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -514,6 +637,12 @@ static void team_add_opd(TeamProg& p) {
   team_put<TC>(p, WS_ACC, team_rec_add<TC>(p, team_pt<TC>(WS_ACC), team_pt<TC>(WS_OPD)), false);
 }
 
+// point 0 = point 0 + point 1, the pair add of the chain and the fold
+template <class TC>
+static void team_pair_add(TeamProg& p) {
+  team_put<TC>(p, 0, team_rec_add<TC>(p, team_pt<TC>(0), team_pt<TC>(1)), false);
+}
+
 // dep[i][j]: operation i must run in a later stage than operation j: it
 // reads j's value (then j < i), or it writes a fixed slot whose old value j
 // reads (j may come before or after i in the program: a program stores its
@@ -646,7 +775,13 @@ static int team_schedule(const TeamProg& p, TeamTable& t) {
 }
 
 // The programs a table can hold.
-enum { TEAM_LADDER_STEP = 0, TEAM_WSUM_SCAN = 1, TEAM_WSUM_STEP = 2, TEAM_WSUM_ADD = 3 };
+enum {
+  TEAM_LADDER_STEP = 0,
+  TEAM_WSUM_SCAN = 1,
+  TEAM_WSUM_STEP = 2,
+  TEAM_WSUM_ADD = 3,
+  TEAM_PAIR_ADD = 4
+};
 
 template <class TC>
 static void team_record(TeamProg& p, int program) {
@@ -656,20 +791,36 @@ static void team_record(TeamProg& p, int program) {
     team_scan<TC>(p);
   else if (program == TEAM_WSUM_STEP)
     team_step<TC>(p, WS_ACC, WS_RUN);
-  else
+  else if (program == TEAM_WSUM_ADD)
     team_add_opd<TC>(p);
+  else
+    team_pair_add<TC>(p);
 }
 
 // The table of `program` for the group with nc components (1: G1, 2: G2);
 // 0, or -1 if the program does not fit.
 static int team_table(TeamTable& t, int nc, int program) {
   static TeamProg p;  // large: kept off the stack
-  if ((nc != 1 && nc != 2) || program < TEAM_LADDER_STEP || program > TEAM_WSUM_ADD) return -1;
-  p.init(TEAM_NFIXED(nc, program == TEAM_LADDER_STEP ? LADDER_NPTS : WS_NPTS));
+  if ((nc != 1 && nc != 2) || program < TEAM_LADDER_STEP || program > TEAM_PAIR_ADD) return -1;
+  const int npts = program == TEAM_LADDER_STEP ? LADDER_NPTS
+                   : program == TEAM_PAIR_ADD  ? PAIR_NPTS
+                                               : WS_NPTS;
+  p.init(TEAM_NFIXED(nc, npts));
   if (nc == 1)
     team_record<TeamFq>(p, program);
   else
     team_record<TeamFq2>(p, program);
   if (p.bad) return -1;
   return team_schedule(p, t);
+}
+
+// The table of `program` for group nc, built at its first use and kept for
+// the process; null if it does not fit.
+static const TeamTable* team_table_once(int nc, int program) {
+  static TeamTable tables[TEAM_PAIR_ADD + 1][2];
+  static int state[TEAM_PAIR_ADD + 1][2];  // 0: not built, 1: built, -1: failed
+  if ((nc != 1 && nc != 2) || program < TEAM_LADDER_STEP || program > TEAM_PAIR_ADD) return nullptr;
+  int& st = state[program][nc - 1];
+  if (st == 0) st = team_table(tables[program][nc - 1], nc, program) == 0 ? 1 : -1;
+  return st == 1 ? &tables[program][nc - 1] : nullptr;
 }

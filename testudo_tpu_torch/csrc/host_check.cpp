@@ -42,7 +42,8 @@ static void host_chain(const int* a, const int* b, int* out, int G, long L, int 
   }
 }
 
-// The team kernels (ladder_team.cu, wsum_team.cu) on the CPU: the same
+// The team kernels (ladder_team.cu, wsum_team.cu, chain_team.cu,
+// fold_team.cu) on the CPU: the same
 // tables and the same lane and per-rank functions, each stage's operations
 // run one rank after another (T at a time, as the kernels' sub-rounds),
 // lane by lane.
@@ -73,6 +74,35 @@ static int host_wsum(const int* buckets, int* out, int W, int c, bool plus_one) 
   std::vector<u32> region((std::size_t)ns * FQN);
   for (long lane = 0; lane < L; lane++)
     lane_wsum_team<C, WSUM_T(NC)>(region.data(), ns, code, buckets, out, W, c, plus_one, lane, 0);
+  return 0;
+}
+
+template <class C>
+static int host_chain_team_impl(const int* base, int* out, long N, int B) {
+  constexpr int NC = C::COMP_ROWS / (2 * FQN);
+  const TeamTable* tab = team_table_once(NC, TEAM_PAIR_ADD);
+  if (!tab) return -2;
+  std::vector<u32> region((std::size_t)tab->nslots * FQN);
+  const TeamCode add = {tab->op, tab->stage, tab->nstages};
+  for (long lane = 0; lane < N; lane++)
+    lane_chain_team<C, CHAIN_T(NC)>(region.data(), tab->nslots, add, base, out, N, B, lane, 0);
+  return 0;
+}
+
+// One block of one team a segment, the segments in turn: the team takes
+// every pair of a level in order.
+template <class C>
+static int host_fold_team_impl(const int* a, long L, const int* seg, int S, int max_len,
+                               int* scratch, int* out) {
+  constexpr int NC = C::COMP_ROWS / (2 * FQN);
+  const TeamTable* tab = team_table_once(NC, TEAM_PAIR_ADD);
+  if (!tab) return -2;
+  std::vector<u32> region((std::size_t)tab->nslots * FQN);
+  const TeamCode add = {tab->op, tab->stage, tab->nstages};
+  for (long s = 0; s < S; s++)
+    block_fold_team<C, FOLD_T(NC)>(region.data(), tab->nslots, add, a, L,
+                                   seg ? seg[s] : s * max_len, seg ? seg[S + s] : max_len,
+                                   scratch, (max_len + 1) / 2, out, S, s, 0, 1, 0);
   return 0;
 }
 
@@ -180,8 +210,27 @@ int host_wsum_team(const int* buckets, int* out, int W, int c, int plus_one, int
   return -1;
 }
 
+// The commit's table of multiples, as chain_team.cu: point-major bases (N,
+// rows) -> point-major (N B, rows).
+int host_chain_team(const int* base, int* out, long N, int B, int ncomp) {
+  if (B < 1 || B > (1 << 16)) return -3;
+  if (ncomp == 1) return host_chain_team_impl<FqCoord>(base, out, N, B);
+  if (ncomp == 2) return host_chain_team_impl<Fq2Coord>(base, out, N, B);
+  return -1;
+}
+
+// The pairwise folds of S segments, as fold_team.cu (its arguments and
+// return codes).
+int host_fold_team(const int* a, long L, const int* seg, int S, int max_len, int* scratch,
+                   int* out, int ncomp) {
+  if (ncomp != 1 && ncomp != 2) return -1;
+  if (S < 1 || max_len < 1) return -3;
+  if (ncomp == 1) return host_fold_team_impl<FqCoord>(a, L, seg, S, max_len, scratch, out);
+  return host_fold_team_impl<Fq2Coord>(a, L, seg, S, max_len, scratch, out);
+}
+
 // The table of a team program (ec_team.cuh: 0 the ladder step, 1-3 the
-// weighted sum's scan step, ladder step and add) for a group: dims =
+// weighted sum's scan step, ladder step and add, 4 the pair add) for a group: dims =
 // (nops, nstages, nslots, nfixed), ops and stages as the kernels receive
 // them (room for TEAM_MAX_OPS and TEAM_MAX_STAGES words).
 int host_team_program(int ncomp, int program, u32* ops, u32* stages, int* dims) {

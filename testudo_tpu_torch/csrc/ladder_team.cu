@@ -48,27 +48,14 @@ k_ladder_team(const int* pts, const int* scal, int* out, int nl, long L, TeamTab
                          lane, threadIdx.x % T);
 }
 
-// The step's table for this group, built on the first launch and kept; null
-// if it does not fit.
-static const TeamTable* team_table_for(int ncomp) {
-  static TeamTable tables[2];
-  static int state[2] = {0, 0};  // 0: not built, 1: built, -1: failed
-  int g = ncomp - 1;
-  if (state[g] == 0) state[g] = team_table(tables[g], ncomp, TEAM_LADDER_STEP) == 0 ? 1 : -1;
-  return state[g] == 1 ? &tables[g] : nullptr;
-}
-
 template <class C>
 static int launch_team(const int* pts, const int* scal, int* out, int nl, long L,
                        const TeamTable& tab, cudaStream_t st) {
   constexpr int lanes_per_block = TPB_TEAM / TEAM_T(C::COMP_ROWS / (2 * FQN));
   const size_t smem = sizeof(u32) * ((size_t)tab.nops + tab.nstages +
                                      (size_t)lanes_per_block * tab.nslots * FQN);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(k_ladder_team<C>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const int e = smem_opt_in(k_ladder_team<C>, smem);
+  if (e) return e;
   k_ladder_team<C><<<GRID_FOR(L, lanes_per_block), TPB_TEAM, smem, st>>>(pts, scal, out, nl, L,
                                                                         tab);
   return LAUNCH_STATUS();
@@ -80,7 +67,7 @@ extern "C" int testudo_ladder_team(const int* pts, const int* scal, int* out, in
                                    int ncomp, void* stream) {
   if (ncomp != 1 && ncomp != 2) return -1;
   if (L <= 0) return 0;
-  const TeamTable* tab = team_table_for(ncomp);
+  const TeamTable* tab = team_table_once(ncomp, TEAM_LADDER_STEP);
   if (!tab) return -2;
   cudaStream_t st = (cudaStream_t)stream;
   return ncomp == 1 ? launch_team<FqCoord>(pts, scal, out, nl, L, *tab, st)

@@ -109,11 +109,8 @@ static int wsum_launch(const int* buckets, int* out, int W, int c, bool plus_one
   }
   constexpr int lanes_per_block = TPB_WSUM / T;
   const size_t smem = sizeof(u32) * ((size_t)words + (size_t)lanes_per_block * ns * FQN);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(k_wsum_team<C, T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  const int e = smem_opt_in(k_wsum_team<C, T>, smem);
+  if (e) return e;
   const long L = WSUM_LANES(W, c);
   k_wsum_team<C, T><<<GRID_FOR(L, lanes_per_block), TPB_WSUM, smem, st>>>(buckets, out, W, c,
                                                                          plus_one, ns);

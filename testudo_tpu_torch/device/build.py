@@ -30,7 +30,7 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("mont_mul.cu", "mont_mul_rm.cu", "mont_chain.cu", "ec_ops.cu", "ladder.cu",
-           "ladder_team.cu", "bucket.cu", "wsum_team.cu")
+           "ladder_team.cu", "bucket.cu", "wsum_team.cu", "chain_team.cu", "fold_team.cu")
 HEADERS = ("fp.cuh", "fp2.cuh", "ec.cuh", "ec_team.cuh", "launch.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -58,6 +58,8 @@ _SIGNATURES = {
     "ladder_team": ("testudo_ladder_team", (_P, _P, _P, _I, _L, _I, _P)),
     "bucket": ("testudo_bucket", (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _P)),
     "wsum": ("testudo_wsum_team", (_P, _P, _I, _I, _I, _I, _P)),
+    "chain_team": ("testudo_chain_team", (_P, _P, _L, _I, _I, _P)),
+    "fold_team": ("testudo_fold_team", (_P, _L, _P, _I, _I, _P, _P, _I, _P)),
 }
 # C functions that launch nothing and take no stream: (symbol, argtypes).
 _QUERIES = {
@@ -71,7 +73,7 @@ _QUERIES = {
 # row-major Montgomery product is counted per field, the grouped chain per
 # variant.
 EC_KERNELS = ("add2", "add_mask", "step", "scan2", "scan2b", "ladder", "ladder_team",
-              "bucket", "bucket_mixed", "wsum")
+              "bucket", "bucket_mixed", "wsum", "chain_team", "fold_team")
 FIELD_KERNELS = ("mont_mul", "mont_mul_rm_fq", "mont_mul_rm_fr", "mont_chain",
                  "mont_chain_seq", "mont_chain_wide")
 LAUNCHES = {name: 0 for name in (

@@ -21,9 +21,11 @@ Algorithm (signed c-bit windows by default):
   5. weighted bucket sum per window: per group of 32 buckets a suffix scan
      (the reference's `scan2b`) and a double-and-add chain for the group
      offset (its `step`), all in ONE launch of the team kernel
-     (`PackedGroup.weighted_sum`), then pairwise folds (`add2`);
+     (`PackedGroup.weighted_sum`), then the pairwise folds of every window's
+     groups in ONE launch (`PackedGroup.fold`);
   6. Horner combine of the window sums: one ladder launch by 2^(c w) and a
-     tree reduction; the result goes to the host as an affine point.
+     tree reduction (one fold launch); the result goes to the host as an
+     affine point.
 
 The stage boundaries, segment plan and association of the sums follow the
 JAX package, so intermediate bucket and window sums agree with it limb for
@@ -299,19 +301,11 @@ def _weighted_sum_packed(Gp: PackedGroup, buckets, W: int, c: int,
     """sum_j w(j)*B_j per window on packed buckets (rows, W*2^c) ->
     (rows, W); w(j) = j, or j+1 when plus_one (signed windows store
     magnitude m at slot m-1).  The per-group sums take one `weighted_sum`
-    launch; the groups of a window are then folded pairwise."""
+    launch; the groups of each window are then folded pairwise, all windows
+    in one `fold` launch."""
     res = Gp.weighted_sum(buckets.contiguous(), W, c, plus_one)
     groups = res.shape[1] // W
-
-    # fold groups per window
-    res = res.reshape(Gp.rows, W, groups)
-    while groups > 1:
-        half = groups // 2
-        a = res[:, :, :half].reshape(Gp.rows, W * half).contiguous()
-        b = res[:, :, half:].reshape(Gp.rows, W * half).contiguous()
-        res = Gp.add2(a, b).reshape(Gp.rows, W, half)
-        groups = half
-    return res.reshape(Gp.rows, W)
+    return Gp.fold(res, np.arange(W) * groups, np.full(W, groups))
 
 
 def _drop_mag0(buckets, rows: int, W: int, B: int):
@@ -504,14 +498,14 @@ def _group(group_name: str):
 
 
 def _ladder_parts(Gp: PackedGroup, to_affine, points, scal: torch.Tensor, bounds):
-    """One ladder launch over all lanes, then one tree reduction per
-    [lo, hi) part; returns the parts' host affine sums."""
+    """One ladder launch over all lanes, then one fold launch that reduces
+    every non-empty [lo, hi) part as `tree_reduce` would; returns the parts'
+    host affine sums (None for an empty part: the identity)."""
     acc = Gp.ladder(Gp.pack(points), scal.T.contiguous())
-    return [
-        to_affine(Gp.unpack(Gp.tree_reduce(acc[:, lo:hi].contiguous())))[0]
-        if hi > lo else None  # an empty part sums to the identity
-        for lo, hi in bounds
-    ]
+    live = [(lo, hi) for lo, hi in bounds if hi > lo]
+    sums = iter(to_affine(Gp.unpack(Gp.fold(acc, [lo for lo, _ in live],
+                                             [hi - lo for lo, hi in live]))) if live else [])
+    return [next(sums) if hi > lo else None for lo, hi in bounds]
 
 
 def msm_segmented(group_name: str, points, scalars, n_segments: int,
@@ -568,10 +562,11 @@ def msm_multi_small(group_name: str, parts, device=torch.device("cuda")):
 #
 # sqrt-PST commits K column polynomials against ONE basis of N points.
 # Pippenger per column would sort and bucket K times over few points.
-# Instead tab[j * B + d] = d * G_j for d < 2^c is built once (B - 1 fused adds
-# over N lanes, shared by all columns); the sum of (column k, window w) is
-# then a straight run of N general adds over gathered table rows: W * N adds
-# per column, no sort, and a digit 0 lands on the stored identity row.
+# Instead tab[j * B + d] = d * G_j for d < 2^c is built once (one chain
+# launch, B - 1 adds a base, shared by all columns); the sum of (column k,
+# window w) is then a straight run of N general adds over gathered table
+# rows: W * N adds per column, no sort, and a digit 0 lands on the stored
+# identity row.
 
 
 def _pick_window(n: int) -> int:
@@ -584,37 +579,19 @@ def _pick_window(n: int) -> int:
 
 def _multi_msm_small(Gp: PackedGroup, points, scal: torch.Tensor):
     """K MSMs over N <= 64 shared points: ONE ladder launch over K * N
-    lanes, then log2 N folds of every column at once."""
+    lanes, then ONE fold launch over the K columns' segments of N."""
     K, N, nl = scal.shape
     base = Gp.pack(points)  # (rows, N)
     acc = Gp.ladder(base.repeat(1, K), scal.reshape(K * N, nl).T.contiguous())
-    acc = acc.reshape(Gp.rows, K, N)
-    while N > 1:
-        half = N // 2
-        a = acc[:, :, :half].reshape(Gp.rows, K * half).contiguous()
-        b = acc[:, :, half : 2 * half].reshape(Gp.rows, K * half).contiguous()
-        s = Gp.add2(a, b).reshape(Gp.rows, K, half)
-        if N % 2:
-            s = torch.cat([s, acc[:, :, -1:]], dim=2)
-            half += 1
-        acc, N = s, half
-    return acc.reshape(Gp.rows, K)
+    return Gp.fold(acc, np.arange(K) * N, np.full(K, N))
 
 
 def _multi_msm_table(Gp: PackedGroup, ptcat: torch.Tensor, c: int) -> torch.Tensor:
     """(N, rows) point-major bases -> (N * B, rows) table, row j * B + d =
-    d * G_j: B - 1 `add2` launches over N lanes; row d = 0 is the identity
+    d * G_j, in ONE launch (`PackedGroup.chain`); row d = 0 is the identity
     and every other row the running sum (identity + G + ... + G), the
-    projective representative the JAX package's scan stores."""
-    N = ptcat.shape[0]
-    B = 1 << c
-    base = ptcat.T.contiguous()  # (rows, N)
-    cur = Gp.identity_packed(N, device=ptcat.device)
-    tab = [cur]
-    for _ in range(B - 1):
-        cur = Gp.add2(cur, base)
-        tab.append(cur)
-    return torch.stack(tab, dim=0).permute(2, 0, 1).reshape(N * B, Gp.rows).contiguous()
+    projective representative the JAX package's scan of `add2` stores."""
+    return Gp.chain(ptcat.contiguous(), 1 << c)
 
 
 def _multi_msm_index(scal: torch.Tensor, c: int):
@@ -645,7 +622,8 @@ def _multi_msm_windows(Gp: PackedGroup, table: torch.Tensor, scal: torch.Tensor,
 
 def _multi_horner_packed(Gp: PackedGroup, wins: torch.Tensor, K: int, c: int) -> torch.Tensor:
     """wins (rows, K * W), lanes k-major -> (rows, K): one ladder launch by
-    2^(c w), then folds over W (`acc[..., :half] + acc[..., half:]`)."""
+    2^(c w), then ONE fold launch over the K columns' segments of W
+    (`acc[..., :half] + acc[..., half:]`)."""
     W = wins.shape[1] // K
     if W & (W - 1):
         raise ValueError(f"multi-MSM: the window count {W} must be a power of two")
@@ -653,14 +631,8 @@ def _multi_horner_packed(Gp: PackedGroup, wins: torch.Tensor, K: int, c: int) ->
     for w in range(W):
         pows[w, (c * w) // 16] = 1 << ((c * w) % 16)
     scal = torch.as_tensor(np.tile(pows, (K, 1)).T.copy(), device=wins.device)
-    acc = Gp.ladder(wins.contiguous(), scal).reshape(Gp.rows, K, W)
-    while W > 1:
-        half = W // 2
-        a = acc[:, :, :half].reshape(Gp.rows, K * half).contiguous()
-        b = acc[:, :, half:].reshape(Gp.rows, K * half).contiguous()
-        acc = Gp.add2(a, b).reshape(Gp.rows, K, half)
-        W = half
-    return acc.reshape(Gp.rows, K)
+    acc = Gp.ladder(wins.contiguous(), scal)
+    return Gp.fold(acc, np.arange(K) * W, np.full(K, W))
 
 
 def _multi_msm_packed(Gp: PackedGroup, points, scal: torch.Tensor, c: int = 8,

@@ -9,8 +9,8 @@ along L.  The row of coordinate c, component comp, limb k is
 
 Every fused op has a wrapper that, on CUDA tensors, checks its arguments,
 launches the hand-written kernel (csrc/ec_ops.cu, ladder_team.cu or
-ladder.cu by width, bucket.cu, wsum_team.cu) on the current stream and
-raises on failure;
+ladder.cu by width, bucket.cu, wsum_team.cu, chain_team.cu, fold_team.cu)
+on the current stream and raises on failure;
 on CPU tensors it runs the plain
 PyTorch version defined beside it (`*_plain`), which evaluates the same
 RCB16 formulas (device/curve.py) in int64 tensor ops.  The plain versions
@@ -19,10 +19,12 @@ held against its plain version on the card; they never launch a kernel.
 
 What differs from the JAX package: `ladder` is one launch (not one `step`
 launch per bit); so is `weighted_sum` (not a `scan2b` launch per bucket of
-a group and a `step` launch per weight bit); `bucket_phase` gathers by index inside the kernel from a
-point-major table instead of streaming a materialised run tensor, and runs
-its lanes longest first on a grid that stays resident; masks are
-one int per lane; `add_mask` also takes ONE point for all lanes (a single
+a group and a `step` launch per weight bit); so are `chain`, the commit's
+table (not an `add2` launch per multiple), and `fold`, every tree of
+pairwise sums of a batch (not an `add2` launch per level); `bucket_phase`
+gathers by index inside the kernel from a point-major table instead of
+streaming a materialised run tensor, and runs its lanes longest first on a
+grid that stays resident; masks are one int per lane; `add_mask` also takes ONE point for all lanes (a single
 column: the fixed-base ladder's table entry); no lane padding to tiles
 anywhere.
 """
@@ -420,21 +422,127 @@ class PackedGroup:
                          self.ncomp, counted_as=self._counter("wsum"))
         return out
 
-    # -- reductions built on add2 ------------------------------------------------
+    # -- the commit's table: a chain of adds per base ------------------------------
+
+    def chain_steps(self, ptcat: torch.Tensor, B: int, add2) -> torch.Tensor:
+        """The table as a sequence of `add2` calls (the one given: the plain
+        version, or the kernel, one launch per step) over all N bases, then
+        a stack and transpose into point-major rows."""
+        cur = self.identity_packed(ptcat.shape[0], device=ptcat.device)
+        base = ptcat.T.contiguous()  # (rows, N)
+        tab = [cur]
+        for _ in range(B - 1):
+            cur = add2(cur, base)
+            tab.append(cur)
+        return torch.stack(tab, dim=0).permute(2, 0, 1).reshape(-1, self.rows).contiguous()
+
+    def chain_plain(self, ptcat, B: int):
+        return self.chain_steps(ptcat, B, self.add2_plain)
+
+    def chain(self, ptcat: torch.Tensor, B: int) -> torch.Tensor:
+        """Point-major bases (N, rows) -> point-major table (N B, rows) whose
+        row j B + d is d G_j as the chain cur = O, cur = cur + G_j leaves it
+        (row j B the identity): the adds of `chain_steps` in their order.
+        On the card one launch of the team kernel (csrc/chain_team.cu)."""
+        if ptcat.dim() != 2 or ptcat.shape[1] != self.rows:
+            raise ValueError(f"chain: bases must be (N, {self.rows}), got {tuple(ptcat.shape)}")
+        if not 1 <= B <= 1 << 16:
+            raise ValueError(f"chain: B = {B}, need 1 <= B <= 2^16")
+        if not self._on_cuda(ptcat):
+            return self.chain_plain(ptcat, B)
+        build.require_cuda_int32("chain", ptcat=ptcat)
+        N = ptcat.shape[0]
+        out = torch.empty((N * B, self.rows), dtype=torch.int32, device=ptcat.device)
+        with torch.cuda.device(ptcat.device):
+            build.launch("chain_team", ptcat.data_ptr(), out.data_ptr(), N, B, self.ncomp,
+                         counted_as=self._counter("chain_team"))
+        return out
+
+    # -- pairwise folds ---------------------------------------------------------------
+
+    @staticmethod
+    def _segments(L: int, seg_off, seg_len):
+        """Segment offsets and lengths as int64 numpy arrays, checked: at
+        least one segment, each of >= 1 of the L columns."""
+        off = np.asarray(seg_off, dtype=np.int64).reshape(-1)
+        ln = np.asarray(seg_len, dtype=np.int64).reshape(-1)
+        if off.size == 0 or off.shape != ln.shape:
+            raise ValueError("fold: need one offset and one length for each of >= 1 segments")
+        if (ln < 1).any() or (off < 0).any() or (off + ln > L).any():
+            raise ValueError(f"fold: every segment needs >= 1 columns inside the {L} given")
+        return off, ln
+
+    def fold_steps(self, a: torch.Tensor, seg_off, seg_len, add2) -> torch.Tensor:
+        """The folds as a sequence of `add2` calls (the one given: the plain
+        version, or the kernel, one launch per level), segments of one
+        length batched together.  Segment s, the columns seg_off[s] ..
+        seg_off[s] + seg_len[s] - 1 of a, halves as `tree_reduce` always
+        has: point i + point i + half for i < half, an odd level's last
+        point carried to slot half.  Returns (rows, S)."""
+        off, ln = self._segments(a.shape[1], seg_off, seg_len)
+        out = torch.empty((self.rows, ln.size), dtype=a.dtype, device=a.device)
+        for n in np.unique(ln):
+            ids = np.flatnonzero(ln == n)
+            cols = torch.as_tensor(off[ids][:, None] + np.arange(n), device=a.device)
+            x = a[:, cols]  # (rows, len(ids), n)
+            m = int(n)
+            while m > 1:
+                half = m // 2
+                lo = x[:, :, :half].reshape(self.rows, -1).contiguous()
+                hi = x[:, :, half : 2 * half].reshape(self.rows, -1).contiguous()
+                y = add2(lo, hi).reshape(self.rows, len(ids), half)
+                if m % 2:
+                    y = torch.cat([y, x[:, :, m - 1 : m]], dim=2)
+                    half += 1
+                x, m = y, half
+            out[:, torch.as_tensor(ids, device=a.device)] = x[:, :, 0]
+        return out
+
+    def fold_plain(self, a, seg_off, seg_len):
+        return self.fold_steps(a, seg_off, seg_len, self.add2_plain)
+
+    @staticmethod
+    def uniform_segments(seg_off, seg_len) -> bool:
+        """Whether the segments are S of one length n from column 0 on
+        (segment s at column s n): the fold kernel then takes no table."""
+        off, ln = np.asarray(seg_off), np.asarray(seg_len)
+        return bool((ln == ln[0]).all() and (off == np.arange(ln.size) * ln[0]).all())
+
+    def fold(self, a: torch.Tensor, seg_off, seg_len) -> torch.Tensor:
+        """Pairwise sums of S segments of a packed (rows, L) batch -> (rows,
+        S): segment s is the seg_len[s] >= 1 columns from seg_off[s] (host
+        integers: sequences or numpy arrays), folded as `fold_steps` says.
+        On the card one launch of the team kernel (csrc/fold_team.cu, a
+        block a segment), with the plain version's limbs; uniform segments
+        (`uniform_segments`) reach it as their count and length, others as
+        a table copied to the card."""
+        L = self._check_points("fold", a)
+        off, ln = self._segments(L, seg_off, seg_len)
+        if not self._on_cuda(a):
+            return self.fold_plain(a, off, ln)
+        build.require_cuda_int32("fold", a=a)
+        max_len = int(ln.max())
+        S = ln.size
+        half_max = (max_len + 1) // 2
+        dev = a.device
+        with torch.cuda.device(dev):
+            seg, seg_ptr = None, None  # uniform: the kernel computes the segments
+            if not self.uniform_segments(off, ln):
+                # pinned and asynchronous: the copy does not wait for the queue
+                seg = torch.from_numpy(np.stack([off, ln]).astype(np.int32)).pin_memory()
+                seg = seg.to(dev, non_blocking=True)
+                seg_ptr = seg.data_ptr()
+            scratch = torch.empty(S * 2 * half_max * self.rows if max_len > 2 else 1,
+                                  dtype=torch.int32, device=dev)
+            out = torch.empty((self.rows, S), dtype=torch.int32, device=dev)
+            build.launch("fold_team", a.data_ptr(), L, seg_ptr, S, max_len,
+                         scratch.data_ptr(), out.data_ptr(), self.ncomp,
+                         counted_as=self._counter("fold_team"))
+        return out
 
     def tree_reduce(self, a: torch.Tensor) -> torch.Tensor:
-        """Fold (rows, L) down to (rows, 1) with log2(L) fused adds."""
-        L = a.shape[1]
-        while L > 1:
-            half = L // 2
-            s = self.add2(a[:, :half].contiguous(), a[:, half : 2 * half].contiguous())
-            if L % 2:
-                s = torch.cat([s, a[:, -1:]], dim=1)
-                half += 1
-            a = s
-            L = half
-        return a
-
+        """Fold (rows, L) down to (rows, 1): one segment of `fold`."""
+        return self.fold(a, [0], [a.shape[1]])
 
 G1P = PackedGroup("g1", FQ, 1, None)
 G2P = PackedGroup("g2", FQ, 2, FQ.to_mont_int(tc._B3_K))

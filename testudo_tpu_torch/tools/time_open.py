@@ -1,13 +1,17 @@
-"""How much of a sqrt-PST open at nv = 20 is the ladder: device time of every
-ladder launch of warm opens, beside the open's wall clock and the warm commit.
+"""How much of a sqrt-PST open at nv = 20 is the ladder and the adds: device
+time of every ladder launch and every tree of pairwise adds of warm opens,
+beside the open's wall clock and the warm commit.
 
 An open launches the scalar-mul ladder 33 times (the MIPP cross MSMs and
-folds, the PST opens), between host pairings and transcript work.  This
-tool wraps `PackedGroup.ladder` with CUDA events for the length of each
-open and sums, per group, the device time between the events around each
-launch (the kernel, and whatever wait for the host falls inside: the
-wrapper's own few microseconds).  Run on a machine with the GPU, from the
-root of a checkout:
+folds, the PST opens), each followed by trees of pairwise adds, between
+host pairings and transcript work.  This tool wraps `PackedGroup.ladder`,
+`PackedGroup.fold` and `PackedGroup.add2` with CUDA events for the length
+of each open and sums, per group, the device time between the events around
+each call (the kernels, and whatever wait for the host falls inside: the
+wrapper's own few microseconds).  Folds and `add2` calls are summed
+together as "adds": a checkout from before the fold kernel launches `add2`
+once a level where this one launches one fold a tree.  Run on a machine with the GPU, from the root of a
+checkout:
 
     python3 -m testudo_tpu_torch.tools.time_open
 
@@ -38,30 +42,42 @@ from testudo_tpu_torch.poly import dense
 from testudo_tpu_torch.poseidon.transcript import PoseidonTranscript, fq_params
 
 
-def ladder_device_ms(fn):
-    """(fn(), {group: [ms, launches]}): device milliseconds between CUDA
-    events around every `PackedGroup.ladder` call that fn makes."""
+# what is timed: `PackedGroup` methods by kind (a method the checkout lacks
+# is left out)
+KINDS = {"ladder": ("ladder",), "adds": ("fold", "add2")}
+
+
+def device_ms(fn, kinds=KINDS):
+    """(fn(), {kind: {group: [ms, calls]}}): device milliseconds between CUDA
+    events around every call of the `PackedGroup` methods of each kind that
+    fn makes."""
     cls = packed_curve.PackedGroup
-    orig = cls.ladder
-    marks = []
+    marks, saved = [], {}
 
-    def timed(self, pts, scal_rows):
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        out = orig(self, pts, scal_rows)
-        e1.record()
-        marks.append((self.name, e0, e1))
-        return out
+    def wrap(kind, orig):
+        def timed(self, *args):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = orig(self, *args)
+            e1.record()
+            marks.append((kind, self.name, e0, e1))
+            return out
+        return timed
 
-    cls.ladder = timed
+    for kind, methods in kinds.items():
+        for m in methods:
+            if hasattr(cls, m):
+                saved[m] = getattr(cls, m)
+                setattr(cls, m, wrap(kind, saved[m]))
     try:
         out = fn()
     finally:
-        cls.ladder = orig
+        for m, orig in saved.items():
+            setattr(cls, m, orig)
     torch.cuda.synchronize()
-    sums = {}
-    for name, e0, e1 in marks:
-        tot = sums.setdefault(name, [0.0, 0])
+    sums = {kind: {} for kind in kinds}
+    for kind, name, e0, e1 in marks:
+        tot = sums[kind].setdefault(name, [0.0, 0])
         tot[0] += e0.elapsed_time(e1)
         tot[1] += 1
     return out, sums
@@ -99,11 +115,14 @@ def run(nv: int = 20, opens: int = 3, device=torch.device("cuda")) -> dict:
     first, open_cold = timed_call(do_open)
     rows = []
     for _ in range(opens):
-        (out, secs), ladders = ladder_device_ms(lambda: timed_call(do_open))
+        (out, secs), timed = device_ms(lambda: timed_call(do_open))
         if out[0] != first[0]:
             raise AssertionError("a warm open differs from the first")
-        rows.append({"open_s": secs, "ladder_ms": {g: v[0] for g, v in ladders.items()},
-                     "ladder_launches": {g: v[1] for g, v in ladders.items()}})
+        row = {"open_s": secs}
+        for kind, sums in timed.items():
+            row[kind + "_ms"] = {g: v[0] for g, v in sums.items()}
+            row[kind + "_calls"] = {g: v[1] for g, v in sums.items()}
+        rows.append(row)
     return {"nv": nv, "device": torch.cuda.get_device_name(0),
             "commit_warm_s": commits, "commit_median_s": statistics.median(commits),
             "open_cold_s": open_cold, "opens": rows}
