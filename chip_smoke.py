@@ -13,7 +13,7 @@ testudo_tpu_torch/csrc/, then
      one warm call at the largest size; `msm_g2(affine=False)` at 2^16 on
      projective bases with identity rows among them, exact;
   3. drives the rest of the group layer: `fixed_base_mul_g1/g2` on 2^16
-     scalars (256 `add_mask` launches each), `scalar_mul_batch_g2`,
+     scalars (one fixed-base launch each, no `add_mask`), `scalar_mul_batch_g2`,
      `msm_segmented` and `msm_multi_small` for both groups, each against the
      host, and the field path (`curve.g1_add` / `curve.g2_add` through the
      Montgomery kernel) against the fused add kernels;
@@ -24,9 +24,11 @@ testudo_tpu_torch/csrc/, then
      equals a host evaluation in Python ints, T equals the multi-pairing of
      the affine column commitments, spot columns equal host MSMs, the proof
      has its hardware-independent size; commit, open and verify are timed
-     with their parts, and the launches of one warm commit, open and verify
-     are counted, and the device time of one open's ladder launches and of
-     its trees of adds;
+     with their parts, and the launches of the cold setup, one warm commit,
+     open and verify are counted, and the device time of one open's ladder
+     launches and of its trees of adds; the cold setup at nv = 20 is split
+     into its host doublings, scalar conversion, fixed-base device time
+     (CUDA events) and host mask muls;
   5. runs the chained-product harness (tools/exp_montmul.py), which
      measures the card's Montgomery products per second;
   6. calls every kernel's wrapper at the shapes the main paths gave it and
@@ -48,11 +50,15 @@ testudo_tpu_torch/csrc/, then
      x 255 adds and the fold kernel (every tree of pairwise adds) at each
      path's segments plus one of ODD points, against their plain versions
      (the `add2_plain` sequences) and timed beside the `add2` launches they
-     replaced;
+     replaced; the fixed-base kernels (the team kernel at the setup's widths,
+     one thread per lane at wide ones) at 2,047 + ODD and 2^16 + ODD lanes
+     with edge scalars (0, 1, r - 1, 2, 2^252), against the plain sequence of
+     masked adds (on a stride of the lanes at 2^16), timed beside the 256
+     `add_mask` launches they replaced, `bound_ms` and `latency_bound_ms`;
   7. checks a small MSM against the host oracle;
   8. prints one JSON line {"kernels": [...]} (each row's `launches` is the
      sum of `launches_by_path`, the kernel's count on each driven path: msm,
-     fixed_base, field, commit, open, verify, harness; the run fails if a
+     fixed_base, field, setup, commit, open, verify, harness; the run fails if a
      kernel was not launched on a path it belongs to) and, last,
      {"ok": true, "device": {...}}.
 
@@ -120,6 +126,7 @@ _REPLACES = {
     "scan2": _EC + ":437", "scan2b": _EC + ":450", "bucket": _EC + ":461",
     "bucket_mixed": _EC + ":509", "ladder": _EC + ":733", "ladder_team": _EC + ":733",
     "wsum": _EC + ":450", "chain_team": _EC + ":415", "fold_team": _EC + ":415",
+    "fixed_base": _EC + ":403", "fixed_base_one": _EC + ":403",
 }
 _CSRC = "testudo_tpu_torch/csrc/"
 _SOURCE = {
@@ -130,7 +137,8 @@ _SOURCE = {
     "step": "ec_ops.cu", "scan2": "ec_ops.cu", "scan2b": "ec_ops.cu",
     "ladder": "ladder.cu", "ladder_team": "ladder_team.cu", "bucket": "bucket.cu",
     "bucket_mixed": "bucket.cu", "wsum": "wsum_team.cu", "chain_team": "chain_team.cu",
-    "fold_team": "fold_team.cu",
+    "fold_team": "fold_team.cu", "fixed_base": "fixed_base_team.cu",
+    "fixed_base_one": "fixed_base_team.cu",
 }
 # proof bytes (PST opening + MIPP proof) of sqrt-PST per number of variables:
 # counts of group and field elements, the same on any hardware
@@ -141,7 +149,10 @@ PROOF_BYTES = {10: 7136, 14: 9920, 20: 14096}
 # launched in the kernel phase only.  So are `scan2b` and `step`, whose work
 # on the paths the weighted-sum kernel does in one launch; `add2`, whose
 # work on the paths the chain kernel (the commit's table) and the fold
-# kernel (every tree of pairwise sums) do in one launch each; the G2 chain
+# kernel (every tree of pairwise sums) do in one launch each; `add_mask`,
+# whose 256 launches a fixed-base multiplication the fixed-base kernels do in
+# one (the team kernel at the setup's widths, one thread per lane at the
+# fixed-base phase's 2^16: FIXED_TEAM_MAX_LANES); the G2 chain
 # (the commit is over G1 only); and the one-thread G2 ladder: every G2
 # ladder of the paths is at most TEAM_LADDER_MAX_LANES wide (the MSM's
 # 20-lane Horner, the open's folds), so the team kernel takes it; the
@@ -149,13 +160,15 @@ PROOF_BYTES = {10: 7136, 14: 9920, 20: 14096}
 # the kernel phase only must show no launch on any path.
 _MSM_KERNELS = ("fold_team", "wsum", "ladder_team", "bucket", "bucket_mixed")
 _KERNEL_PHASE_ONLY = ("mont_mul", "scan2", "scan2_g2", "ladder_g2", "step", "step_g2", "scan2b",
-                      "scan2b_g2", "add2", "add2_g2", "chain_team_g2")
+                      "scan2b_g2", "add2", "add2_g2", "chain_team_g2", "add_mask",
+                      "add_mask_g2")
 MUST_LAUNCH = {
     **{k: () for k in _KERNEL_PHASE_ONLY},
     "mont_mul_rm_fq": ("field", "open"),
     "mont_mul_rm_fr": ("commit", "open"),
     "mont_chain": ("harness",), "mont_chain_seq": ("harness",), "mont_chain_wide": ("harness",),
-    "add_mask": ("fixed_base",), "add_mask_g2": ("fixed_base",),
+    "fixed_base": ("setup",), "fixed_base_g2": ("setup",),
+    "fixed_base_one": ("fixed_base",), "fixed_base_one_g2": ("fixed_base",),
     **{k: ("msm",) for k in _MSM_KERNELS},
     **{k + "_g2": ("msm",) for k in _MSM_KERNELS},
 }
@@ -510,13 +523,13 @@ def phase_field_path(dev, grp, proj):
 
 def phase_fixed_base(dev, grp):
     """fixed_base_mul on 2^16 scalars (0, 1, r-1 among them): spot lanes
-    against the host; one add_mask launch per scalar bit."""
+    against the host; one fixed-base launch, no add_mask."""
     N = 1 << 16
     scal_np = random_scalars(N, 13)
     edge = [0, 1, R - 1]
     scal_np[: len(edge)] = FR.to_limbs(edge)
     base = grp.mul(grp.gen(), 0xC0FFEE)
-    name = counter(grp, "add_mask")
+    name = counter(grp, grp.Gp.fixed_base_kernel(N))
     build.reset_launches()
     t0 = time.perf_counter()
     out = grp.fixed(torch.as_tensor(scal_np, device=dev), base, device=dev)
@@ -524,8 +537,9 @@ def phase_fixed_base(dev, grp):
     secs = time.perf_counter() - t0
     snap = dict(build.LAUNCHES)
     launches = snap[name]
-    if launches != 16 * FR.nlimbs:
-        raise AssertionError(f"fixed_base_mul_{grp.name}: {launches} add_mask launches, expected 256")
+    if launches != 1 or snap[counter(grp, "add_mask")] != 0:
+        raise AssertionError(f"fixed_base_mul_{grp.name}: {launches} {name} launches and "
+                             f"{snap[counter(grp, 'add_mask')]} add_mask, expected 1 and 0")
     lanes = [0, 1, 2, 3, 777, N - 1]
     spot = msm._map_coords(lambda c: c[lanes], out)
     want = [grp.mul(base, k) for k in FR.from_limbs(scal_np[lanes])]
@@ -601,7 +615,12 @@ def phase_sqrt_pst(dev, nv: int, full: bool):
     pf = cprof.bls12_377(dev)
     m_row = nv // 2 + nv % 2
     m_col = nv // 2
-    (ck, vk), setup_ms = timed_once(lambda: pst.setup(m_row, profile=pf))
+    build.reset_launches()
+    with timer.record() as rec:  # the cold setup, its parts and the fixed-base device time
+        ((ck, vk), setup_ms), fb = time_open.device_ms(
+            lambda: timed_once(lambda: pst.setup(m_row, profile=pf)), {"fixed_base": ("fixed_base",)})
+    counts_setup = dict(build.LAUNCHES)
+    setup_parts = _split(rec)
     limbs = random_scalars(1 << nv, 7)
     table = dense._to_mont_dev(torch.as_tensor(limbs, device=dev))
     prng = random.Random(7)
@@ -660,6 +679,10 @@ def phase_sqrt_pst(dev, nv: int, full: bool):
         f"open {open_cold / 1e3:.3f} s, verify {verify_cold / 1e3:.3f} s")
     if not full:
         return None
+    fb_each = ", ".join(f"{g} {ms:.3f} ms over {n} calls"
+                        for g, (ms, n) in sorted(fb["fixed_base"].items()))
+    say(f"  setup parts, cold (s, host clock: {json.dumps(setup_parts)}); fixed-base device time "
+        f"(CUDA events around each call): {fb_each}; the whole setup {setup_ms / 1e3:.3f} s")
 
     # warm timings and their parts; launches of the last warm commit, one
     # open and one verify
@@ -721,12 +744,14 @@ def phase_sqrt_pst(dev, nv: int, full: bool):
     say(f"  multi-MSM stages (ms, synchronised; K={canon.shape[0]} N={canon.shape[1]} c={msm._pick_window(canon.shape[1])}): "
         f"{json.dumps(stages)}")
     nz = lambda d: {k: n for k, n in d.items() if n}
+    say(f"  launches, cold setup: {json.dumps(nz(counts_setup))}")
     say(f"  launches, one warm commit: {json.dumps(nz(counts_commit))}")
     say(f"  launches, one open: {json.dumps(nz(counts_open))}")
     say(f"  launches, one verify: {json.dumps(nz(counts_verify))}")
     if counts_commit["mont_mul_rm_fr"] == 0 or counts_open["mont_mul_rm_fr"] == 0:
         raise AssertionError("sqrt-PST did not launch the row-major Montgomery kernel")
-    by_path = {"commit": counts_commit, "open": counts_open, "verify": counts_verify}
+    by_path = {"setup": counts_setup, "commit": counts_commit, "open": counts_open,
+               "verify": counts_verify}
     return by_path, canon, ck.powers_of_g[level]
 
 
@@ -1004,7 +1029,8 @@ def ptxas_of(kernel: str, ncomp: int) -> list:
     """The compiler's resource lines of a kernel template's instantiations
     for the group (build report)."""
     coord = "FqCoord" if ncomp == 1 else "Fq2Coord"
-    return [ln for ln in build.build_report()["ptxas"] if ln.startswith(f"{kernel}<{coord},")]
+    return [ln for ln in build.build_report()["ptxas"]
+            if ln.startswith((f"{kernel}<{coord},", f"{kernel}<{coord}>"))]
 
 
 def fold_shapes(ncomp: int, quick: bool) -> dict:
@@ -1112,6 +1138,68 @@ def kernels_chain_fold(dev, grp, rep: Report, proj, rounds: int, lat_us: float, 
     rep.rows[nm("fold_team")].update({
         "replaces_also": [_EC + ":717", "testudo_tpu/tpu/msm.py:712", "testudo_tpu/tpu/msm.py:1100"],
         "latency_us_per_product": lat_us, "ptxas": ptxas_of("k_fold_team", Gp.ncomp), **extra})
+
+
+def fixed_base_inputs(dev, grp, N: int, seed: int):
+    """(packed table of the 256 doublings of a base, (N, 16) canonical scalar
+    limbs, the scalars): 252-bit random ones behind 0, 1, r - 1, 2 and
+    2^252 (the top bit a canonical scalar can have)."""
+    table = tc.fixed_base_table(grp.Gp, grp.mul(grp.gen(), 0xC0FFEE), 16 * FR.nlimbs, dev)
+    scal = random_scalars(N, seed)
+    edge = [0, 1, R - 1, 2, 1 << 252][:N]
+    scal[: len(edge)] = FR.to_limbs(edge)
+    return table, torch.as_tensor(scal, device=dev), [int(k) for k in FR.from_limbs(scal)]
+
+
+def kernels_fixed_base(dev, grp, rep: Report, rounds: int, lat_us: float, quick: bool):
+    """The fixed-base kernels of one group: the team kernel (`fixed_base`)
+    at the setup's 2,047 lanes (nv = 20) and one thread per lane
+    (`fixed_base_one`) at the fixed-base phase's 2^16.  Each is compared with
+    the plain version (256 `add_mask_plain` calls) at its width + ODD lanes,
+    edge scalars first (the 2^16 one on a stride of the lanes: a lane's
+    result depends on its own scalar only), and with the other form; each is
+    timed at its width beside the other form and the sequence of 256
+    `add_mask` launches it replaced.  bound_ms: the set bits' complete adds
+    against the products' multiply-adds (the `add_mask` row's convention);
+    latency_bound_ms: the largest popcount of a lane's scalar times the
+    add's rounds of dependent products times one product's latency, and for
+    a form that runs all 256 steps the same with 256."""
+    Gp = grp.Gp
+    rows = Gp.rows
+    m_add = grp.muls[0] * MADD_FQ
+    nm = lambda kernel: counter(grp, kernel)
+    kern = lambda kernel: (lambda t, k: Gp.fixed_base_launch(kernel, t, k))
+    lat = lambda steps: steps * rounds * lat_us / 1e3
+    for kernel, entry, other, N in (
+            ("fixed_base", "k_fixed_base_team", "fixed_base_one", 63 if quick else 2047),
+            ("fixed_base_one", "k_fixed_base_one", "fixed_base", 256 if quick else 1 << 16)):
+        table, scal, ks = fixed_base_inputs(dev, grp, N + ODD, 37)
+        got = kern(kernel)(table, scal)
+        if not torch.equal(kern(other)(table, scal), got):
+            raise AssertionError(f"{nm(kernel)} and {nm(other)} differ at {N + ODD} lanes")
+        pick = torch.arange(N + ODD, device=dev)
+        if N + ODD > 4096:  # the edge lanes, then a stride
+            pick = torch.as_tensor(sorted({*range(5), *np.linspace(0, N + ODD - 1, 96).astype(int)}),
+                                   device=dev)
+        want, plain = timed_once(lambda: Gp.fixed_base_plain(table, scal[pick].contiguous()))
+        t0, s0, k0 = table, scal[:N].contiguous(), ks[:N]
+        ms = time_ms(lambda: kern(kernel)(t0, s0), 5)
+        other_ms = time_ms(lambda: kern(other)(t0, s0), 3)
+        seq_ms = time_ms(lambda: Gp.fixed_base_steps(t0, s0, Gp.add_mask), 3)
+        pop = [bin(k).count("1") for k in k0]
+        rep.add(nm(kernel), got[:, pick].contiguous(), want, ms, plain,
+                table.numel() * 4 + N * FR.nlimbs * 4 + N * rows * 4, sum(pop) * m_add,
+                f"({rows}, 256) table x ({N}, 16) scalars -> ({rows}, {N}), {sum(pop)} set bits; "
+                f"compared at {N + ODD} lanes" + (f" on {len(pick)} of them" if len(pick) < N + ODD
+                                                   else "") + ", plain_ms from there")
+        rep.rows[nm(kernel)].update({
+            "replaces_also": ["testudo_tpu/tpu/curve.py:429"],
+            "latency_bound_ms": lat(max(pop)), "latency_bound_all_steps_ms": lat(16 * FR.nlimbs),
+            "latency_us_per_product": lat_us, "launch_sequence_ms": seq_ms,
+            f"{other}_ms": other_ms, "ptxas": ptxas_of(entry, Gp.ncomp)})
+        say(f"  {nm(kernel)}: {ms:.4f} ms at {N} lanes ({other} {other_ms:.4f} ms; the 256 add_mask "
+            f"launches it replaced: {seq_ms:.4f} ms); latency bound {lat(max(pop)):.4f} ms (all "
+            f"256 steps {lat(16 * FR.nlimbs):.4f})")
 
 
 def kernels_group(dev, grp, rep: Report, proj, pts_cmp, scal_cmp, pts_time, scal_time,
@@ -1258,6 +1346,7 @@ def kernels_group(dev, grp, rep: Report, proj, pts_cmp, scal_cmp, pts_time, scal
 
     kernels_wsum(dev, grp, rep, proj, rounds, lat_us, quick)
     kernels_chain_fold(dev, grp, rep, proj, rounds, lat_us, quick)
+    kernels_fixed_base(dev, grp, rep, rounds, lat_us, quick)
 
     # the bucket kernels with the exact arguments of a main path, plus a tail
     # of hand-made lanes: count 0, a doubling lane, a long lane that ends at
@@ -1385,8 +1474,8 @@ def main(argv=None) -> int:
         return 0
     phase_projective_msm(dev, g2, proj["g2"], ks["g2"])
 
-    # the rest of the group layer: add_mask runs under fixed_base_mul, the
-    # Fq row-major product under the field path
+    # the rest of the group layer: the one-thread fixed-base kernel runs under
+    # fixed_base_mul at 2^16, the Fq row-major product under the field path
     for grp in (g1, g2):
         note("fixed_base", phase_fixed_base(dev, grp))
         phase_small_msms(dev, grp, affine[grp.name], ks[grp.name])

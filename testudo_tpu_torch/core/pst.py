@@ -33,6 +33,7 @@ import torch
 from ..curves import profile as cprof
 from ..device import field as tf
 from ..poly import dense
+from ..utils.timer import Timer
 
 
 def _default_profile() -> "cprof.CurveProfile":
@@ -156,10 +157,12 @@ def setup(
     # eq tables for every suffix level (level nv is the empty product = 1),
     # concatenated so the backend's fixed-base pass runs ONCE.
     dev = profile.device
+    teq = Timer("pst::setup eq tables to ints")
     tables = [dense.eq_evals(ts[i:], spec, dev) for i in range(nv)]
     tables.append(torch.as_tensor(spec.encode(1), device=dev).reshape(1, spec.nlimbs))
     sizes = [t.shape[0] for t in tables]
     scalars = spec.decode(torch.cat(tables, dim=0))
+    teq.stop()
     all_g = profile.g1b.fixed_base_mul(g, scalars)
     all_h = profile.g2b.fixed_base_mul(h, scalars)
     powers_of_g, powers_of_h = [], []
@@ -168,8 +171,10 @@ def setup(
         powers_of_g.append(profile.g1b.slice(all_g, off, off + s))
         powers_of_h.append(profile.g2b.slice(all_h, off, off + s))
         off += s
+    tmask = Timer("pst::setup g_mask h_mask")
     g_mask = [profile.g1_mul(g, t) for t in ts]
     h_mask = [profile.g2_mul(h, t) for t in ts]
+    tmask.stop()
     ck = CommitterKey(nv, powers_of_g, powers_of_h, g, h, profile)
     vk = VerifierKey(nv, g, h, g_mask, h_mask, profile)
     _SETUP_CACHE[ck_key] = (ck, vk)

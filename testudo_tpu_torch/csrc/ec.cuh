@@ -283,12 +283,14 @@ FP_FN void lane_scan2b(const int* run, const int* tot, const int* bl,
 
 // Is `bit` set in any lane of this warp?  The answer is the same for every
 // thread of the warp, so a branch on it never splits the warp.  (On the CPU
-// build a "warp" is the one lane.)
+// build a lane runs as in a warp where another lane needs every step, so
+// the select, not the skip, must keep its result: the harder case.)
 FP_FN bool any_lane(bool bit) {
 #ifdef __CUDACC__
   return __any_sync(__activemask(), bit) != 0;
 #else
-  return bit;
+  (void)bit;
+  return true;
 #endif
 }
 
@@ -318,6 +320,33 @@ FP_FN void lane_ladder(const int* pts, const int* scal, int* out, int nl, long L
     }
   }
   ec_store<C>(out, L, lane, acc);
+}
+
+// out[lane] = [s] B by a table of doublings: acc = O; for k < 16 nl: acc =
+// bit k of s ? acc + T_k : acc, with T_k column k of the packed (C::ROWS,
+// 16 nl) table (2^k B) and s row `lane` of the (N, nl) canonical 16-bit
+// limbs: the adds and selects of `add_mask`, the accumulator held by the
+// thread for all 16 nl steps.  The add is skipped when no lane of the warp
+// has the bit set, which changes no lane's result.
+template <class C>
+FP_FN void lane_fixed_base(const int* table, const int* scal, int* out, long N, int nl,
+                           long lane) {
+  Pt<C> acc, t, s;
+  ec_set_identity<C>(acc);
+  FP_NO_UNROLL
+  for (int l = 0; l < nl; l++) {
+    u32 limb = (u32)scal[lane * nl + l];
+    FP_NO_UNROLL
+    for (int bit = 0; bit < 16; bit++) {
+      bool set = ((limb >> bit) & 1u) != 0;
+      if (any_lane(set)) {
+        ec_load<C>(t, table, 16L * nl, 16 * l + bit);
+        ec_add<C>(s, acc, t);
+        ec_select<C>(acc, set, s, acc);
+      }
+    }
+  }
+  ec_store<C>(out, N, lane, acc);
 }
 
 // out[lane] = sum over t < count[lane] of table[src(start[lane] + t)], added

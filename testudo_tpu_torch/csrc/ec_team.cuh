@@ -5,7 +5,9 @@
 // weighted bucket sum of the MSM (wsum_team.cu: three programs, the scan
 // step, the same ladder step and one complete add), and two on one complete
 // add of a pair of points (`team_pair_add`): the chain of the commit's
-// table (chain_team.cu) and the pairwise folds of every path (fold_team.cu).
+// table (chain_team.cu) and the pairwise folds of every path (fold_team.cu);
+// and the fixed-base multiplication (fixed_base_team.cu) on the same add
+// with its sums selected by a scalar bit (`team_masked_add`).
 //
 // One ladder step (acc = bit ? acc + base : acc; base = 2 base) runs the
 // complete add and the complete double of ec.cuh, whose products mostly do
@@ -18,7 +20,8 @@
 // G2) in the same two (three) rounds.
 //
 // Each program is written once, below (`team_step`, `team_scan`,
-// `team_add_opd`, `team_pair_add`), over the same formulas as ec_add / ec_double / fp2_mul /
+// `team_add_opd`, `team_pair_add`, `team_masked_add`), over the same
+// formulas as ec_add / ec_double / fp2_mul /
 // fp2_mul_b3 and in the same order, but on slot numbers instead of values:
 // it records a program of Fq operations, each a product or a sum /
 // difference of two slots.  `team_schedule` puts every operation in the
@@ -75,7 +78,8 @@ struct TeamTable {
 // before the ladder, and the second operand of the closing adds (the scan's
 // tot until then).
 enum { WS_ACC = 0, WS_RUN = 1, WS_BKT = 2, WS_RUN0 = 3, WS_OPD = 4, WS_NPTS = 5 };
-// The points of a chain or fold lane: the sum, then the point added to it.
+// The points of a chain, fold or fixed-base lane: the sum, then the point
+// added to it.
 #define PAIR_NPTS 2
 // Buckets a group of the weighted sum at window bits c, and its lanes for W
 // windows (one a group).
@@ -107,6 +111,13 @@ static_assert(32 % TEAM_T(1) == 0 && 32 % TEAM_T(2) == 0, "a team must not span 
 static_assert(32 % WSUM_T(1) == 0 && 32 % WSUM_T(2) == 0, "a team must not span warps");
 static_assert(32 % CHAIN_T(1) == 0 && 32 % CHAIN_T(2) == 0, "a team must not span warps");
 static_assert(32 % FOLD_T(1) == 0 && 32 % FOLD_T(2) == 0, "a team must not span warps");
+// Fixed base: threads a lane and lanes a block, chosen at the setup's 2,047
+// lanes (nv = 20) with tools/exp_fixed_base.py on an H100 (PERF.md section
+// 6).  There T = 8 (G1) and 16 (G2) beat 32 by 44% and 1%; at 63 and 255
+// lanes T = 32 wins (fewer lanes a warp skip more steps), by 0.6 / 1.0 ms.
+#define FIXED_T(nc) ((nc) == 1 ? 8 : 16)
+#define FIXED_TEAMS(nc) 4
+static_assert(32 % FIXED_T(1) == 0 && 32 % FIXED_T(2) == 0, "a team must not span warps");
 
 // A team syncs after every stage: the warp's sync on the card.  On the CPU
 // (csrc/host_check.cpp) one thread runs the ranks one after another.
@@ -125,6 +136,20 @@ static_assert(32 % FOLD_T(1) == 0 && 32 % FOLD_T(2) == 0, "a team must not span 
 #define TEAM_BLOCK_SYNC()
 #define TEAM_ONE_THREAD 1
 #endif
+
+// Is `b` true for any thread of the warp?  The same answer for all 32, so a
+// branch on it keeps every team of the warp on the same stages and syncs;
+// every thread of the warp must call it (the kernels clamp lanes past the
+// end, never return early).  On the CPU a lane runs as in a warp where
+// another lane needs every step (as `any_lane`): the select keeps acc.
+FP_FN bool team_any(bool b) {
+#ifdef __CUDACC__
+  return __any_sync(0xffffffffu, b) != 0;
+#else
+  (void)b;
+  return true;
+#endif
+}
 
 // ---------------------------------------------------------------------------
 // The work of one rank (device and host)
@@ -450,6 +475,44 @@ FP_FN void block_fold_team(u32* region, int ns, const TeamCode& add, const int* 
   }
 }
 
+// Lane i of the fixed-base multiplication (`PackedGroup.fixed_base`), by the
+// table `add` of `team_masked_add`: with T_k column k of the packed (C::ROWS,
+// 16 nl) table of doublings and s_i row i of the (N, nl) canonical 16-bit
+// limbs,
+//   acc = O; for k < 16 nl: acc = bit k of s_i ? acc + T_k : acc
+// the adds and selects of `add_mask` in their order, so the limbs are its.
+// Every lane reads T_k, a broadcast through L1 (a copy of the whole table
+// staged in each block's shared memory was never faster at the setup's
+// widths: PERF.md section 6).  A step is skipped when no lane of the warp
+// has its bit set (`team_any`): a false select keeps acc, so the skip
+// changes no limb.  Lanes past N run on with clamped loads and store
+// nothing.
+template <class C, int T>
+FP_FN void lane_fixed_base_team(u32* region, int ns, const TeamCode& add, const int* table,
+                                const int* scal, int* out, long N, int nl, long lane, int rank) {
+  constexpr int NC = C::COMP_ROWS / (2 * FQN);
+  constexpr u32 DUMMY = TEAM_DUMMY_OP(TEAM_NFIXED(NC, PAIR_NPTS));
+  const int first = TEAM_ONE_THREAD ? 0 : rank, stride = TEAM_ONE_THREAD ? 1 : T;
+  const long src = lane < N ? lane : N - 1;
+  const int nb = 16 * nl;
+  team_consts(region, ns, TEAM_NFIXED(NC, PAIR_NPTS), first, stride);
+  team_identity<NC>(region, ns, 0, first, stride);
+  TEAM_SYNC();
+  FP_NO_UNROLL
+  for (int l = 0; l < nl; l++) {
+    const u32 limb = (u32)scal[src * nl + l];
+    FP_NO_UNROLL
+    for (int b = 0; b < 16; b++) {
+      const bool bit = ((limb >> b) & 1u) != 0;
+      if (!team_any(bit)) continue;
+      team_load<NC>(region, ns, 1, table, 1, nb, 16 * l + b, first, stride);
+      TEAM_SYNC();
+      team_run<T>(region, ns, add, DUMMY, rank, bit);
+    }
+  }
+  if (lane < N) team_store<NC>(out, 1, N, lane, region, ns, 0, first, stride);
+}
+
 // ---------------------------------------------------------------------------
 // The programs and their schedule (host code: a launcher builds its tables
 // once per group)
@@ -643,6 +706,13 @@ static void team_pair_add(TeamProg& p) {
   team_put<TC>(p, 0, team_rec_add<TC>(p, team_pt<TC>(0), team_pt<TC>(1)), false);
 }
 
+// point 0 = bit ? point 0 + point 1 : point 0, the masked add of the fixed
+// base (`add_mask`): the sum's last sums select
+template <class TC>
+static void team_masked_add(TeamProg& p) {
+  team_put<TC>(p, 0, team_rec_add<TC>(p, team_pt<TC>(0), team_pt<TC>(1)), true);
+}
+
 // dep[i][j]: operation i must run in a later stage than operation j: it
 // reads j's value (then j < i), or it writes a fixed slot whose old value j
 // reads (j may come before or after i in the program: a program stores its
@@ -780,7 +850,8 @@ enum {
   TEAM_WSUM_SCAN = 1,
   TEAM_WSUM_STEP = 2,
   TEAM_WSUM_ADD = 3,
-  TEAM_PAIR_ADD = 4
+  TEAM_PAIR_ADD = 4,
+  TEAM_MASKED_ADD = 5
 };
 
 template <class TC>
@@ -793,17 +864,19 @@ static void team_record(TeamProg& p, int program) {
     team_step<TC>(p, WS_ACC, WS_RUN);
   else if (program == TEAM_WSUM_ADD)
     team_add_opd<TC>(p);
-  else
+  else if (program == TEAM_PAIR_ADD)
     team_pair_add<TC>(p);
+  else
+    team_masked_add<TC>(p);
 }
 
 // The table of `program` for the group with nc components (1: G1, 2: G2);
 // 0, or -1 if the program does not fit.
 static int team_table(TeamTable& t, int nc, int program) {
   static TeamProg p;  // large: kept off the stack
-  if ((nc != 1 && nc != 2) || program < TEAM_LADDER_STEP || program > TEAM_PAIR_ADD) return -1;
+  if ((nc != 1 && nc != 2) || program < TEAM_LADDER_STEP || program > TEAM_MASKED_ADD) return -1;
   const int npts = program == TEAM_LADDER_STEP ? LADDER_NPTS
-                   : program == TEAM_PAIR_ADD  ? PAIR_NPTS
+                   : program >= TEAM_PAIR_ADD  ? PAIR_NPTS
                                                : WS_NPTS;
   p.init(TEAM_NFIXED(nc, npts));
   if (nc == 1)
@@ -817,9 +890,9 @@ static int team_table(TeamTable& t, int nc, int program) {
 // The table of `program` for group nc, built at its first use and kept for
 // the process; null if it does not fit.
 static const TeamTable* team_table_once(int nc, int program) {
-  static TeamTable tables[TEAM_PAIR_ADD + 1][2];
-  static int state[TEAM_PAIR_ADD + 1][2];  // 0: not built, 1: built, -1: failed
-  if ((nc != 1 && nc != 2) || program < TEAM_LADDER_STEP || program > TEAM_PAIR_ADD) return nullptr;
+  static TeamTable tables[TEAM_MASKED_ADD + 1][2];
+  static int state[TEAM_MASKED_ADD + 1][2];  // 0: not built, 1: built, -1: failed
+  if ((nc != 1 && nc != 2) || program < TEAM_LADDER_STEP || program > TEAM_MASKED_ADD) return nullptr;
   int& st = state[program][nc - 1];
   if (st == 0) st = team_table(tables[program][nc - 1], nc, program) == 0 ? 1 : -1;
   return st == 1 ? &tables[program][nc - 1] : nullptr;

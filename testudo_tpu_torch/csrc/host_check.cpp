@@ -43,7 +43,7 @@ static void host_chain(const int* a, const int* b, int* out, int G, long L, int 
 }
 
 // The team kernels (ladder_team.cu, wsum_team.cu, chain_team.cu,
-// fold_team.cu) on the CPU: the same
+// fold_team.cu, fixed_base_team.cu) on the CPU: the same
 // tables and the same lane and per-rank functions, each stage's operations
 // run one rank after another (T at a time, as the kernels' sub-rounds),
 // lane by lane.
@@ -103,6 +103,20 @@ static int host_fold_team_impl(const int* a, long L, const int* seg, int S, int 
     block_fold_team<C, FOLD_T(NC)>(region.data(), tab->nslots, add, a, L,
                                    seg ? seg[s] : s * max_len, seg ? seg[S + s] : max_len,
                                    scratch, (max_len + 1) / 2, out, S, s, 0, 1, 0);
+  return 0;
+}
+
+// The team kernel of fixed_base_team.cu: each lane in turn.
+template <class C>
+static int host_fixed_base_team_impl(const int* table, const int* scal, int* out, long N, int nl) {
+  constexpr int NC = C::COMP_ROWS / (2 * FQN);
+  const TeamTable* tab = team_table_once(NC, TEAM_MASKED_ADD);
+  if (!tab) return -2;
+  std::vector<u32> region((std::size_t)tab->nslots * FQN);
+  const TeamCode add = {tab->op, tab->stage, tab->nstages};
+  for (long lane = 0; lane < N; lane++)
+    lane_fixed_base_team<C, FIXED_T(NC)>(region.data(), tab->nslots, add, table, scal, out, N,
+                                         nl, lane, 0);
   return 0;
 }
 
@@ -229,8 +243,24 @@ int host_fold_team(const int* a, long L, const int* seg, int S, int max_len, int
   return host_fold_team_impl<Fq2Coord>(a, L, seg, S, max_len, scratch, out);
 }
 
+// The fixed-base multiplication of fixed_base_team.cu: packed (rows, 16 nl)
+// table of doublings, (N, nl) scalar limbs -> packed (rows, N); the team
+// kernel's lanes or, `one`, the one-thread kernel's.
+int host_fixed_base(const int* table, const int* scal, int* out, long N, int nl, int one,
+                    int ncomp) {
+  if (ncomp != 1 && ncomp != 2) return -1;
+  if (nl < 1 || nl > 16) return -3;
+  if (one) {
+    FOR_GROUP(for (long lane = 0; lane < N; lane++)
+                  lane_fixed_base<C>(table, scal, out, N, nl, lane));
+  }
+  if (ncomp == 1) return host_fixed_base_team_impl<FqCoord>(table, scal, out, N, nl);
+  return host_fixed_base_team_impl<Fq2Coord>(table, scal, out, N, nl);
+}
+
 // The table of a team program (ec_team.cuh: 0 the ladder step, 1-3 the
-// weighted sum's scan step, ladder step and add, 4 the pair add) for a group: dims =
+// weighted sum's scan step, ladder step and add, 4 the pair add, 5 the
+// masked add) for a group: dims =
 // (nops, nstages, nslots, nfixed), ops and stages as the kernels receive
 // them (room for TEAM_MAX_OPS and TEAM_MAX_STAGES words).
 int host_team_program(int ncomp, int program, u32* ops, u32* stages, int* dims) {

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..device.field import FR, FieldSpec
+from ..utils.timer import Timer
 
 
 class GroupBackend:
@@ -196,7 +197,10 @@ class _Dev377Backend(GroupBackend):
         from ..device import curve as tc
 
         fn = self._pick(tc.fixed_base_mul_g1, tc.fixed_base_mul_g2)
-        return fn(self._canon(scalars), base_affine, device=self.device)
+        tconv = Timer("fixed_base::scalars to limbs")
+        canon = self._canon(scalars)
+        tconv.stop()
+        return fn(canon, base_affine, device=self.device)
 
 
 def _host_msm_g1_377(points, scalars):

@@ -30,7 +30,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("mont_mul.cu", "mont_mul_rm.cu", "mont_chain.cu", "ec_ops.cu", "ladder.cu",
-           "ladder_team.cu", "bucket.cu", "wsum_team.cu", "chain_team.cu", "fold_team.cu")
+           "ladder_team.cu", "bucket.cu", "wsum_team.cu", "chain_team.cu", "fold_team.cu",
+           "fixed_base_team.cu")
 HEADERS = ("fp.cuh", "fp2.cuh", "ec.cuh", "ec_team.cuh", "launch.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -60,6 +61,8 @@ _SIGNATURES = {
     "wsum": ("testudo_wsum_team", (_P, _P, _I, _I, _I, _I, _P)),
     "chain_team": ("testudo_chain_team", (_P, _P, _L, _I, _I, _P)),
     "fold_team": ("testudo_fold_team", (_P, _L, _P, _I, _I, _P, _P, _I, _P)),
+    "fixed_base": ("testudo_fixed_base_team", (_P, _P, _P, _L, _I, _I, _P)),
+    "fixed_base_one": ("testudo_fixed_base_one", (_P, _P, _P, _L, _I, _I, _P)),
 }
 # C functions that launch nothing and take no stream: (symbol, argtypes).
 _QUERIES = {
@@ -73,7 +76,8 @@ _QUERIES = {
 # row-major Montgomery product is counted per field, the grouped chain per
 # variant.
 EC_KERNELS = ("add2", "add_mask", "step", "scan2", "scan2b", "ladder", "ladder_team",
-              "bucket", "bucket_mixed", "wsum", "chain_team", "fold_team")
+              "bucket", "bucket_mixed", "wsum", "chain_team", "fold_team", "fixed_base",
+              "fixed_base_one")
 FIELD_KERNELS = ("mont_mul", "mont_mul_rm_fq", "mont_mul_rm_fr", "mont_chain",
                  "mont_chain_seq", "mont_chain_wide")
 LAUNCHES = {name: 0 for name in (

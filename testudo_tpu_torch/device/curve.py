@@ -28,6 +28,7 @@ import torch
 from ..curves.host_curve import B2
 from ..fields.bls12_377 import P
 from ..fields.host import Fq2 as HostFq2
+from ..utils.timer import Timer
 from . import field as tf
 from .field import FQ, LIMB_BITS
 
@@ -381,48 +382,49 @@ def g2_to_affine_host(p: G2Point) -> List:
 # ---------------------------------------------------------------------------
 
 
-def _fixed_base_mul(Gp, from_affine, host_double, scalars_canon: torch.Tensor,
-                    base_host, device):
-    """[s_i] * base for one shared host affine base.  A host table of the
-    256 doublings 2^k base is packed once; bit k of every scalar then
-    selects one complete add of column k onto the accumulators: one
-    `add_mask` launch per bit, the table column read by every lane (the
-    kernel takes a one-column point batch, so nothing is broadcast in
-    memory).  The same sequence of adds and selects as the JAX package's
-    `fori_loop`, so the projective limbs agree."""
-    device = torch.device(device)
-    scal = scalars_canon.to(device)
-    nbits = LIMB_BITS * scal.shape[1]
+def fixed_base_table(Gp, base_host, nbits: int, device) -> torch.Tensor:
+    """The packed (rows, nbits) table of the doublings 2^k base, k < nbits,
+    of a host affine point: what `PackedGroup.fixed_base` reads."""
+    from ..curves import host_curve as hc
+
+    g1 = Gp.ncomp == 1
+    double = hc.g1_double if g1 else hc.g2_double
     doublings, cur = [], base_host
     for _ in range(nbits):
         doublings.append(cur)
-        cur = host_double(cur)
-    table = Gp.pack(from_affine(doublings, device=device))  # (rows, nbits)
-    acc = Gp.identity_packed(scal.shape[0], device=device)
-    for k in range(nbits):
-        bit = ((scal[:, k // LIMB_BITS] >> (k % LIMB_BITS)) & 1).contiguous()
-        acc = Gp.add_mask(acc, table[:, k : k + 1].contiguous(), bit)
-    return Gp.unpack(acc)
+        cur = double(cur)
+    return Gp.pack((g1_from_affine_host if g1 else g2_from_affine_host)(doublings, device=device))
+
+
+def _fixed_base_mul(Gp, scalars_canon: torch.Tensor, base_host, device):
+    """[s_i] * base for one shared host affine base.  A host table of the
+    256 doublings 2^k base is packed once; then ONE `fixed_base` launch
+    runs, for every lane, the complete adds of the columns its scalar's bits
+    select (the kernel reads the bits itself).  The same sequence of adds
+    and selects as the JAX package's `fori_loop`, so the projective limbs
+    agree."""
+    device = torch.device(device)
+    scal = scalars_canon.to(device=device, dtype=torch.int32).contiguous()
+    tdbl = Timer("fixed_base::host doublings")
+    table = fixed_base_table(Gp, base_host, LIMB_BITS * scal.shape[1], device)
+    tdbl.stop()
+    return Gp.unpack(Gp.fixed_base(table, scal))
 
 
 def fixed_base_mul_g1(scalars_canon: torch.Tensor, base_host,
                       device=torch.device("cuda")) -> G1Point:
     """[s_i] * base over G1: `scalars_canon` is (N, 16) canonical Fr limbs,
     `base_host` a host affine point; returns a projective batch on `device`."""
-    from ..curves import host_curve as hc
     from .packed_curve import G1P
 
-    return _fixed_base_mul(G1P, g1_from_affine_host, hc.g1_double, scalars_canon,
-                           base_host, device)
+    return _fixed_base_mul(G1P, scalars_canon, base_host, device)
 
 
 def fixed_base_mul_g2(scalars_canon: torch.Tensor, base_host,
                       device=torch.device("cuda")) -> G2Point:
-    from ..curves import host_curve as hc
     from .packed_curve import G2P
 
-    return _fixed_base_mul(G2P, g2_from_affine_host, hc.g2_double, scalars_canon,
-                           base_host, device)
+    return _fixed_base_mul(G2P, scalars_canon, base_host, device)
 
 
 # ---------------------------------------------------------------------------

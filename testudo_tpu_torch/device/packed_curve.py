@@ -9,7 +9,8 @@ along L.  The row of coordinate c, component comp, limb k is
 
 Every fused op has a wrapper that, on CUDA tensors, checks its arguments,
 launches the hand-written kernel (csrc/ec_ops.cu, ladder_team.cu or
-ladder.cu by width, bucket.cu, wsum_team.cu, chain_team.cu, fold_team.cu)
+ladder.cu by width, bucket.cu, wsum_team.cu, chain_team.cu, fold_team.cu,
+fixed_base_team.cu)
 on the current stream and raises on failure;
 on CPU tensors it runs the plain
 PyTorch version defined beside it (`*_plain`), which evaluates the same
@@ -21,7 +22,9 @@ What differs from the JAX package: `ladder` is one launch (not one `step`
 launch per bit); so is `weighted_sum` (not a `scan2b` launch per bucket of
 a group and a `step` launch per weight bit); so are `chain`, the commit's
 table (not an `add2` launch per multiple), and `fold`, every tree of
-pairwise sums of a batch (not an `add2` launch per level); `bucket_phase`
+pairwise sums of a batch (not an `add2` launch per level), and
+`fixed_base`, the fixed-base multiplication (not an `add_mask` launch per
+scalar bit); `bucket_phase`
 gathers by index inside the kernel from a point-major table instead of
 streaming a materialised run tensor, and runs its lanes longest first on a
 grid that stays resident; masks are one int per lane; `add_mask` also takes ONE point for all lanes (a single
@@ -54,6 +57,15 @@ def longest_first(count: torch.Tensor) -> torch.Tensor:
 # wins G2 by 2% only (13.78 against 14.08 ms).  Every path's G2 ladder is
 # 1,024 lanes or fewer.
 TEAM_LADDER_MAX_LANES = {1: 1024, 2: 1024}
+
+# The widest fixed-base launch the team kernel (csrc/fixed_base_team.cu,
+# `k_fixed_base_team`) takes, per group (ncomp); wider ones go to one thread
+# per lane (`k_fixed_base_one`, same source).  Measured on an H100 with
+# tools/exp_fixed_base.py (PERF.md section 6): at 8,192 lanes the team kernel
+# wins (G1 3.48 against 6.15 ms, G2 11.96 against 19.53), at 2^16 one thread
+# does (18.21 against 25.09 ms, 73.95 against 86.58); `pst.setup` gives at
+# most 2,047 lanes (nv = 20), chip_smoke.py's fixed-base phase 2^16.
+FIXED_TEAM_MAX_LANES = {1: 8192, 2: 8192}
 
 
 class PackedGroup:
@@ -164,6 +176,61 @@ class PackedGroup:
                 out.data_ptr(), L, shared, self.ncomp,
                 counted_as=self._counter("add_mask"),
             )
+        return out
+
+    # -- fixed-base multiplication ----------------------------------------------
+
+    def fixed_base_steps(self, table, scal, add_mask):
+        """[s_i] B as a sequence of `add_mask` calls (the one given: the plain
+        version, or the kernel, one launch per bit): acc = O, then for each
+        column k of the table of doublings acc = bit k of s_i ? acc + T_k :
+        acc, bit k of every scalar sliced out on the host side of the call.
+        Returns (rows, N)."""
+        acc = self.identity_packed(scal.shape[0], device=scal.device)
+        for k in range(table.shape[1]):
+            bit = ((scal[:, k // LIMB_BITS] >> (k % LIMB_BITS)) & 1).contiguous()
+            acc = add_mask(acc, table[:, k : k + 1].contiguous(), bit)
+        return acc
+
+    def fixed_base_plain(self, table, scal):
+        return self.fixed_base_steps(table, scal, self.add_mask_plain)
+
+    def fixed_base_kernel(self, N: int) -> str:
+        """The kernel `fixed_base` launches for N lanes: the team kernel up to
+        FIXED_TEAM_MAX_LANES of this group, one thread per lane above."""
+        return "fixed_base" if N <= FIXED_TEAM_MAX_LANES[self.ncomp] else "fixed_base_one"
+
+    def fixed_base(self, table: torch.Tensor, scal: torch.Tensor) -> torch.Tensor:
+        """[s_i] B for the packed (rows, 16 nl) table of doublings T_k = 2^k B
+        and (N, nl) canonical 16-bit scalar limbs -> (rows, N): the adds and
+        selects of `fixed_base_steps` in their order.  On the card one
+        launch (csrc/fixed_base_team.cu, a team of threads per lane or, wide,
+        one thread: `fixed_base_kernel`) that reads the scalar bits itself."""
+        if scal.dim() != 2 or not 1 <= scal.shape[1] <= 16:
+            raise ValueError(f"fixed_base: scalars must be (N, nl), 1 <= nl <= 16, "
+                             f"got {tuple(scal.shape)}")
+        nb = LIMB_BITS * scal.shape[1]
+        if table.dim() != 2 or table.shape != (self.rows, nb):
+            raise ValueError(f"fixed_base: table must be ({self.rows}, {nb}), "
+                             f"got {tuple(table.shape)}")
+        for name, t in (("table", table), ("scalars", scal)):
+            if t.dtype != torch.int32:
+                raise TypeError(f"fixed_base: {name} must be int32, got {t.dtype}")
+        if not self._on_cuda(table, scal):
+            return self.fixed_base_plain(table, scal)
+        return self.fixed_base_launch(self.fixed_base_kernel(scal.shape[0]), table, scal)
+
+    def fixed_base_launch(self, kernel: str, table: torch.Tensor,
+                          scal: torch.Tensor) -> torch.Tensor:
+        """Launch fixed-base kernel `kernel` ("fixed_base" or "fixed_base_one")
+        on checked CUDA tensors: what `fixed_base` calls, and what a
+        measurement calls to time either kernel at any width."""
+        build.require_cuda_int32(kernel, table=table, scal=scal)
+        N, nl = scal.shape
+        out = torch.empty((self.rows, N), dtype=torch.int32, device=table.device)
+        with torch.cuda.device(table.device):
+            build.launch(kernel, table.data_ptr(), scal.data_ptr(), out.data_ptr(), N, nl,
+                         self.ncomp, counted_as=self._counter(kernel))
         return out
 
     # -- step ------------------------------------------------------------------
