@@ -29,9 +29,22 @@ testudo_tpu_torch/csrc/, then
      launches and of its trees of adds; the cold setup at nv = 20 is split
      into its host doublings, scalar conversion, fixed-base device time
      (CUDA events) and host mask muls;
-  5. runs the chained-product harness (tools/exp_montmul.py), which
+  5. drives TestudoNIZK (core/snark.py: setup, `nizk_prove`, `nizk_verify`
+     on the Fr-sponge transcript): the golden 16 x 16 x 2 instance of
+     tests/fixtures/golden_nizk.json proves to the fixture's bytes and
+     sponge states on the card; BASELINE config #3,
+     `produce_synthetic_r1cs(2^16, 2^16, 10)`, proves to a 17,192 B sat
+     proof that round-trips through the codec and verifies, the verifier
+     rejects eval_vars_at_ry + 1 and a wrong input, and eval_vars_at_ry,
+     the phase-2 claims and the verifier's (A, B, C)~(rx, ry) equal Python-int
+     evaluations; setup, prove (cold, then three warm, split by the Timer
+     labels commit / phase one / phase two / open) and verify (cold, warm)
+     are timed, the Poseidon permutations of a prove timed on the host and
+     its CUDA kernels counted under torch.profiler, and the launches of one
+     warm prove and one verify counted (paths nizk_prove, nizk_verify);
+  6. runs the chained-product harness (tools/exp_montmul.py), which
      measures the card's Montgomery products per second;
-  6. calls every kernel's wrapper at the shapes the main paths gave it and
+  7. calls every kernel's wrapper at the shapes the main paths gave it and
      holds the result against the kernel's plain PyTorch version on the
      same inputs (integers: the tolerance is exact equality, max_abs_err
      must be 0), at a lane count that is no multiple of the block size and
@@ -55,10 +68,11 @@ testudo_tpu_torch/csrc/, then
      with edge scalars (0, 1, r - 1, 2, 2^252), against the plain sequence of
      masked adds (on a stride of the lanes at 2^16), timed beside the 256
      `add_mask` launches they replaced, `bound_ms` and `latency_bound_ms`;
-  7. checks a small MSM against the host oracle;
-  8. prints one JSON line {"kernels": [...]} (each row's `launches` is the
+  8. checks a small MSM against the host oracle;
+  9. prints one JSON line {"kernels": [...]} (each row's `launches` is the
      sum of `launches_by_path`, the kernel's count on each driven path: msm,
-     fixed_base, field, setup, commit, open, verify, harness; the run fails if a
+     fixed_base, field, setup, commit, open, verify, nizk_prove, nizk_verify,
+     harness; the run fails if a
      kernel was not launched on a path it belongs to) and, last,
      {"ok": true, "device": {...}}.
 
@@ -67,12 +81,17 @@ nor the JAX package.  `--kernels-only` stops after a short build-and-compare
 pass at small shapes (a first call after editing a kernel); `--msm-only`
 stops after `msm_g1` and `msm_g2` at 2^20 (exact check, cold and warm times,
 phase split: to compare two checkouts on one card, run it from each in turn
-within one shell command); the default run is the full check.
+within one shell command); `--nizk-only` stops after the NIZK phase at 2^16
+and at 2^20 (a 21,192 B sat proof; the 2^20 instance takes most of a minute
+of host Python to build), for the same use; the default run is the full
+check.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -83,7 +102,7 @@ import numpy as np
 import torch
 
 from testudo_tpu_torch import native, proofs
-from testudo_tpu_torch.core import pst, sqrt_pst
+from testudo_tpu_torch.core import pst, r1cs, snark, sqrt_pst
 from testudo_tpu_torch.curves import host_curve as hc
 from testudo_tpu_torch.curves import pairing as pr
 from testudo_tpu_torch.curves import profile as cprof
@@ -95,7 +114,8 @@ from testudo_tpu_torch.device.field import FQ, FR
 from testudo_tpu_torch.device.packed_curve import G1P, G2P
 from testudo_tpu_torch.fields.bls12_377 import R
 from testudo_tpu_torch.poly import dense
-from testudo_tpu_torch.poseidon.transcript import PoseidonTranscript, fq_params
+from testudo_tpu_torch.poseidon import sponge
+from testudo_tpu_torch.poseidon.transcript import PoseidonTranscript, fq_params, fr_params
 from testudo_tpu_torch.tools import exp_montmul, time_open
 from testudo_tpu_torch.utils import timer
 
@@ -119,6 +139,7 @@ _REPLACES = {
     "mont_mul": "testudo_tpu/tpu/pallas_field.py:226",
     "mont_mul_rm_fq": "testudo_tpu/tpu/kernels.py:34",
     "mont_mul_rm_fr": "testudo_tpu/tpu/kernels.py:34",
+    "mont_mul_rm_fr_full": "testudo_tpu/tpu/kernels.py:34",
     "mont_chain": "tools/exp_montmul_block.py:114",
     "mont_chain_seq": "tools/exp_mulmany_wide.py:60",
     "mont_chain_wide": "tools/exp_mulmany_wide.py:60",
@@ -131,6 +152,7 @@ _REPLACES = {
 _CSRC = "testudo_tpu_torch/csrc/"
 _SOURCE = {
     "mont_mul_rm_fq": "mont_mul_rm.cu", "mont_mul_rm_fr": "mont_mul_rm.cu",
+    "mont_mul_rm_fr_full": "mont_mul_rm.cu",
     "mont_chain": "mont_chain.cu", "mont_chain_seq": "mont_chain.cu",
     "mont_chain_wide": "mont_chain.cu",
     "mont_mul": "mont_mul.cu", "add_mask": "ec_ops.cu", "add2": "ec_ops.cu",
@@ -143,6 +165,16 @@ _SOURCE = {
 # proof bytes (PST opening + MIPP proof) of sqrt-PST per number of variables:
 # counts of group and field elements, the same on any hardware
 PROOF_BYTES = {10: 7136, 14: 9920, 20: 14096}
+# TestudoNIZK (BASELINE config #3, benches/testudo.py): 2^k constraints, 2^k
+# variables, 10 inputs; its sat proof's bytes per k (testudo_nizk.csv,
+# testudo.csv: counts of group and field elements, the same on any hardware)
+NIZK_INPUTS = 10
+NIZK_SAT_BYTES = {16: 17192, 20: 21192}
+GOLDEN_NIZK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
+                           "golden_nizk.json")
+# the Timer labels that split a prove (core/r1csproof.py)
+NIZK_LABELS = {"polycommit (sqrt-PST)": "commit", "prove_sc_phase_one": "phase one",
+               "prove_sc_phase_two": "phase two", "polyeval (sqrt-PST open)": "open"}
 # The paths on which each kernel must be launched at least once (each path is
 # driven with the counters zeroed just before and read just after).  K1
 # (`mont_mul`) serves (n, m) callers and `scan2` is on no path: both are
@@ -178,6 +210,19 @@ MUST_LAUNCH.update({
     "ladder_team": ("msm", "open"), "ladder_team_g2": ("msm", "open"),
     "bucket": ("msm", "commit", "open"), "wsum": ("msm", "open"),
 })
+# TestudoNIZK: one warm prove (its witness commit and its opening are the
+# sqrt-PST paths' kernels at nv = 16; every sumcheck, R1CS and eq-table
+# product is a row-major Fr product) and one verify (the verifier's
+# A~, B~, C~(rx, ry); the rest of a verify is on the host)
+_NIZK_PROVE_KERNELS = ("mont_mul_rm_fr", "mont_mul_rm_fq", "chain_team", "bucket", "ladder",
+                       "fold_team", "ladder_team", "ladder_team_g2", "fold_team_g2", "wsum")
+for _name in _NIZK_PROVE_KERNELS:
+    MUST_LAUNCH[_name] += ("nizk_prove",)
+MUST_LAUNCH["mont_mul_rm_fr"] += ("nizk_verify",)
+# A row that times a kernel at a second shape reads its launches from the
+# kernel's counter, on the paths that give it that shape.
+ROW_COUNTER = {"mont_mul_rm_fr_full": ("mont_mul_rm_fr", ("nizk_prove", "nizk_verify"))}
+MUST_LAUNCH["mont_mul_rm_fr_full"] = ("nizk_prove",)
 N_UNIQUE = 1 << 13
 ODD = 37  # extra lanes so no compared batch is a multiple of a block size
 
@@ -755,6 +800,208 @@ def phase_sqrt_pst(dev, nv: int, full: bool):
     return by_path, canon, ck.powers_of_g[level]
 
 
+# ---------------------------------------------------------------------------
+# TestudoNIZK: setup, prove, verify
+# ---------------------------------------------------------------------------
+
+
+def host_eq(point) -> list:
+    """The MSB-first eq table of `point` in Python ints."""
+    evals = [1]
+    for r in point:
+        nxt = []
+        for e in evals:
+            hi = e * r % R
+            nxt += [(e - hi) % R, hi]
+        evals = nxt
+    return evals
+
+
+def host_mat_vec(m, z, nrows: int) -> list:
+    out = [0] * nrows
+    for r_, c_, v in zip(m.rows.tolist(), m.cols.tolist(), m.vals):
+        out[r_] = (out[r_] + v * z[c_]) % R
+    return out
+
+
+def _nizk_split(records) -> dict:
+    """A prove's seconds by the Timer labels, and the rest of it."""
+    split = _split(records)
+    out = {short: split.get(label, 0.0) for label, short in NIZK_LABELS.items()}
+    out["rest"] = round(split["r1csproof::prove"] - sum(out.values()), 4)
+    return out
+
+
+def phase_nizk_golden(dev):
+    """The golden instance of tests/fixtures/golden_nizk.json proved on the
+    card: byte-equal sat proof, equal final sponge states."""
+    with open(GOLDEN_NIZK) as f:
+        fix = json.load(f)
+    p = fix["params"]
+    inst, vars_, inputs = r1cs.Instance.produce_synthetic_r1cs(
+        p["num_cons"], p["num_vars"], p["num_inputs"], seed=p["seed"])
+    gens = snark.TestudoNizkGens.setup(p["num_cons"], p["num_vars"], p["num_inputs"],
+                                       profile=cprof.bls12_377(dev))
+    tp = PoseidonTranscript(fr_params())
+    proof = snark.nizk_prove(inst, vars_, inputs, gens, tp)
+    blob = proofs.ser_r1cs_proof(proof.r1cs_sat_proof)
+    if hashlib.sha256(blob).hexdigest() != fix["sat_proof_sha256"] or blob.hex() != fix["sat_proof_hex"]:
+        raise AssertionError("the golden NIZK proof on the card differs from the fixture's bytes")
+    if [hex(v) for v in tp.sponge.state] != fix["prover_final_sponge_state"]:
+        raise AssertionError("the golden NIZK prover ends in another sponge state")
+    tv = PoseidonTranscript(fr_params())
+    if snark.nizk_verify(proof, gens, inst, inputs, tv) is not True:
+        raise AssertionError("the golden NIZK proof did not verify on the card")
+    if [hex(v) for v in tv.sponge.state] != fix["verifier_final_sponge_state"]:
+        raise AssertionError("the golden NIZK verifier ends in another sponge state")
+    say(f"NIZK golden ({p['num_cons']} x {p['num_vars']} x {p['num_inputs']}, seed {p['seed']}) "
+        f"on the card: sat proof {len(blob)} B byte-equal to the fixture (sha256 "
+        f"{fix['sat_proof_sha256'][:12]}...), both final sponge states equal, verified")
+
+
+def phase_nizk(dev, log2n: int):
+    """TestudoNIZK on produce_synthetic_r1cs(2^log2n, 2^log2n, 10), as
+    benches/testudo.py builds BASELINE config #3: proof size, codec round
+    trip, verifier accepts and rejects two corruptions, exact host-int checks
+    of eval_vars_at_ry, the phase-2 claims and the instance's evaluation;
+    cold and warm times split by the Timer labels; launches of one warm
+    prove and one verify (returned by path)."""
+    n = 1 << log2n
+    what = f"NIZK 2^{log2n}"
+    t0 = time.perf_counter()
+    inst, vars_, inputs = r1cs.Instance.produce_synthetic_r1cs(n, n, NIZK_INPUTS)
+    inst_s = time.perf_counter() - t0
+    pf = cprof.bls12_377(dev)
+    gens, setup_ms = timed_once(
+        lambda: snark.TestudoNizkGens.setup(n, n, NIZK_INPUTS, profile=pf))
+
+    def prove():
+        tp = PoseidonTranscript(fr_params())
+        return snark.nizk_prove(inst, vars_, inputs, gens, tp), tp
+
+    def verify(proof, ins=inputs):
+        return snark.nizk_verify(proof, gens, inst, ins, PoseidonTranscript(fr_params()))
+
+    with timer.record() as rec:
+        (proof, tp), prove_cold = timed_once(prove)
+    split_cold = _nizk_split(rec)
+    sat = proof.r1cs_sat_proof
+    blob = proofs.ser_r1cs_proof(sat)
+    if len(blob) != NIZK_SAT_BYTES[log2n]:
+        raise AssertionError(f"{what}: sat proof of {len(blob)} B, expected {NIZK_SAT_BYTES[log2n]}")
+    if proofs.ser_r1cs_proof(proofs.parse_r1cs_proof(blob)) != blob:
+        raise AssertionError(f"{what}: the sat proof does not re-serialize to its bytes")
+    ok, verify_cold = timed_once(lambda: verify(proof))
+    if ok is not True:
+        raise AssertionError(f"{what}: the verifier rejected an honest proof")
+    bad = proofs.parse_r1cs_proof(blob)
+    bad.eval_vars_at_ry = (bad.eval_vars_at_ry + 1) % R
+    if verify(snark.TestudoNizk(bad, proof.r)) is not False:
+        raise AssertionError(f"{what}: the verifier accepted eval_vars_at_ry + 1")
+    wrong = r1cs.Assignment([(inputs.assignment[0] + 1) % R] + inputs.assignment[1:])
+    if verify(proof, wrong) is not False:
+        raise AssertionError(f"{what}: the verifier accepted a wrong input")
+
+    # exact checks in Python ints, independent of the verifier
+    t0 = time.perf_counter()
+    rx, ry = proof.r
+    nv = inst.inst.num_vars
+    w = vars_.assignment + [0] * (nv - len(vars_.assignment))
+    if sat.eval_vars_at_ry != host_evaluate(w, ry[1:]):
+        raise AssertionError(f"{what}: eval_vars_at_ry differs from the witness at ry[1:]")
+    z = inst.inst.z_vector(w, inputs.assignment)
+    mats = (inst.inst.A, inst.inst.B, inst.inst.C)
+    claims = [host_evaluate(host_mat_vec(m, z, inst.inst.num_cons), rx) for m in mats]
+    if list(sat.claims_phase2[:3]) != claims or sat.claims_phase2[3] != claims[0] * claims[1] % R:
+        raise AssertionError(f"{what}: the phase-2 claims differ from A z, B z, C z at rx")
+    eq_x, eq_y = host_eq(rx), host_eq(ry)
+    want = tuple(sum(v * eq_x[r_] * eq_y[c_] for r_, c_, v in
+                     zip(m.rows.tolist(), m.cols.tolist(), m.vals)) % R for m in mats)
+    evals, eval_ms = timed_once(lambda: inst.inst.evaluate(rx, ry, dev))
+    if evals != want:
+        raise AssertionError(f"{what}: inst.evaluate(rx, ry) on the card differs from the host sum")
+    host_s = time.perf_counter() - t0
+
+    # warm: three proves (the last one's launches counted), all byte-equal
+    walls, splits = [], []
+    for i in range(3):
+        build.reset_launches()
+        with timer.record() as rec:
+            (p2, _), ms = timed_once(prove)
+        counts_prove = dict(build.LAUNCHES)
+        walls.append(ms / 1e3)
+        splits.append(_nizk_split(rec))
+        if proofs.ser_r1cs_proof(p2.r1cs_sat_proof) != blob:
+            raise AssertionError(f"{what}: a warm prove gave other bytes")
+    build.reset_launches()
+    with timer.record() as rec:
+        ok, verify_warm = timed_once(lambda: verify(proof))
+    counts_verify = dict(build.LAUNCHES)
+    verify_parts = _split(rec)
+    if ok is not True:
+        raise AssertionError(f"{what}: the warm verify rejected")
+
+    # one more warm prove with the Poseidon permutations timed on the host
+    perm = [0.0, 0]
+    orig = sponge.PoseidonSponge.permute
+
+    def timed_permute(self):
+        t = time.perf_counter()
+        orig(self)
+        perm[0] += time.perf_counter() - t
+        perm[1] += 1
+
+    sponge.PoseidonSponge.permute = timed_permute
+    try:
+        _, perm_prove_ms = timed_once(prove)
+    finally:
+        sponge.PoseidonSponge.permute = orig
+    # and one under the profiler: the device's kernels, by count and time
+    prof_line = nizk_profile(prove)
+
+    nz = lambda d: {k: v for k, v in d.items() if v}
+    say(f"{what} ({n} constraints, {n} variables, {NIZK_INPUTS} inputs): sat proof {len(blob)} B, "
+        f"codec round trip, verified; eval_vars_at_ry + 1 and a wrong input rejected; "
+        f"eval_vars_at_ry, Az/Bz/Cz at rx and (A, B, C)~(rx, ry) equal Python ints "
+        f"({host_s:.1f} s of host checks); instance built in {inst_s:.1f} s")
+    say(f"  {what} times: setup (cold) {setup_ms / 1e3:.4f} s; prove cold {prove_cold / 1e3:.4f} s "
+        f"{json.dumps(split_cold)}; warm {[round(x, 4) for x in walls]} s, median "
+        f"{statistics.median(walls):.4f} s; verify cold {verify_cold / 1e3:.4f} s, warm "
+        f"{verify_warm / 1e3:.4f} s")
+    for i, sp in enumerate(splits):
+        say(f"  {what} warm prove {i} split (s): {json.dumps(sp)}")
+    say(f"  {what} verify parts (s): {json.dumps(verify_parts)}; A~, B~, C~(rx, ry) alone "
+        f"{eval_ms:.1f} ms")
+    say(f"  {what} Poseidon permutations in one warm prove: {perm[1]} calls, "
+        f"{perm[0]:.4f} s on the host (that prove {perm_prove_ms / 1e3:.4f} s)")
+    say(f"  {what} {prof_line}")
+    say(f"  {what} launches, one warm prove: {json.dumps(nz(counts_prove))}")
+    say(f"  {what} launches, one verify: {json.dumps(nz(counts_verify))}")
+    return {"nizk_prove": counts_prove, "nizk_verify": counts_verify}
+
+
+def nizk_profile(prove) -> str:
+    """One prove under torch.profiler: the number of CUDA kernels it ran
+    and their summed device time, by name (the six largest)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall_ms = timed_once(prove)
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return "device kernels of one prove under torch.profiler: not measured (no device events)"
+    by_name = {}
+    for e in kernels:
+        tot = by_name.setdefault(e.name, [0.0, 0])
+        tot[0] += e.time_range.elapsed_us() / 1e3
+        tot[1] += 1
+    dev_ms = sum(v[0] for v in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    return (f"one prove under torch.profiler: {len(kernels)} CUDA kernels, {dev_ms:.1f} ms of "
+            f"device time in a {wall_ms:.1f} ms prove (profiled); largest: "
+            + "; ".join(f"{name[:60]} {ms:.1f} ms x {cnt}" for name, (ms, cnt) in top))
+
+
 def phase_harness(dev):
     """The chained-product harness as its user runs it; returns the launches
     it made."""
@@ -828,9 +1075,14 @@ def kernels_montgomery(dev, rep: Report, quick: bool):
 def kernels_rowmajor(dev, rep: Report, quick: bool):
     """The row-major Montgomery product: Fr at (2^20, 16) with ONE shared
     second operand (a table times a scalar), Fq at (393216, 24) with two full
-    operands (K1's shape).  Beside each, the path it replaced behind
-    `field.mont_mul`: K1 on (n, m) rows plus the copies around it."""
-    for spec, n_main, shared, madd in ((FR, 1 << 20, True, MADD_FR), (FQ, 6 << 16, False, MADD_FQ)):
+    operands (K1's shape), and Fr at (2^16, 16) with two full operands (the
+    sumcheck's products of two tables, TestudoNIZK at 2^16).  Beside each,
+    the path it replaced behind `field.mont_mul`: K1 on (n, m) rows plus the
+    copies around it."""
+    for name, spec, n_main, shared, madd in (
+            ("mont_mul_rm_fr", FR, 1 << 20, True, MADD_FR),
+            ("mont_mul_rm_fq", FQ, 6 << 16, False, MADD_FQ),
+            ("mont_mul_rm_fr_full", FR, 1 << 16, False, MADD_FR)):
         p = spec.modulus
         n = (1 << 12 if quick else n_main) + ODD
         rng = np.random.default_rng(31)
@@ -864,7 +1116,7 @@ def kernels_rowmajor(dev, rep: Report, quick: bool):
         old_ms = time_ms(old_path, 20)
         lanes = n - ODD
         nbytes = (2 if shared else 3) * spec.nlimbs * 4 * lanes + (spec.nlimbs * 4 if shared else 0)
-        rep.add("mont_mul_rm_" + spec.name, got, want, ms, plain, nbytes, madd * lanes,
+        rep.add(name, got, want, ms, plain, nbytes, madd * lanes,
                 f"({lanes}, {spec.nlimbs}) {spec.name}, " +
                 ("one shared second operand" if shared else "two full operands") +
                 f"; K1 with its transposes at this shape: {old_ms:.4f} ms")
@@ -1418,6 +1670,8 @@ def main(argv=None) -> int:
                     help="build, compare every kernel at small shapes, stop")
     ap.add_argument("--msm-only", action="store_true",
                     help="build, check and time msm_g1 and msm_g2 at 2^20, stop")
+    ap.add_argument("--nizk-only", action="store_true",
+                    help="build, check and time TestudoNIZK at 2^16 and 2^20, stop")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the GPU", file=sys.stderr)
@@ -1425,6 +1679,13 @@ def main(argv=None) -> int:
     t_start = time.time()
     dev = torch.device("cuda")
     phase_device()
+    if args.nizk_only:
+        phase_nizk_golden(dev)
+        for log2n in (16, 20):
+            phase_nizk(dev, log2n)
+            say(f"NIZK 2^{log2n} done ({time.time() - t_start:.1f} s)")
+        say("nizk-only pass done; run without arguments for the full check")
+        return 0
     g1, g2 = GROUPS["g1"], GROUPS["g2"]
     rep = Report()
 
@@ -1489,6 +1750,12 @@ def main(argv=None) -> int:
         note(path, snap)
     say(f"sqrt-PST done ({time.time() - t_start:.1f} s)")
 
+    # the protocol on top: TestudoNIZK, the golden proof, then config #3 at 2^16
+    phase_nizk_golden(dev)
+    for path, snap in phase_nizk(dev, 16).items():
+        note(path, snap)
+    say(f"NIZK done ({time.time() - t_start:.1f} s)")
+
     # the measuring harness: the chain kernels' own path
     note("harness", phase_harness(dev))
 
@@ -1507,14 +1774,16 @@ def main(argv=None) -> int:
                   quick=False)
 
     for name, row in rep.rows.items():
-        row["launches_by_path"] = {path: tot[name] for path, tot in by_path.items() if tot[name]}
+        ctr, paths = ROW_COUNTER.get(name, (name, tuple(by_path)))
+        row["launches_by_path"] = {path: tot[ctr] for path, tot in by_path.items()
+                                   if tot[ctr] and path in paths}
         row["launches"] = sum(row["launches_by_path"].values())
         group = "g2" if name.endswith("_g2") else "g1"
         for path in MUST_LAUNCH[name]:
             if path == "msm" and name.startswith("bucket") and "mixed" not in name \
                     and rep.max_nseg[group] <= 1:
                 continue  # one segment per bucket: the segment reduce only copies
-            if by_path[path][name] == 0:
+            if by_path[path][ctr] == 0:
                 raise AssertionError(f"path {path} did not launch kernel {name}")
         if not MUST_LAUNCH[name] and row["launches"]:
             raise AssertionError(f"kernel {name} belongs to the kernel phase only, but the paths "

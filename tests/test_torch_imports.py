@@ -46,7 +46,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     )
     assert out.returncode == 0, out.stderr
     lines = dict(l.split(" ", 1) for l in out.stdout.strip().splitlines())
-    assert int(lines["MODULES"]) >= 33
+    assert int(lines["MODULES"]) >= 38
     assert lines["BAD"] == "[]"
     # the native host library, where one was loaded, is the port's own build
     build_dir = os.path.join(REPO, "testudo_tpu_torch", "_build") + os.sep
@@ -61,7 +61,8 @@ def test_new_modules_are_all_there():
     for name in ("core.pst", "core.mipp", "core.sqrt_pst", "poly.dense", "curves.profile",
                  "curves.pairing", "poseidon.sponge", "poseidon.transcript",
                  "poseidon.constants_377", "serialize", "proofs", "native", "utils.ark_rng",
-                 "utils.timer", "tools.exp_montmul"):
+                 "utils.timer", "tools.exp_montmul", "poly.unipoly", "core.sumcheck",
+                 "core.r1cs", "core.r1csproof", "core.snark"):
         importlib.import_module("testudo_tpu_torch." + name)
 
 
@@ -85,6 +86,24 @@ def test_protocol_entry_points_default_to_cuda_and_raise_without_a_card():
     with pytest.raises(RuntimeError):
         exp_montmul.run("cpu")  # the harness times kernels: no CPU path
     assert exp_montmul.main([]) == 1
+
+
+def test_nizk_entry_points_default_to_cuda_and_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device works")
+    import inspect
+
+    from testudo_tpu_torch.core import r1cs, snark
+
+    cuda = torch.device("cuda")
+    assert inspect.signature(snark.TestudoNizkGens.setup).parameters["profile"].default is None
+    for fn in (r1cs.R1CSInstance.evaluate, r1cs.SparseMatPolynomial.evaluate):
+        assert inspect.signature(fn).parameters["device"].default == cuda, fn
+    with pytest.raises((RuntimeError, AssertionError)):
+        snark.TestudoNizkGens.setup(4, 4, 1)  # the default profile lives on the card
+    inst, _, _ = r1cs.R1CSInstance.produce_synthetic_r1cs(4, 4, 1)
+    with pytest.raises((RuntimeError, AssertionError)):
+        inst.evaluate([0, 1], [0, 1, 1])
 
 
 def test_no_port_source_mentions_the_jax_imports():

@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of testudo_tpu (first slice: G1 multi-scalar multiplication).
+"""PyTorch/CUDA port of testudo_tpu: the G1/G2 group layer, the sqrt-PST
+commitment and TestudoNIZK (sumcheck, R1CS, the Spartan proof).
 
 The JAX package `testudo_tpu` is the reference; this package mirrors its
 layout (fields/, curves/, and device/ for the JAX package's tpu/) and imports

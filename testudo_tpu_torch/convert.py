@@ -15,7 +15,9 @@ tower classes, so an object of one never compares equal to the other's.
 The `*_from_reference` functions read the reference's objects by attribute
 and build the port's; the `*_to_reference` functions are handed the
 reference's `fields.host` module and classes by the caller, since nothing
-here may import them.
+here may import them.  R1CS instances carry across by their matrices'
+entries (host arrays and ints), R1CS proofs by their components, so that
+both packages prove one instance and each verifies the other's proof.
 """
 from __future__ import annotations
 
@@ -206,3 +208,66 @@ def mipp_proof_to_reference(proof, towers, proof_cls):
     """The port's `MippProof` in the reference's classes: `towers` is its
     `fields.host` module, `proof_cls` its `MippProof`."""
     return _mipp_proof(proof, towers, proof_cls)
+
+
+# -- R1CS instances and proofs --------------------------------------------------
+
+
+def r1cs_instance_from_reference(inst):
+    """The reference's `R1CSInstance` (num_cons, num_vars, num_inputs and
+    each matrix's rows / cols arrays and vals ints), or its `Instance`
+    (the same under `.inst`, with its digest), as the port's."""
+    from .core import r1cs
+
+    if hasattr(inst, "inst"):
+        port = r1cs_instance_from_reference(inst.inst)
+        digest = port.get_digest()
+        if digest != bytes(inst.digest):
+            raise ValueError("the instance's digest differs from the reference's")
+        return r1cs.Instance(port, digest)
+
+    def mat(m):
+        return r1cs.SparseMatPolynomial(
+            int(m.num_vars_x), int(m.num_vars_y), np.asarray(m.rows, dtype=np.int32),
+            np.asarray(m.cols, dtype=np.int32), [int(v) for v in m.vals])
+
+    return r1cs.R1CSInstance(int(inst.num_cons), int(inst.num_vars), int(inst.num_inputs),
+                             mat(inst.A), mat(inst.B), mat(inst.C))
+
+
+def _r1cs_proof(proof, towers, proof_cls, sumcheck_cls, unipoly_cls, mipp_cls):
+    point = lambda p: _point_from(p, towers)
+
+    def sc(s):
+        return sumcheck_cls([unipoly_cls([int(c) for c in p.coeffs]) for p in s.polys])
+
+    return proof_cls(
+        point(proof.comm_U),
+        sc(proof.sc_proof_phase1),
+        tuple(int(c) for c in proof.claims_phase2),
+        sc(proof.sc_proof_phase2),
+        int(proof.eval_vars_at_ry),
+        [point(p) for p in proof.proof_eval_vars_at_ry],
+        [int(x) for x in proof.rx],
+        [int(x) for x in proof.ry],
+        int(proof.transcript_sat_state),
+        int(proof.initial_state),
+        _tower_from(proof.t, towers),
+        _mipp_proof(proof.mipp_proof, towers, mipp_cls),
+    )
+
+
+def r1cs_proof_from_reference(proof):
+    """The reference's `R1CSProof` in the port's classes."""
+    from .core import mipp, r1csproof, sumcheck
+    from .poly.unipoly import UniPoly
+
+    return _r1cs_proof(proof, hf, r1csproof.R1CSProof, sumcheck.SumcheckInstanceProof,
+                       UniPoly, mipp.MippProof)
+
+
+def r1cs_proof_to_reference(proof, towers, proof_cls, sumcheck_cls, unipoly_cls, mipp_cls):
+    """The port's `R1CSProof` in the reference's classes: `towers` is its
+    `fields.host` module, the classes its `R1CSProof`,
+    `SumcheckInstanceProof`, `UniPoly` and `MippProof`."""
+    return _r1cs_proof(proof, towers, proof_cls, sumcheck_cls, unipoly_cls, mipp_cls)
