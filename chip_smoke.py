@@ -40,7 +40,8 @@ testudo_tpu_torch/csrc/, then
      evaluations; setup, prove (cold, then three warm, split by the Timer
      labels commit / phase one / phase two / open) and verify (cold, warm)
      are timed, the Poseidon permutations of a prove timed on the host and
-     its CUDA kernels counted under torch.profiler, and the launches of one
+     its CUDA kernels counted under torch.profiler (with the row-major
+     product's device time and launches by size class), and the launches of one
      warm prove and one verify counted (paths nizk_prove, nizk_verify);
   6. runs the chained-product harness (tools/exp_montmul.py), which
      measures the card's Montgomery products per second;
@@ -48,7 +49,12 @@ testudo_tpu_torch/csrc/, then
      holds the result against the kernel's plain PyTorch version on the
      same inputs (integers: the tolerance is exact equality, max_abs_err
      must be 0), at a lane count that is no multiple of the block size and
-     with edge cases mixed in, and times both; the bucket kernel's rows and a
+     with edge cases mixed in, and times both; the row-major product's rows
+     give its own device time (torch.profiler; L2 flushed before each
+     launch, and left warm) beside the rate of raw
+     launches and the time of a call through `field.mont_mul`, at its wide
+     shapes and at the NIZK's tables of 2^15 .. 1 elements
+     (tools/exp_mont_rm.py); the bucket kernel's rows and a
      line each give the run-length profile of its launch (lanes, longest run,
      lanes at T_cap, resident blocks per SM, grid); the two ladder kernels
      (the team kernel, a team of threads per lane, on narrow launches; one
@@ -116,7 +122,7 @@ from testudo_tpu_torch.fields.bls12_377 import R
 from testudo_tpu_torch.poly import dense
 from testudo_tpu_torch.poseidon import sponge
 from testudo_tpu_torch.poseidon.transcript import PoseidonTranscript, fq_params, fr_params
-from testudo_tpu_torch.tools import exp_montmul, time_open
+from testudo_tpu_torch.tools import exp_mont_rm, exp_montmul, time_open
 from testudo_tpu_torch.utils import timer
 
 # Least-time model.  Bytes: every input read once, every output written
@@ -982,24 +988,20 @@ def phase_nizk(dev, log2n: int):
 
 def nizk_profile(prove) -> str:
     """One prove under torch.profiler: the number of CUDA kernels it ran
-    and their summed device time, by name (the six largest)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall_ms = timed_once(prove)
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
+    and their summed device time, the six largest by name, and the
+    row-major product's device time and launches, by size class too
+    (tools/exp_mont_rm.py)."""
+    p = exp_mont_rm.prove_profile(prove)
+    if not p["kernels"]:
         return "device kernels of one prove under torch.profiler: not measured (no device events)"
-    by_name = {}
-    for e in kernels:
-        tot = by_name.setdefault(e.name, [0.0, 0])
-        tot[0] += e.time_range.elapsed_us() / 1e3
-        tot[1] += 1
-    dev_ms = sum(v[0] for v in by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
-    return (f"one prove under torch.profiler: {len(kernels)} CUDA kernels, {dev_ms:.1f} ms of "
-            f"device time in a {wall_ms:.1f} ms prove (profiled); largest: "
-            + "; ".join(f"{name[:60]} {ms:.1f} ms x {cnt}" for name, (ms, cnt) in top))
+    classes = "; ".join(
+        f"{k} {c['launches']}" + ("" if c["device_ms"] is None else f" ({c['device_ms']:.4f} ms)")
+        for k, c in p["by_class"].items())
+    return (f"one prove under torch.profiler: {p['kernels']} CUDA kernels, {p['device_ms']:.1f} ms "
+            f"of device time in a {p['wall_ms_profiled']:.1f} ms prove (profiled); largest: "
+            + "; ".join(f"{name[:60]} {ms:.1f} ms x {cnt}" for name, ms, cnt in p["largest"])
+            + f"\n    mont_mul_rm: {p['mont_mul_rm_ms']:.4f} ms of device time over "
+            f"{p['mont_mul_rm_launches']} launches; by size class: {classes}")
 
 
 def phase_harness(dev):
@@ -1076,9 +1078,20 @@ def kernels_rowmajor(dev, rep: Report, quick: bool):
     """The row-major Montgomery product: Fr at (2^20, 16) with ONE shared
     second operand (a table times a scalar), Fq at (393216, 24) with two full
     operands (K1's shape), and Fr at (2^16, 16) with two full operands (the
-    sumcheck's products of two tables, TestudoNIZK at 2^16).  Beside each,
-    the path it replaced behind `field.mont_mul`: K1 on (n, m) rows plus the
-    copies around it."""
+    sumcheck's products of two tables, TestudoNIZK at 2^16), each compared at
+    a ragged length.  A row's `ms` is the kernel's own device time
+    (torch.profiler) with the L2 cache flushed before each launch, so that
+    the operands come from HBM as `bound_ms` assumes, beside `kernel_l2_ms`
+    (back-to-back launches, operands that fit left in L2), `raw_ms` (CUDA
+    events around back-to-back raw launches) and `call_ms` (through
+    `field.mont_mul`, as the paths call it),
+    and the compiler's resource lines; the (2^16, 16) row also carries the
+    NIZK's smaller tables (2^15 .. 1) and the floor of one launch plus one
+    dependent product (tools/exp_mont_rm.py).  Beside each, the path it
+    replaced behind `field.mont_mul`: K1 on (n, m) rows plus the copies
+    around it."""
+    ptxas = exp_mont_rm.ptxas()
+    flush = exp_mont_rm.l2_flusher(dev)
     for name, spec, n_main, shared, madd in (
             ("mont_mul_rm_fr", FR, 1 << 20, True, MADD_FR),
             ("mont_mul_rm_fq", FQ, 6 << 16, False, MADD_FQ),
@@ -1103,7 +1116,6 @@ def kernels_rowmajor(dev, rep: Report, quick: bool):
                 raise AssertionError("row-major kernel: a broadcast operand gives other limbs")
         a0 = a[: n - ODD].contiguous()
         b0 = b if shared else b[: n - ODD].contiguous()
-        ms = time_ms(lambda: tf.mont_mul(spec, a0, b0), 20)
         plain = time_ms(lambda: tf.mont_mul_plain(spec, a0, b0), 1)
 
         def old_path():  # what field.mont_mul did before: to (n, m) rows, K1, back
@@ -1115,12 +1127,30 @@ def kernels_rowmajor(dev, rep: Report, quick: bool):
             raise AssertionError("row-major kernel differs from K1 on transposed operands")
         old_ms = time_ms(old_path, 20)
         lanes = n - ODD
+        label = (f"({lanes}, {spec.nlimbs}) {spec.name}, " +
+                 ("one shared second operand" if shared else "two full operands"))
+        m = exp_mont_rm.measure_shape(label, spec, lanes, shared, dev, flush=flush)
+        if m["kernel_ms"] is None:
+            raise AssertionError("torch.profiler saw no device time of the row-major kernel")
         nbytes = (2 if shared else 3) * spec.nlimbs * 4 * lanes + (spec.nlimbs * 4 if shared else 0)
-        rep.add(name, got, want, ms, plain, nbytes, madd * lanes,
-                f"({lanes}, {spec.nlimbs}) {spec.name}, " +
-                ("one shared second operand" if shared else "two full operands") +
-                f"; K1 with its transposes at this shape: {old_ms:.4f} ms")
-        say(f"  the same product through K1 and its transposes: {old_ms:.4f} ms")
+        rep.add(name, got, want, m["kernel_ms"], plain, nbytes, madd * lanes,
+                label + f"; K1 with its transposes at this shape: {old_ms:.4f} ms")
+        extra = {"kernel_ms": m["kernel_ms"], "kernel_l2_ms": m["kernel_l2_ms"],
+                 "raw_ms": m["raw_ms"], "call_ms": m["call_ms"], "ptxas": ptxas}
+        if name == "mont_mul_rm_fr_full":
+            extra["floor_ms"] = exp_mont_rm.floor_ms(dev)["floor_ms"]
+            extra["shapes"] = [
+                {k: v for k, v in exp_mont_rm.measure_shape(lbl, sp, k_n, sh, dev, flush).items()
+                 if k in ("shape", "kernel_ms", "kernel_l2_ms", "raw_ms", "call_ms", "bound_ms")}
+                for lbl, sp, k_n, sh in exp_mont_rm.SHAPES if k_n < n_main]
+            for r in extra["shapes"]:
+                say(f"  {r['shape']}: kernel {r['kernel_ms']:.5f} ms, L2-warm "
+                    f"{r['kernel_l2_ms']:.5f}, raw {r['raw_ms']:.5f}, "
+                    f"call {r['call_ms']:.5f}, bound {r['bound_ms']:.6f}")
+            say(f"  floor (one launch plus one dependent Fr product): {extra['floor_ms']:.5f} ms")
+        rep.rows[name].update(extra)
+        say(f"  raw launches {m['raw_ms']:.5f} ms, through field.mont_mul {m['call_ms']:.5f} ms; "
+            f"the same product through K1 and its transposes: {old_ms:.4f} ms")
 
 
 def kernels_chain(dev, rep: Report, quick: bool):

@@ -176,26 +176,31 @@ def _elements(spec, n, seed):
 
 @pytest.mark.parametrize("spec", [FQ, FR], ids=["fq", "fr"])
 def test_device_row_major_mont_mul_equals_plain(host_lib, spec):
-    """Per-lane body of csrc/mont_mul_rm.cu: 128-bit row loads and stores,
-    two full operands and one shared second operand, a ragged length."""
+    """Bodies of csrc/mont_mul_rm.cu (mont_rm.cuh): the tiled form on one
+    block and on one block a tile (grid 1, 2) and the narrow form (grid 0),
+    two full operands and one shared second operand, a ragged length.
+    tests/test_torch_mont_mul_rm.py covers the tiling in depth."""
     n = 131
+    nl = ctypes.c_int(spec.nlimbs)
     a = torch.from_numpy(spec.to_limbs(_elements(spec, n, 72)))
     b = torch.from_numpy(spec.to_limbs(_elements(spec, n, 73)[::-1]).copy())
-    out = torch.full_like(a, -1)
-    rc = host_lib.host_mont_mul_rm(_ptr(a), _ptr(b), _ptr(out), ctypes.c_int(spec.nlimbs),
-                                   ctypes.c_long(n), 0)
-    assert rc == 0 and torch.equal(out, packed_field.mont_mul_rm_plain(spec, a, b))
     one = b[17].clone()
-    rc = host_lib.host_mont_mul_rm(_ptr(a), _ptr(one), _ptr(out), ctypes.c_int(spec.nlimbs),
-                                   ctypes.c_long(n), 1)
-    assert rc == 0 and torch.equal(out, packed_field.mont_mul_rm_plain(spec, a, one))
+    for grid in (0, 1, 2):
+        out = torch.full_like(a, -1)
+        rc = host_lib.host_mont_mul_rm(_ptr(a), _ptr(b), _ptr(out), nl, ctypes.c_long(n), 0,
+                                       ctypes.c_long(grid))
+        assert rc == 0 and torch.equal(out, packed_field.mont_mul_rm_plain(spec, a, b)), grid
+        rc = host_lib.host_mont_mul_rm(_ptr(a), _ptr(one), _ptr(out), nl, ctypes.c_long(n), 1,
+                                       ctypes.c_long(grid))
+        assert rc == 0 and torch.equal(out, packed_field.mont_mul_rm_plain(spec, a, one)), grid
     # a < R but not < p (what _fold_wide hands the product): still canonical out
     wide = torch.from_numpy(np.full((3, spec.nlimbs), 0xFFFF, dtype=np.int32))
     out3 = torch.empty_like(wide)
-    host_lib.host_mont_mul_rm(_ptr(wide), _ptr(one), _ptr(out3), ctypes.c_int(spec.nlimbs),
-                              ctypes.c_long(3), 1)
+    host_lib.host_mont_mul_rm(_ptr(wide), _ptr(one), _ptr(out3), nl, ctypes.c_long(3), 1,
+                              ctypes.c_long(1))
     assert torch.equal(out3, packed_field.mont_mul_rm_plain(spec, wide, one))
-    assert host_lib.host_mont_mul_rm(_ptr(a), _ptr(b), _ptr(out), 20, ctypes.c_long(n), 0) == -1
+    assert host_lib.host_mont_mul_rm(_ptr(a), _ptr(b), _ptr(out), 20, ctypes.c_long(n), 0,
+                                     ctypes.c_long(1)) == -1
 
 
 @pytest.mark.parametrize("spec", [FQ, FR], ids=["fq", "fr"])

@@ -272,18 +272,6 @@ FP_FN void lane_mont_mul(const int* a, const int* b, int* out, long m, long lane
   fp_store<F>(out, m, lane, 0, x);
 }
 
-// Per-lane body of the row-major Montgomery kernel: element `lane` of two
-// (n, 2N) limb arrays, an element's limbs contiguous.  `shared_b`: b is ONE
-// element that every lane multiplies by.
-template <class F>
-FP_FN void lane_mont_mul_rm(const int* a, const int* b, int* out, long lane, bool shared_b) {
-  u32 x[F::N], y[F::N];
-  fp_load_row<F>(x, a + lane * (2 * F::N));
-  fp_load_row<F>(y, b + (shared_b ? 0 : lane) * (2 * F::N));
-  fp_mul_inline<F>(x, x, y);
-  fp_store_row<F>(out + lane * (2 * F::N), x);
-}
-
 // One product of the chained kernels, in the formulation asked for: the
 // body inlined at the call site (as the Montgomery kernels run it) or the
 // shared out-of-line copy (as the group-law kernels run it).

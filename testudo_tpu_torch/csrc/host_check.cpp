@@ -6,6 +6,7 @@
 #include <vector>
 
 #include "ec_team.cuh"
+#include "mont_rm.cuh"
 
 // Run the statement given (it names the policy C) for the group `ncomp` names.
 #define FOR_GROUP(...)                          \
@@ -40,6 +41,40 @@ static void host_chain(const int* a, const int* b, int* out, int G, long L, int 
         lane_mont_chain_seq<F, false, 6>(a, b, out, L, lane, K);
     }
   }
+}
+
+// k_mont_mul_rm (mont_mul_rm.cu) on the CPU: block after block, each with
+// its two stages as a plain array, the threads of a phase as a loop and the
+// barriers between phases as the ends of those loops; grid 0 runs
+// k_mont_mul_rm_narrow's body.
+template <class F, bool SHARED>
+static int host_rm(const int* a, const int* b, int* out, long n, long grid) {
+  constexpr int STAGE = RmStage<F, SHARED>::CHUNKS;
+  const long ntiles = (n + RM_TPB - 1) / RM_TPB;
+  if (n <= 0) return 0;
+  if (grid == 0) {
+    const long lanes = (n + RM_NARROW_TPB - 1) / RM_NARROW_TPB * RM_NARROW_TPB;
+    for (long lane = 0; lane < lanes; lane++) rm_lane<F, SHARED>(a, b, out, n, lane);
+    return 0;
+  }
+  if (grid < 0 || grid > ntiles) return -2;
+  u32 y[F::N];
+  if (SHARED) fp_load_row<F>(y, b);
+  for (long block = 0; block < grid; block++) {
+    std::vector<Limb4> smem(2 * STAGE, Limb4{0, 0, 0, 0});
+    long tile = block;
+    for (int tid = 0; tid < RM_TPB; tid++) rm_issue<F, SHARED>(smem.data(), a, b, n, tile, tid);
+    for (int it = 0; tile < ntiles; tile += grid, it++) {
+      Limb4* cur = smem.data() + (it & 1) * STAGE;
+      const long next = tile + grid;
+      if (next < ntiles)
+        for (int tid = 0; tid < RM_TPB; tid++)
+          rm_issue<F, SHARED>(smem.data() + ((it + 1) & 1) * STAGE, a, b, n, next, tid);
+      for (int tid = 0; tid < RM_TPB; tid++) rm_row_mul<F, SHARED>(cur, y, tid);
+      for (int tid = 0; tid < RM_TPB; tid++) rm_drain<F>(out, cur, n, tile, tid);
+    }
+  }
+  return 0;
 }
 
 // The team kernels (ladder_team.cu, wsum_team.cu, chain_team.cu,
@@ -134,17 +169,24 @@ int host_mont_mul(const int* a, const int* b, int* out, int nlimbs, long m) {
   return 0;
 }
 
-// Row-major product of (n, nlimbs) arrays; b is one element when shared_b.
-int host_mont_mul_rm(const int* a, const int* b, int* out, int nlimbs, long n, int shared_b) {
-  for (long lane = 0; lane < n; lane++) {
-    if (nlimbs == 24)
-      lane_mont_mul_rm<FqParams>(a, b, out, lane, shared_b != 0);
-    else if (nlimbs == 16)
-      lane_mont_mul_rm<FrParams>(a, b, out, lane, shared_b != 0);
-    else
-      return -1;
-  }
-  return 0;
+// Row-major product of (n, nlimbs) arrays, b one element when shared_b: the
+// tiled form on `grid` blocks (1 .. the tiles) that walk the tiles as
+// k_mont_mul_rm does, or with grid 0 the narrow form's body on every lane of
+// its blocks.
+int host_mont_mul_rm(const int* a, const int* b, int* out, int nlimbs, long n, int shared_b,
+                     long grid) {
+  if (nlimbs == 24)
+    return shared_b ? host_rm<FqParams, true>(a, b, out, n, grid)
+                    : host_rm<FqParams, false>(a, b, out, n, grid);
+  if (nlimbs == 16)
+    return shared_b ? host_rm<FrParams, true>(a, b, out, n, grid)
+                    : host_rm<FrParams, false>(a, b, out, n, grid);
+  return -1;
+}
+
+// Slot of chunk k of row r in a staged tile of the row-major kernel.
+int host_rm_slot(int nlimbs, int r, int k) {
+  return nlimbs == 24 ? rm_slot<FqParams>(r, k) : rm_slot<FrParams>(r, k);
 }
 
 // K chained products on (G, nlimbs, L); wide = 0 needs G = 6.  The plain

@@ -32,7 +32,7 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("mont_mul.cu", "mont_mul_rm.cu", "mont_chain.cu", "ec_ops.cu", "ladder.cu",
            "ladder_team.cu", "bucket.cu", "wsum_team.cu", "chain_team.cu", "fold_team.cu",
            "fixed_base_team.cu")
-HEADERS = ("fp.cuh", "fp2.cuh", "ec.cuh", "ec_team.cuh", "launch.cuh")
+HEADERS = ("fp.cuh", "fp2.cuh", "ec.cuh", "ec_team.cuh", "launch.cuh", "mont_rm.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -269,11 +269,15 @@ def query(name: str, *args) -> int:
     return getattr(library(), symbol)(*args)
 
 
+@functools.lru_cache(maxsize=None)
+def _launcher(name: str):
+    """The C launcher of kernel `name` in the loaded library."""
+    return getattr(library(), _SIGNATURES[name][0])
+
+
 def launch(name: str, *args, counted_as: str | None = None) -> None:
     """Start kernel `name` on the current stream of the current device."""
-    symbol, _ = _SIGNATURES[name]
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = getattr(library(), symbol)(*args, stream)
+    rc = _launcher(name)(*args, torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"kernel {name}: launch failed with CUDA error {rc}")
     LAUNCHES[counted_as or name] += 1

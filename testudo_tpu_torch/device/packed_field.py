@@ -73,7 +73,9 @@ def mont_mul_rm(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tens
     """a * b * R^{-1} mod p on `(..., n)` limb tensors with broadcasting,
     canonical in and out.  When one operand is a single element (every
     leading axis of size 1) it is passed as such; any other broadcast is
-    expanded in memory first."""
+    expanded in memory first.  Operands of one shape (the sumcheck's
+    products) skip the broadcast, and a launch on the current device skips
+    the device switch: this wrapper's host time is paid on every launch."""
     n = spec.nlimbs
     if a.shape[-1] != n or b.shape[-1] != n:
         raise ValueError(
@@ -84,21 +86,28 @@ def mont_mul_rm(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tens
         raise ValueError(f"mont_mul_rm: no kernel for {n}-limb fields")
     if not (a.is_cuda or b.is_cuda):
         return mont_mul_rm_plain(spec, a, b)
-    shape = torch.broadcast_shapes(a.shape, b.shape)
-    if a.numel() == n and b.numel() != n:
-        a, b = b, a  # the product commutes: keep the single element second
-    shared = b.numel() == n and a.numel() != n
-    a = a.expand(shape).contiguous()
-    b = b.reshape(n).contiguous() if shared else b.expand(shape).contiguous()
-    build.require_cuda_int32("mont_mul_rm", a=a, b=b)
+    if a.shape == b.shape:
+        shared = False
+        a, b = a.contiguous(), b.contiguous()
+    else:
+        shape = torch.broadcast_shapes(a.shape, b.shape)
+        if a.numel() == n and b.numel() != n:
+            a, b = b, a  # the product commutes: keep the single element second
+        shared = b.numel() == n and a.numel() != n
+        a = a.expand(shape).contiguous()
+        b = b.reshape(n).contiguous() if shared else b.expand(shape).contiguous()
+    dev = a.get_device()
+    if a.dtype is not torch.int32 or b.dtype is not torch.int32 or b.get_device() != dev:
+        build.require_cuda_int32("mont_mul_rm", a=a, b=b)  # raises, saying why
     if a.data_ptr() % 16 or b.data_ptr() % 16:
         raise ValueError("mont_mul_rm: operands must be 16-byte aligned")
-    out = torch.empty(shape, dtype=torch.int32, device=a.device)
-    with torch.cuda.device(a.device):
-        build.launch(
-            "mont_mul_rm", a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
-            a.numel() // n, int(shared), counted_as="mont_mul_rm_" + spec.name,
-        )
+    out = torch.empty_like(a)
+    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), n, a.numel() // n, int(shared))
+    if dev == torch.cuda.current_device():
+        build.launch("mont_mul_rm", *args, counted_as="mont_mul_rm_" + spec.name)
+    else:
+        with torch.cuda.device(dev):
+            build.launch("mont_mul_rm", *args, counted_as="mont_mul_rm_" + spec.name)
     return out
 
 
