@@ -30,19 +30,23 @@ testudo_tpu_torch/csrc/, then
      into its host doublings, scalar conversion, fixed-base device time
      (CUDA events) and host mask muls;
   5. drives TestudoNIZK (core/snark.py: setup, `nizk_prove`, `nizk_verify`
-     on the Fr-sponge transcript): the golden 16 x 16 x 2 instance of
+     on the Fr-sponge transcript), with the fused sumcheck (the default) and
+     the looped one beside it: the golden 16 x 16 x 2 instance of
      tests/fixtures/golden_nizk.json proves to the fixture's bytes and
-     sponge states on the card; BASELINE config #3,
+     sponge states on the card with both; BASELINE config #3,
      `produce_synthetic_r1cs(2^16, 2^16, 10)`, proves to a 17,192 B sat
      proof that round-trips through the codec and verifies, the verifier
      rejects eval_vars_at_ry + 1 and a wrong input, and eval_vars_at_ry,
      the phase-2 claims and the verifier's (A, B, C)~(rx, ry) equal Python-int
      evaluations; setup, prove (cold, then three warm, split by the Timer
      labels commit / phase one / phase two / open) and verify (cold, warm)
-     are timed, the Poseidon permutations of a prove timed on the host and
-     its CUDA kernels counted under torch.profiler (with the row-major
-     product's device time and launches by size class), and the launches of one
-     warm prove and one verify counted (paths nizk_prove, nizk_verify);
+     are timed, three warm looped proves beside them (byte-equal), the
+     Poseidon permutations left on the host timed, each prover's CUDA kernels
+     counted under torch.profiler, by phase too (the fused prove's with the
+     row-major product's device time and launches by size class), and the
+     launches of one warm fused prove, one looped prove and one verify
+     counted (paths nizk_prove, nizk_prove_looped, nizk_verify: the fused
+     sumcheck's three kernels must run in the first and not in the second);
   6. runs the chained-product harness (tools/exp_montmul.py), which
      measures the card's Montgomery products per second;
   7. calls every kernel's wrapper at the shapes the main paths gave it and
@@ -74,17 +78,24 @@ testudo_tpu_torch/csrc/, then
      with edge scalars (0, 1, r - 1, 2, 2^252), against the plain sequence of
      masked adds (on a stride of the lanes at 2^16), timed beside the 256
      `add_mask` launches they replaced, `bound_ms` and `latency_bound_ms`;
+     the fused sumcheck's kernels: the Poseidon permutation on Fr and Fq
+     states, the round kernel for each kind at the NIZK's 2^16 and 2^17 rows
+     and at 2, 4 and 8 rows, with and without the fold (and the fold as
+     launches of its own beside it), the round tail on both sponges, each
+     against its plain version, timed beside `bound_ms` and, for the
+     permutation and the tail, `latency_bound_ms`;
   8. checks a small MSM against the host oracle;
   9. prints one JSON line {"kernels": [...]} (each row's `launches` is the
      sum of `launches_by_path`, the kernel's count on each driven path: msm,
-     fixed_base, field, setup, commit, open, verify, nizk_prove, nizk_verify,
-     harness; the run fails if a
+     fixed_base, field, setup, commit, open, verify, nizk_prove,
+     nizk_prove_looped, nizk_verify, harness; the run fails if a
      kernel was not launched on a path it belongs to) and, last,
      {"ok": true, "device": {...}}.
 
 Any failure raises and the process exits non-zero.  It imports neither jax
 nor the JAX package.  `--kernels-only` stops after a short build-and-compare
-pass at small shapes (a first call after editing a kernel); `--msm-only`
+pass at small shapes and the golden NIZK proof (a first call after editing a
+kernel); `--msm-only`
 stops after `msm_g1` and `msm_g2` at 2^20 (exact check, cold and warm times,
 phase split: to compare two checkouts on one card, run it from each in turn
 within one shell command); `--nizk-only` stops after the NIZK phase at 2^16
@@ -108,7 +119,7 @@ import numpy as np
 import torch
 
 from testudo_tpu_torch import native, proofs
-from testudo_tpu_torch.core import pst, r1cs, snark, sqrt_pst
+from testudo_tpu_torch.core import pst, r1cs, r1csproof, snark, sqrt_pst
 from testudo_tpu_torch.curves import host_curve as hc
 from testudo_tpu_torch.curves import pairing as pr
 from testudo_tpu_torch.curves import profile as cprof
@@ -116,6 +127,8 @@ from testudo_tpu_torch.device import build, msm
 from testudo_tpu_torch.device import curve as tc
 from testudo_tpu_torch.device import field as tf
 from testudo_tpu_torch.device import packed_field
+from testudo_tpu_torch.device import sponge as dsponge
+from testudo_tpu_torch.device import sumcheck_kernels as sk
 from testudo_tpu_torch.device.field import FQ, FR
 from testudo_tpu_torch.device.packed_curve import G1P, G2P
 from testudo_tpu_torch.fields.bls12_377 import R
@@ -154,6 +167,19 @@ _REPLACES = {
     "bucket_mixed": _EC + ":509", "ladder": _EC + ":733", "ladder_team": _EC + ":733",
     "wsum": _EC + ":450", "chain_team": _EC + ":415", "fold_team": _EC + ":415",
     "fixed_base": _EC + ":403", "fixed_base_one": _EC + ":403",
+    # the fused sumcheck: its products over 512 rows or more reach the Pallas
+    # product inside the reference's fused jit (tpu/field.py:292-295); the
+    # permutation and the tail are XLA ops there (row key "replaces_also")
+    "sumcheck_round": "testudo_tpu/tpu/pallas_field.py:226",
+    "poseidon_permute": "testudo_tpu/tpu/pallas_field.py:226",
+    "sumcheck_tail": "testudo_tpu/tpu/pallas_field.py:226",
+}
+_REPLACES_ALSO = {
+    "sumcheck_round": ["testudo_tpu/core/sumcheck.py:62", "testudo_tpu/core/sumcheck.py:222",
+                       "testudo_tpu/core/sumcheck.py:534", "testudo_tpu/poly/dense.py"],
+    "poseidon_permute": ["testudo_tpu/tpu/sponge.py:57"],
+    "sumcheck_tail": ["testudo_tpu/core/sumcheck.py:162", "testudo_tpu/core/sumcheck.py:187",
+                      "testudo_tpu/tpu/sponge.py:141", "testudo_tpu/tpu/sponge.py:213"],
 }
 _CSRC = "testudo_tpu_torch/csrc/"
 _SOURCE = {
@@ -166,7 +192,8 @@ _SOURCE = {
     "ladder": "ladder.cu", "ladder_team": "ladder_team.cu", "bucket": "bucket.cu",
     "bucket_mixed": "bucket.cu", "wsum": "wsum_team.cu", "chain_team": "chain_team.cu",
     "fold_team": "fold_team.cu", "fixed_base": "fixed_base_team.cu",
-    "fixed_base_one": "fixed_base_team.cu",
+    "fixed_base_one": "fixed_base_team.cu", "poseidon_permute": "poseidon.cu",
+    "sumcheck_round": "sumcheck_round.cu", "sumcheck_tail": "sumcheck_tail.cu",
 }
 # proof bytes (PST opening + MIPP proof) of sqrt-PST per number of variables:
 # counts of group and field elements, the same on any hardware
@@ -216,19 +243,26 @@ MUST_LAUNCH.update({
     "ladder_team": ("msm", "open"), "ladder_team_g2": ("msm", "open"),
     "bucket": ("msm", "commit", "open"), "wsum": ("msm", "open"),
 })
-# TestudoNIZK: one warm prove (its witness commit and its opening are the
-# sqrt-PST paths' kernels at nv = 16; every sumcheck, R1CS and eq-table
-# product is a row-major Fr product) and one verify (the verifier's
-# A~, B~, C~(rx, ry); the rest of a verify is on the host)
+# TestudoNIZK: one warm prove with the fused sumcheck (the default), one with
+# the looped one, each a path (their witness commit and opening are the
+# sqrt-PST paths' kernels at nv = 16; the R1CS and eq-table products are
+# row-major Fr products; the fused prove's sumcheck rounds are the round,
+# Poseidon and tail kernels, the looped prove's are row-major Fr products of
+# two full operands), and one verify (the verifier's A~, B~, C~(rx, ry); the
+# rest of a verify is on the host)
 _NIZK_PROVE_KERNELS = ("mont_mul_rm_fr", "mont_mul_rm_fq", "chain_team", "bucket", "ladder",
                        "fold_team", "ladder_team", "ladder_team_g2", "fold_team_g2", "wsum")
 for _name in _NIZK_PROVE_KERNELS:
-    MUST_LAUNCH[_name] += ("nizk_prove",)
+    MUST_LAUNCH[_name] += ("nizk_prove", "nizk_prove_looped")
 MUST_LAUNCH["mont_mul_rm_fr"] += ("nizk_verify",)
+FUSED_KERNELS = build.SUMCHECK_KERNELS  # launched by the fused prove only
+for _name in FUSED_KERNELS:
+    MUST_LAUNCH[_name] = ("nizk_prove",)
 # A row that times a kernel at a second shape reads its launches from the
 # kernel's counter, on the paths that give it that shape.
-ROW_COUNTER = {"mont_mul_rm_fr_full": ("mont_mul_rm_fr", ("nizk_prove", "nizk_verify"))}
-MUST_LAUNCH["mont_mul_rm_fr_full"] = ("nizk_prove",)
+ROW_COUNTER = {"mont_mul_rm_fr_full": ("mont_mul_rm_fr",
+                                       ("nizk_prove", "nizk_prove_looped", "nizk_verify"))}
+MUST_LAUNCH["mont_mul_rm_fr_full"] = ("nizk_prove_looped",)
 N_UNIQUE = 1 << 13
 ODD = 37  # extra lanes so no compared batch is a multiple of a block size
 
@@ -848,21 +882,29 @@ def phase_nizk_golden(dev):
         p["num_cons"], p["num_vars"], p["num_inputs"], seed=p["seed"])
     gens = snark.TestudoNizkGens.setup(p["num_cons"], p["num_vars"], p["num_inputs"],
                                        profile=cprof.bls12_377(dev))
-    tp = PoseidonTranscript(fr_params())
-    proof = snark.nizk_prove(inst, vars_, inputs, gens, tp)
-    blob = proofs.ser_r1cs_proof(proof.r1cs_sat_proof)
-    if hashlib.sha256(blob).hexdigest() != fix["sat_proof_sha256"] or blob.hex() != fix["sat_proof_hex"]:
-        raise AssertionError("the golden NIZK proof on the card differs from the fixture's bytes")
-    if [hex(v) for v in tp.sponge.state] != fix["prover_final_sponge_state"]:
-        raise AssertionError("the golden NIZK prover ends in another sponge state")
-    tv = PoseidonTranscript(fr_params())
-    if snark.nizk_verify(proof, gens, inst, inputs, tv) is not True:
-        raise AssertionError("the golden NIZK proof did not verify on the card")
-    if [hex(v) for v in tv.sponge.state] != fix["verifier_final_sponge_state"]:
-        raise AssertionError("the golden NIZK verifier ends in another sponge state")
-    say(f"NIZK golden ({p['num_cons']} x {p['num_vars']} x {p['num_inputs']}, seed {p['seed']}) "
-        f"on the card: sat proof {len(blob)} B byte-equal to the fixture (sha256 "
-        f"{fix['sat_proof_sha256'][:12]}...), both final sponge states equal, verified")
+    for fused in (True, False):
+        which = "fused" if fused else "looped"
+        build.reset_launches()
+        tp = PoseidonTranscript(fr_params())
+        proof = snark.nizk_prove(inst, vars_, inputs, gens, tp, fused=fused)
+        launched = sum(build.LAUNCHES[k] for k in FUSED_KERNELS)
+        if (launched == 0) == fused:
+            raise AssertionError(f"the golden NIZK prove ({which}) launched {launched} fused "
+                                 f"sumcheck kernels")
+        blob = proofs.ser_r1cs_proof(proof.r1cs_sat_proof)
+        if hashlib.sha256(blob).hexdigest() != fix["sat_proof_sha256"] or blob.hex() != fix["sat_proof_hex"]:
+            raise AssertionError(f"the golden NIZK proof ({which}) on the card differs from the "
+                                 f"fixture's bytes")
+        if [hex(v) for v in tp.sponge.state] != fix["prover_final_sponge_state"]:
+            raise AssertionError(f"the golden NIZK prover ({which}) ends in another sponge state")
+        tv = PoseidonTranscript(fr_params())
+        if snark.nizk_verify(proof, gens, inst, inputs, tv) is not True:
+            raise AssertionError(f"the golden NIZK proof ({which}) did not verify on the card")
+        if [hex(v) for v in tv.sponge.state] != fix["verifier_final_sponge_state"]:
+            raise AssertionError("the golden NIZK verifier ends in another sponge state")
+        say(f"NIZK golden ({p['num_cons']} x {p['num_vars']} x {p['num_inputs']}, seed {p['seed']}) "
+            f"on the card, {which} sumcheck: sat proof {len(blob)} B byte-equal to the fixture "
+            f"(sha256 {fix['sat_proof_sha256'][:12]}...), both final sponge states equal, verified")
 
 
 def phase_nizk(dev, log2n: int):
@@ -881,9 +923,12 @@ def phase_nizk(dev, log2n: int):
     gens, setup_ms = timed_once(
         lambda: snark.TestudoNizkGens.setup(n, n, NIZK_INPUTS, profile=pf))
 
-    def prove():
+    def prove(fused=True):
         tp = PoseidonTranscript(fr_params())
-        return snark.nizk_prove(inst, vars_, inputs, gens, tp), tp
+        return snark.nizk_prove(inst, vars_, inputs, gens, tp, fused=fused), tp
+
+    def prove_looped():
+        return prove(False)
 
     def verify(proof, ins=inputs):
         return snark.nizk_verify(proof, gens, inst, ins, PoseidonTranscript(fr_params()))
@@ -928,17 +973,24 @@ def phase_nizk(dev, log2n: int):
         raise AssertionError(f"{what}: inst.evaluate(rx, ry) on the card differs from the host sum")
     host_s = time.perf_counter() - t0
 
-    # warm: three proves (the last one's launches counted), all byte-equal
-    walls, splits = [], []
-    for i in range(3):
-        build.reset_launches()
-        with timer.record() as rec:
-            (p2, _), ms = timed_once(prove)
-        counts_prove = dict(build.LAUNCHES)
-        walls.append(ms / 1e3)
-        splits.append(_nizk_split(rec))
-        if proofs.ser_r1cs_proof(p2.r1cs_sat_proof) != blob:
-            raise AssertionError(f"{what}: a warm prove gave other bytes")
+    # warm: three fused proves, then three looped ones (the last of each
+    # counted), all byte-equal
+    walls, splits, counts = {}, {}, {}
+    for which, fn in (("fused", prove), ("looped", prove_looped)):
+        walls[which], splits[which] = [], []
+        for i in range(3):
+            build.reset_launches()
+            with timer.record() as rec:
+                (p2, _), ms = timed_once(fn)
+            counts[which] = dict(build.LAUNCHES)
+            walls[which].append(ms / 1e3)
+            splits[which].append(_nizk_split(rec))
+            if proofs.ser_r1cs_proof(p2.r1cs_sat_proof) != blob:
+                raise AssertionError(f"{what}: a warm {which} prove gave other bytes")
+    counts_prove = counts["fused"]
+    if any(counts["looped"][k] for k in FUSED_KERNELS) or not all(counts_prove[k] for k in FUSED_KERNELS):
+        raise AssertionError(f"{what}: the fused sumcheck kernels ran in the looped prove or not "
+                             f"in the fused one")
     build.reset_launches()
     with timer.record() as rec:
         ok, verify_warm = timed_once(lambda: verify(proof))
@@ -957,33 +1009,48 @@ def phase_nizk(dev, log2n: int):
         perm[0] += time.perf_counter() - t
         perm[1] += 1
 
+    perms = {}
     sponge.PoseidonSponge.permute = timed_permute
     try:
-        _, perm_prove_ms = timed_once(prove)
+        for which, fn in (("fused", prove), ("looped", prove_looped)):
+            perm[:] = [0.0, 0]
+            _, ms = timed_once(fn)
+            perms[which] = (perm[0], perm[1], ms)
     finally:
         sponge.PoseidonSponge.permute = orig
-    # and one under the profiler: the device's kernels, by count and time
-    prof_line = nizk_profile(prove)
+    # and under the profiler: the device's kernels, by count and time, by phase
+    # for both provers; the largest kernels and the row-major product's share
+    # for the fused one (the default)
+    prof_lines = {"fused": nizk_profile(prove) + "\n    " + nizk_phase_profile(prove),
+                  "looped": nizk_phase_profile(prove_looped)}
 
     nz = lambda d: {k: v for k, v in d.items() if v}
     say(f"{what} ({n} constraints, {n} variables, {NIZK_INPUTS} inputs): sat proof {len(blob)} B, "
         f"codec round trip, verified; eval_vars_at_ry + 1 and a wrong input rejected; "
         f"eval_vars_at_ry, Az/Bz/Cz at rx and (A, B, C)~(rx, ry) equal Python ints "
         f"({host_s:.1f} s of host checks); instance built in {inst_s:.1f} s")
-    say(f"  {what} times: setup (cold) {setup_ms / 1e3:.4f} s; prove cold {prove_cold / 1e3:.4f} s "
-        f"{json.dumps(split_cold)}; warm {[round(x, 4) for x in walls]} s, median "
-        f"{statistics.median(walls):.4f} s; verify cold {verify_cold / 1e3:.4f} s, warm "
-        f"{verify_warm / 1e3:.4f} s")
-    for i, sp in enumerate(splits):
-        say(f"  {what} warm prove {i} split (s): {json.dumps(sp)}")
+    say(f"  {what} times: setup (cold) {setup_ms / 1e3:.4f} s; prove cold (fused) "
+        f"{prove_cold / 1e3:.4f} s {json.dumps(split_cold)}; verify cold {verify_cold / 1e3:.4f} s, "
+        f"warm {verify_warm / 1e3:.4f} s")
+    for which in ("fused", "looped"):
+        say(f"  {what} warm proves, {which} sumcheck: {[round(x, 4) for x in walls[which]]} s, "
+            f"median {statistics.median(walls[which]):.4f} s")
+        for i, sp in enumerate(splits[which]):
+            say(f"  {what} warm {which} prove {i} split (s): {json.dumps(sp)}")
     say(f"  {what} verify parts (s): {json.dumps(verify_parts)}; A~, B~, C~(rx, ry) alone "
         f"{eval_ms:.1f} ms")
-    say(f"  {what} Poseidon permutations in one warm prove: {perm[1]} calls, "
-        f"{perm[0]:.4f} s on the host (that prove {perm_prove_ms / 1e3:.4f} s)")
-    say(f"  {what} {prof_line}")
-    say(f"  {what} launches, one warm prove: {json.dumps(nz(counts_prove))}")
+    for which, (secs, calls, ms) in perms.items():
+        say(f"  {what} Poseidon permutations on the host in one warm {which} prove: {calls} calls, "
+            f"{secs:.4f} s (that prove {ms / 1e3:.4f} s)")
+    for which, line in prof_lines.items():
+        say(f"  {what} {which} {line}")
+    say(f"  {what} launches of the fused sumcheck's kernels in one warm prove: "
+        f"{json.dumps({k: counts_prove[k] for k in FUSED_KERNELS})}")
+    say(f"  {what} launches, one warm fused prove: {json.dumps(nz(counts_prove))}")
+    say(f"  {what} launches, one warm looped prove: {json.dumps(nz(counts['looped']))}")
     say(f"  {what} launches, one verify: {json.dumps(nz(counts_verify))}")
-    return {"nizk_prove": counts_prove, "nizk_verify": counts_verify}
+    return {"nizk_prove": counts_prove, "nizk_prove_looped": counts["looped"],
+            "nizk_verify": counts_verify}
 
 
 def nizk_profile(prove) -> str:
@@ -1002,6 +1069,58 @@ def nizk_profile(prove) -> str:
             + "; ".join(f"{name[:60]} {ms:.1f} ms x {cnt}" for name, ms, cnt in p["largest"])
             + f"\n    mont_mul_rm: {p['mont_mul_rm_ms']:.4f} ms of device time over "
             f"{p['mont_mul_rm_launches']} launches; by size class: {classes}")
+
+
+def nizk_phase_profile(prove) -> str:
+    """One prove under torch.profiler with a synchronise where each of the
+    prover's timer labels starts and stops (so that a phase's kernels run
+    inside its range): the CUDA kernels and their device time by phase,
+    each kernel given to the range its device start falls in."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    plain_timer = r1csproof.Timer
+    labels = set()
+
+    class RangeTimer(plain_timer):
+        def __init__(self, label):
+            torch.cuda.synchronize()
+            labels.add(label)
+            self.range = record_function(label)
+            self.range.__enter__()
+            super().__init__(label)
+
+        def stop(self):
+            torch.cuda.synchronize()
+            self.range.__exit__(None, None, None)
+            return super().stop()
+
+    r1csproof.Timer = RangeTimer
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            prove()
+            torch.cuda.synchronize()
+    finally:
+        r1csproof.Timer = plain_timer
+    events = prof.events()
+    # the ranges themselves also appear on the device's timeline: leave them out
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in labels]
+    if not kernels:
+        return "kernels by phase: not measured (no device events)"
+    ranges = {e.name: (e.time_range.start, e.time_range.end) for e in events
+              if e.name in NIZK_LABELS and e.device_type == torch.autograd.DeviceType.CPU}
+    split, left = {}, list(kernels)
+    for label, short in NIZK_LABELS.items():
+        if label not in ranges:
+            split[short] = "not measured (no range)"
+            continue
+        lo, hi = ranges[label]
+        inside = [k for k in left if lo <= k.time_range.start <= hi]
+        left = [k for k in left if not lo <= k.time_range.start <= hi]
+        split[short] = [len(inside), round(sum(k.time_range.elapsed_us() for k in inside) / 1e3, 4)]
+    split["rest"] = [len(left), round(sum(k.time_range.elapsed_us() for k in left) / 1e3, 4)]
+    split["all"] = [len(kernels), round(sum(k.time_range.elapsed_us() for k in kernels) / 1e3, 4)]
+    return f"kernels by phase [count, device ms] (profiled, synchronised at the labels): {json.dumps(split)}"
 
 
 def phase_harness(dev):
@@ -1694,6 +1813,182 @@ def kernels_group(dev, grp, rep: Report, proj, pts_cmp, scal_cmp, pts_time, scal
     rep.max_nseg[grp.name] = int(nseg.max())
 
 
+def _random_elements(spec, shape, rng, dev) -> torch.Tensor:
+    """Canonical elements (limbs below p) of the given leading shape, 0, 1 and
+    p - 1 first along the flattened order."""
+    vals = rng.integers(0, 1 << 16, size=tuple(shape) + (spec.nlimbs,), dtype=np.int64)
+    vals[..., -1] &= 0x00FF if spec is FQ else 0x0FFF
+    flat = vals.reshape(-1, spec.nlimbs)
+    edges = spec.to_limbs([0, 1, spec.modulus - 1])[: len(flat)]
+    flat[: len(edges)] = edges
+    return torch.as_tensor(flat.reshape(vals.shape).astype(np.int32), device=dev)
+
+
+def all_kernels_ms(fn, once: str, reps: int = 20) -> float:
+    """Device milliseconds a call of fn, all its CUDA kernels summed
+    (torch.profiler over `reps` calls after a warm-up), over the calls the
+    profiler saw: those of the kernel named `once`, which fn launches once
+    (the profiler drops an event now and then)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    calls = sum(once in e.name for e in evs)
+    return sum(e.time_range.elapsed_us() for e in evs) / calls / 1e3 if calls else None
+
+
+POS_PRODUCTS = 5 * (3 * 8 + 31) + 9 * 39  # a permutation: S-boxes (x^17) and MDS rows
+POS_DEPENDENT = 39 * 6  # its chain of dependent products: 5 a round's S-box, 1 its MDS
+
+
+def _round_work(kind, n, k_par, k_seq, fold):
+    """(bytes, products) of one round launch on n-row tables: every table
+    read once, the folded half written once, the partial sums; the fold's
+    2 products a table a pair and the combination's products."""
+    T = sk.stack_size(kind, k_par, k_seq)
+    k = len(sk.instance_tables(kind, k_par, k_seq))
+    pairs = n // 4 if fold else n // 2
+    comb = {"quad": 1, "cubic_tau": 2, "cubic": 2}[kind] * sk.POINTS[kind] * k
+    nbytes = T * n * 64 + (T * n // 2 * 64 if fold else 0) + k * sk.round_blocks(n, fold) * sk.POINTS[kind] * 64
+    return nbytes, pairs * ((2 * T if fold else 0) + comb)
+
+
+def kernels_sumcheck(dev, rep: Report, lat_fq: float, lat_fr: float, quick: bool):
+    """The fused sumcheck's kernels against their plain versions, exactly.
+
+    Poseidon: one launch on ODD Fr and ODD Fq states (0, 1, p - 1 among the
+    limbs), timed on one state (the prove's shape) by its device time
+    (torch.profiler); latency_bound_ms: the permutation's 234 dependent
+    products times one product's latency at one warp.  Round: each kind at
+    the NIZK's widths (phase one's cubic_tau at 2^16 rows, phase two's quad
+    at 2^17) and the batched layout (k_par, k_seq) = (2, 1) at 2^12, with and
+    without the fold, and at 2, 4 and 8 rows (the last fold among them); the
+    folded tables and the sums of the partials compared; timed with the L2
+    cache flushed before each launch and back to back, and beside the fold
+    as launches of its own.  Tail: both sponges, both point counts, from
+    (absorbing, 0) (the path's start) and (squeezing, 2) (the CPU tests take
+    every start), three instances over the blocks of a 2^16 round; timed at
+    phase one's shape on the Fr sponge from (absorbing, 0), as the prove runs
+    it."""
+    rng = np.random.default_rng(61)
+    flush = exp_mont_rm.l2_flusher(dev)
+    prof = lambda fn, name, fl=None: exp_mont_rm.profiled_ms(fn, name, reps=20, flush=fl)
+
+    # -- Poseidon
+    pos = {}
+    for spec, lat in ((FR, lat_fr), (FQ, lat_fq)):
+        st = _random_elements(spec, (ODD, 3), rng, dev)
+        got, want = dsponge.permute(spec, st), dsponge.permute_plain(spec, st)
+        one = st[5].contiguous()
+        ms = prof(lambda: dsponge.permute(spec, one), "k_poseidon_permute")
+        plain = time_ms(lambda: dsponge.permute_plain(spec, one), 1)
+        b_ms, b_by = bound(2 * 3 * spec.nlimbs * 4, POS_PRODUCTS * exp_montmul.madds_per_product(spec))
+        pos[spec.name] = (got, want, ms, plain, b_ms, b_by, POS_DEPENDENT * lat / 1e3)
+    got, want, ms, plain, _, _, lat_ms = pos["fr"]
+    rep.add("poseidon_permute", (got, pos["fq"][0]), (want, pos["fq"][1]), ms, plain,
+            2 * 3 * FR.nlimbs * 4, POS_PRODUCTS * MADD_FR,
+            f"one (3, 16) Fr state (the NIZK's sponge); compared on {ODD} Fr and {ODD} Fq states")
+    _, _, ms_q, plain_q, b_q, by_q, lat_q = pos["fq"]
+    rep.rows["poseidon_permute"].update({
+        "latency_bound_ms": lat_ms, "latency_us_per_product": lat_fr, "ms_fq": ms_q,
+        "plain_ms_fq": plain_q, "bound_ms_fq": b_q, "bound_by_fq": by_q,
+        "latency_bound_ms_fq": lat_q, "latency_us_per_product_fq": lat_fq})
+    say(f"  poseidon_permute: Fr {ms:.5f} ms (latency bound {lat_ms:.5f}), Fq {ms_q:.5f} ms "
+        f"(latency bound {lat_q:.5f})")
+
+    # -- round
+    big = [("cubic_tau", 1, 0, 1 << (10 if quick else 16)), ("quad", 1, 0, 1 << (11 if quick else 17)),
+           ("cubic", 2, 1, 1 << 12)]
+    small = [(kind, kp, ks, n) for kind, kp, ks in (("quad", 1, 0), ("cubic_tau", 1, 0),
+                                                     ("cubic", 1, 0), ("cubic", 2, 1))
+             for n in (2, 4, 8)]
+    gots, wants, timed = [], [], {}
+    for kind, kp, ks, n in big + small:
+        src = _random_elements(FR, (sk.stack_size(kind, kp, ks), n), rng, dev)
+        r = _random_elements(FR, (1,), rng, dev)[0].contiguous()
+        for rr in (None, r):
+            dst, part = sk.sumcheck_round(kind, src, rr, kp, ks)
+            w_dst, w_part = sk.sumcheck_round_plain(kind, src, rr, kp, ks)
+            gots += [dst, tf.reduce_sum(FR, part, axis=1, mul=tf.mont_mul_plain)]
+            wants += [w_dst, w_part[:, 0]]
+        if (kind, kp, ks, n) in big:
+            cold = prof(lambda: sk.sumcheck_round(kind, src, r, kp, ks), "k_sumcheck_round", flush)
+            warm = prof(lambda: sk.sumcheck_round(kind, src, r, kp, ks), "k_sumcheck_round")
+            plain = time_ms(lambda: sk.sumcheck_round_plain(kind, src, r, kp, ks), 1)
+            nbytes, products = _round_work(kind, n, kp, ks, True)
+            timed[f"{kind} ({kp}, {ks}) 2^{n.bit_length() - 1}"] = (cold, warm, plain, nbytes, products)
+    # the fold inside the round against the fold as launches of its own
+    # (dense.bound_top of each table, then the round without a fold), at
+    # phase one's shape: device time of all their kernels, and CUDA events
+    # around back-to-back calls (the host's launches included)
+    kind, kp, ks, n = big[0]
+    src = _random_elements(FR, (sk.stack_size(kind, kp, ks), n), rng, dev)
+    r = _random_elements(FR, (1,), rng, dev)[0].contiguous()
+    inside = lambda: sk.sumcheck_round(kind, src, r, kp, ks)
+    apart = lambda: sk.sumcheck_round(kind, torch.stack([dense.bound_top(t, r) for t in src]))
+    if not all(torch.equal(a, b) for a, b in zip(inside(), apart())):
+        raise AssertionError("sumcheck_round: the fold inside the round and apart differ")
+    fold_cmp = {"inside_device_ms": all_kernels_ms(inside, "k_sumcheck_round"),
+                "apart_device_ms": all_kernels_ms(apart, "k_sumcheck_round"),
+                "inside_events_ms": time_ms(inside, 20), "apart_events_ms": time_ms(apart, 20)}
+    say(f"  sumcheck_round at phase one's 2^{n.bit_length() - 1}: the fold inside the round "
+        f"{fold_cmp['inside_device_ms']} ms of device time ({fold_cmp['inside_events_ms']:.5f} ms "
+        f"a call back to back); apart {fold_cmp['apart_device_ms']} "
+        f"({fold_cmp['apart_events_ms']:.5f})")
+    label = f"cubic_tau (1, 0) 2^{big[0][3].bit_length() - 1}"
+    cold, warm, plain, nbytes, products = timed[label]
+    rep.add("sumcheck_round", tuple(gots), tuple(wants), cold, plain, nbytes, products * MADD_FR,
+            f"{label}: phase one's round with the fold, 4 tables, L2 flushed; compared at "
+            f"{len(big) + len(small)} shapes with and without the fold")
+    extra = {}
+    for lbl, (c, w, pl, nb_, pr) in timed.items():
+        b_ms, b_by = bound(nb_, pr * MADD_FR)
+        extra[lbl] = {"ms": c, "ms_l2_warm": w, "plain_ms": pl, "bound_ms": b_ms, "bound_by": b_by}
+        say(f"  sumcheck_round {lbl} (fold): {c:.5f} ms L2 flushed, {w:.5f} warm, bound "
+            f"{b_ms:.5f} ({b_by}), plain {pl:.2f}")
+    rep.rows["sumcheck_round"].update({"shapes": extra, "ms_l2_warm": warm, "fold": fold_cmp})
+
+    # -- tail
+    nb = sk.round_blocks(big[0][3], True)
+    gots, wants = [], []
+    for spec in (FR, FQ):
+        for kind in ("quad", "cubic_tau"):
+            part = _random_elements(FR, (3, nb, sk.POINTS[kind]), rng, dev)
+            coeffs = _random_elements(FR, (3,), rng, dev)
+            e = _random_elements(FR, (1,), rng, dev)[0].contiguous()
+            state = _random_elements(spec, (3,), rng, dev)
+            for mode, index in ((0, 0), (1, 2)):  # the path's start and one more
+                gots.append(sk.sumcheck_tail(kind, part, coeffs, e, state, spec, mode, index))
+                wants.append(sk.sumcheck_tail_plain(kind, part, coeffs, e, state, spec, mode, index))
+    part = _random_elements(FR, (1, nb, 3), rng, dev)
+    one = _random_elements(FR, (1,), rng, dev)
+    e = one[0].contiguous()
+    state = _random_elements(FR, (3,), rng, dev)
+    run = lambda: sk.sumcheck_tail("cubic_tau", part, one, e, state, FR, 0, 0)
+    ms = prof(run, "k_sumcheck_tail")
+    plain = time_ms(lambda: sk.sumcheck_tail_plain("cubic_tau", part, one, e, state, FR, 0, 0), 1)
+    # from (absorbing, 0): absorb d, c, then a permutation, b, a, then the
+    # squeeze's permutation; the products of the sums, coefficients, Horner
+    products = 2 * POS_PRODUCTS + 3 + 2 + 3
+    dependent = 2 * POS_DEPENDENT + 1 + 1 + 3
+    rep.add("sumcheck_tail", tuple(t for g in gots for t in g), tuple(t for w in wants for t in w),
+            ms, plain, nb * 3 * 64 + 4 * 64 + 6 * 64 + 4 * 64, products * MADD_FR,
+            f"phase one's tail: {nb} blocks x 3 points, Fr sponge from (absorbing, 0); compared on "
+            f"both sponges, 2 and 3 points, 3 instances, 2 (mode, index) starts")
+    rep.rows["sumcheck_tail"].update({"latency_bound_ms": dependent * lat_fr / 1e3,
+                                      "latency_us_per_product": lat_fr})
+    say(f"  sumcheck_tail: {ms:.5f} ms (latency bound {dependent * lat_fr / 1e3:.5f})")
+    for name in FUSED_KERNELS:
+        rep.rows[name]["replaces_also"] = _REPLACES_ALSO[name]
+        rep.rows[name]["ptxas"] = [ln for ln in build.build_report()["ptxas"]
+                                   if ln.startswith("k_" + name)]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels-only", action="store_true",
@@ -1725,13 +2020,17 @@ def main(argv=None) -> int:
 
     # one dependent Fq product at one warp: the ladders' latency bound
     lat_us = exp_montmul.measure_latency(FQ, dev)["inline"]["us_per_product"]
-    say(f"latency of one dependent Fq product at one warp (inlined): {lat_us:.4f} us")
+    lat_fr = exp_montmul.measure_latency(FR, dev)["inline"]["us_per_product"]
+    say(f"latency of one dependent product at one warp (inlined): Fq {lat_us:.4f} us, "
+        f"Fr {lat_fr:.4f} us")
 
     if args.kernels_only:
         N = 1 << 14
         kernels_montgomery(dev, rep, quick=True)
         kernels_rowmajor(dev, rep, quick=True)
         kernels_chain(dev, rep, quick=True)
+        kernels_sumcheck(dev, rep, lat_us, lat_fr, quick=True)
+        phase_nizk_golden(dev)
         phase_sqrt_pst(dev, 10, full=False)
         for grp in (g1, g2):
             pts = tile(affine[grp.name], N // N_UNIQUE)
@@ -1796,6 +2095,7 @@ def main(argv=None) -> int:
     kernels_montgomery(dev, rep, quick=False)
     kernels_rowmajor(dev, rep, quick=False)
     kernels_chain(dev, rep, quick=False)
+    kernels_sumcheck(dev, rep, lat_us, lat_fr, quick=False)
     kernels_group(dev, g1, rep, proj["g1"], *batches["g1", 20], *batches["g1", 20], lat_us,
                   quick=False)
     kernels_commit_bucket(dev, rep, canon, basis)

@@ -104,7 +104,7 @@ def test_build_lists_every_source_and_sets_argtypes():
         decl = re.search(rf'extern "C" int {symbol}\((.*?)\)', src, re.S).group(1)
         params = [p.strip() for p in decl.split(",")]
         assert len(params) == len(argtypes), name
-        if name in build._SIGNATURES and not name.startswith("mont_"):
+        if name in build.EC_KERNELS:
             assert params[-2] == "int ncomp", name
         for p, t in zip(params, argtypes):
             want = ctypes.c_void_p if "*" in p else (ctypes.c_long if p.startswith("long") else ctypes.c_int)

@@ -5,11 +5,16 @@ sumcheck and the R1CS products on CPU tensors, i.e. the kernels' plain
 versions; every group operation on the host).
 
   - The golden instance (16 x 16 x 2, seed 7) proves to the bytes of
-    tests/fixtures/golden_nizk.json, with both final sponge states equal.
+    tests/fixtures/golden_nizk.json, with both final sponge states equal,
+    with the fused sumcheck (the default) and with the looped one.
   - A second instance (32 x 32 x 3, seed 11: an odd sqrt-PST matrix) proved
     by both packages gives byte-equal proofs and sponge states.  The JAX side
     runs with TESTUDO_HOST_CURVE=1, a cleared profile cache, an empty
-    `pst._SETUP_CACHE` and the looped sumcheck (TESTUDO_FUSED_SUMCHECK=0).
+    `pst._SETUP_CACHE` and the looped sumcheck (TESTUDO_FUSED_SUMCHECK=0): its
+    fused jit compiles for minutes a shape on a CPU, so the JAX side stays
+    pinned looped (the port's side runs its fused default;
+    tests/test_torch_sumcheck_fused.py holds the fused provers against the
+    looped ones, and, slow-marked, against the JAX fused jit).
   - Each package's verifier accepts the other's proof, carried across by
     `convert`; the codecs round-trip; the verifier rejects corrupted proofs.
 Exact: bytes and field elements."""
@@ -50,11 +55,11 @@ def _profile():
     return cprof.bls12_377("cpu", host_groups=True)
 
 
-def _prove(nc, nv, ni, seed):
+def _prove(nc, nv, ni, seed, fused=True):
     inst, vars_, inputs = r1cs.Instance.produce_synthetic_r1cs(nc, nv, ni, seed=seed)
     gens = snark.TestudoNizkGens.setup(nc, nv, ni, profile=_profile())
     tp = PoseidonTranscript(fr_params())
-    proof = snark.nizk_prove(inst, vars_, inputs, gens, tp)
+    proof = snark.nizk_prove(inst, vars_, inputs, gens, tp, fused=fused)
     return dict(inst=inst, vars=vars_, inputs=inputs, gens=gens, proof=proof,
                 blob=proofs.ser_r1cs_proof(proof.r1cs_sat_proof),
                 prover_state=list(tp.sponge.state))
@@ -115,6 +120,15 @@ def test_golden_proof_bytes_equal_the_fixture(golden, fix):
     assert blob.hex() == fix["sat_proof_hex"]
     assert [hex(v) for v in golden["prover_state"]] == fix["prover_final_sponge_state"]
     assert golden["launches"] == 0  # CPU tensors take the plain versions
+
+
+def test_golden_proof_bytes_equal_the_fixture_looped(fix):
+    p = fix["params"]
+    run = _prove(p["num_cons"], p["num_vars"], p["num_inputs"], p["seed"], fused=False)
+    assert run["blob"].hex() == fix["sat_proof_hex"]
+    assert [hex(v) for v in run["prover_state"]] == fix["prover_final_sponge_state"]
+    ok, state = _verify(run)
+    assert ok is True and [hex(v) for v in state] == fix["verifier_final_sponge_state"]
 
 
 def test_golden_proof_verifies_to_the_fixture_state(golden, fix):

@@ -250,7 +250,8 @@ def test_cpu_path_launches_no_kernel():
           "bucket_mixed", "wsum", "chain_team", "fold_team", "fixed_base", "fixed_base_one"}
     field = {"mont_mul", "mont_mul_rm_fq", "mont_mul_rm_fr", "mont_chain", "mont_chain_seq",
              "mont_chain_wide"}
-    assert set(build.LAUNCHES) == field | ec | {k + "_g2" for k in ec}
+    sumcheck = {"poseidon_permute", "sumcheck_round", "sumcheck_tail"}
+    assert set(build.LAUNCHES) == field | sumcheck | ec | {k + "_g2" for k in ec}
 
 
 @pytest.mark.parametrize("op", ["add2", "step", "scan2b", "ladder", "bucket_phase"])

@@ -1,5 +1,6 @@
 """The port's sumcheck (testudo_tpu_torch/core/sumcheck.py) against the JAX
-package's core/sumcheck.py, in its looped form: each round-evaluation function
+package's core/sumcheck.py, in its looped form (`fused=False` on the port's
+side; tests/test_torch_sumcheck_fused.py holds the fused provers): each round-evaluation function
 on tables of 2^3 and 2^6 rows, and each of the four provers on tables of 2^3 to
 2^5 rows, on the same inputs made from a numpy seed.  The JAX side runs with
 TESTUDO_FUSED_SUMCHECK=0 (and TESTUDO_FUSED_SPARK=0), so its looped provers run
@@ -102,17 +103,17 @@ def _run_provers(kind, sponge):
     if kind == "cubic_tau":
         vals, ours, theirs = _tables(21, 1 << 4, 4)
         claim = _claim_cubic_tau(vals)
-        got = sc.prove_cubic_with_additive_term(claim, 4, *ours, tp)
+        got = sc.prove_cubic_with_additive_term(claim, 4, *ours, tp, fused=False)
         want = jsc.prove_cubic_with_additive_term(claim, 4, *theirs, jtp)
     elif kind == "quad":
         vals, ours, theirs = _tables(22, 1 << 5, 2)
         claim = sum(a * b for a, b in zip(*vals)) % R
-        got = sc.prove_quad(claim, 5, *ours, tp)
+        got = sc.prove_quad(claim, 5, *ours, tp, fused=False)
         want = jsc.prove_quad(claim, 5, *theirs, jtp)
     elif kind == "cubic":
         vals, ours, theirs = _tables(23, 1 << 3, 3)
         claim = sum(a * b * c for a, b, c in zip(*vals)) % R
-        got = sc.prove_cubic(claim, 3, *ours, tp)
+        got = sc.prove_cubic(claim, 3, *ours, tp, fused=False)
         want = jsc.prove_cubic(claim, 3, *theirs, jtp)
     else:  # batched: two instances sharing C, one with its own weights
         vals, ours, theirs = _tables(24, 1 << 3, 6)
@@ -125,7 +126,7 @@ def _run_provers(kind, sponge):
                   sum(a * b * c for a, b, c in zip(vals[1], vals[0], vals[4])),
                   sum(a * b * c for a, b, c in zip(vals[2], vals[3], vals[5]))]
         claim = sum(cf * c for cf, c in zip(coeffs, claims)) % R
-        got = sc.prove_cubic_batched(claim, 3, *split(ours), coeffs, tp)
+        got = sc.prove_cubic_batched(claim, 3, *split(ours), coeffs, tp, fused=False)
         want = jsc.prove_cubic_batched(claim, 3, *split(theirs), coeffs, jtp)
     return got, want, tp, jtp, claim
 

@@ -24,7 +24,8 @@ commented out, r1csproof.rs:465-485; the JAX package does not reproduce
 that, nor does this one).
 
 The prover's tables live on the device of the generators' curve profile;
-the `Timer` labels (`polycommit (sqrt-PST)`, `prove_sc_phase_one`,
+both sumcheck phases take the fused provers unless `prove(..., fused=False)`
+asks for the looped ones (core/sumcheck.py); the `Timer` labels (`polycommit (sqrt-PST)`, `prove_sc_phase_one`,
 `prove_sc_phase_two`, `polyeval (sqrt-PST open)`) split a prove.
 """
 from __future__ import annotations
@@ -78,7 +79,10 @@ def prove(
     inputs: List[int],
     gens: R1CSGens,
     transcript,
+    fused: bool = True,
 ) -> Tuple[R1CSProof, List[int], List[int]]:
+    """R1CSProof::prove; `fused` picks the sumcheck provers (fused, the
+    default, or looped: the same proof)."""
     if len(inputs) >= len(vars_):
         raise ValueError(f"{len(inputs)} inputs need more than {len(vars_)} variables")
     profile = gens.ck.profile
@@ -110,7 +114,7 @@ def prove(
 
     t_p1 = Timer("prove_sc_phase_one")
     sc1, rx, claims1 = sumcheck.prove_cubic_with_additive_term(
-        0, num_rounds_x, poly_tau, poly_Az, poly_Bz, poly_Cz, transcript, spec,
+        0, num_rounds_x, poly_tau, poly_Az, poly_Bz, poly_Cz, transcript, spec, fused=fused,
     )
     t_p1.stop()
     _tau_claim, Az_claim, Bz_claim, Cz_claim = claims1
@@ -132,7 +136,7 @@ def prove(
 
     t_p2 = Timer("prove_sc_phase_two")
     sc2, ry, _claims2 = sumcheck.prove_quad(
-        claim_phase2, num_rounds_y, z_dev, evals_ABC, transcript, spec
+        claim_phase2, num_rounds_y, z_dev, evals_ABC, transcript, spec, fused=fused
     )
     t_p2.stop()
 

@@ -52,9 +52,10 @@ def _rekey_with_digest(inst: r1cs.Instance, gens: TestudoNizkGens,
 
 def nizk_prove(inst: r1cs.Instance, vars_: r1cs.Assignment,
                inputs: r1cs.Assignment, gens: TestudoNizkGens,
-               transcript: PoseidonTranscript) -> TestudoNizk:
+               transcript: PoseidonTranscript, fused: bool = True) -> TestudoNizk:
     """testudo_nizk.rs:80-130 (with the native proof in place of the
-    Groth16-wrapped R1CSVerifierProof)."""
+    Groth16-wrapped R1CSVerifierProof).  `fused`: the sumcheck provers
+    (fused by default, as the reference; looped with False)."""
     _rekey_with_digest(inst, gens, transcript)
     padded = (
         vars_.pad(inst.inst.num_vars)
@@ -63,7 +64,7 @@ def nizk_prove(inst: r1cs.Instance, vars_: r1cs.Assignment,
     )
     proof, rx, ry = r1csproof.prove(
         inst.inst, padded.assignment, inputs.assignment, gens.gens_r1cs_sat,
-        transcript,
+        transcript, fused,
     )
     return TestudoNizk(proof, (rx, ry))
 

@@ -1,22 +1,35 @@
-"""Sumcheck protocol: looped provers over device tables + host verifier.
+"""Sumcheck protocol: fused and looped provers over device tables + host
+verifier.
 
 Counterpart of testudo_tpu/core/sumcheck.py (itself of Testudo's
-src/sumcheck.rs), in its looped form with the host transcript.  Each round
-computes the round polynomial's evaluations at X = 0, 2(, 3) over the
-half-tables on the device, pulls those two or three scalars to the host in
-one copy, absorbs the coefficients, squeezes one challenge, uploads it once
-and folds every table with `poly.dense.bound_top` (binding the most
-significant index bit, as the reference's bound_poly_var_top does).
+src/sumcheck.rs).  Tables are `(n, nlimbs)` int32 Montgomery limb tensors.
 
-Tables are `(n, nlimbs)` int32 Montgomery limb tensors.  Every product goes
-through `device.field.mont_mul`: on a CUDA tensor that is a launch of the
-row-major Montgomery kernel (csrc/mont_mul_rm.cu), on a CPU tensor its
-plain version.  Additions and subtractions are plain tensor code.
+The fused provers (`_prove_fused`, `_prove_cubic_batched_fused`; the
+reference's `_fused_prover_fn` :222-267 and `_fused_batched_fn` :534-594)
+are the default, as in the reference: the whole sumcheck stays on the
+device and ends in ONE copy to the host (coefficients, challenges, final
+claims and sponge state).  Per round, one launch of the round kernel (the
+fold of every table by the previous challenge and the round's sums,
+csrc/sumcheck_round.cu), one of the Poseidon kernel where the absorb starts
+with a permutation of the state alone (csrc/poseidon.cu), and one of the
+tail kernel (sums, coefficients, transcript, next claim,
+csrc/sumcheck_tail.cu); the sponge's mode machine is replayed in Python
+(`_simulate_schedule`).  On CPU tensors the same code runs the kernels'
+plain versions (device/sumcheck_kernels.py, which also holds the
+reference's `_unipoly_coeffs_dev` and `_horner_dev`; device/sponge.py).
+
+The looped provers (`fused=False`, and `num_rounds = 0`) compute each
+round's evaluations on the device, pull them to the host in one copy,
+absorb the coefficients into the host transcript, squeeze one challenge,
+upload it and fold every table with `poly.dense.bound_top`.  Every product
+goes through `device.field.mont_mul` (the row-major kernel on CUDA).
 
 Transcript behaviour matches the reference: every round polynomial
 coefficient is absorbed with append_scalar (sumcheck.rs:127-129, 423-425)
-and one challenge is squeezed per round; `prove_cubic_with_additive_term`
-and `prove_quad` work with an Fr- or an Fq-sponge transcript.
+and one challenge is squeezed per round; every prover works with an Fr- or
+an Fq-sponge transcript.  There is no environment switch: the prover is
+chosen by the keyword `fused`.  The reference's sharded fused prover
+(:294-413) is multi-GPU work and not ported.
 
 `prove_cubic` and `prove_cubic_batched` are Spark's provers (product
 trees); no path of the port drives them yet.
@@ -26,12 +39,16 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import List, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..device import field as tf
+from ..device import sponge as dsponge
+from ..device import sumcheck_kernels as sk
 from ..device.field import FR
 from ..poly import dense
 from ..poly.unipoly import UniPoly
+from ..poseidon import constants_377 as PC
 
 
 class SumcheckError(ValueError):
@@ -146,6 +163,100 @@ def _prove_looped(round_evals, claim: int, num_rounds: int, tables, transcript, 
     return SumcheckInstanceProof(polys), rs, _finals(tables, spec)
 
 
+# -- fused provers ------------------------------------------------------------
+
+
+def _simulate_schedule(mode: int, index: int, num_rounds: int, ncoeffs: int):
+    """Static replay of the sponge's mode machine for the sumcheck schedule
+    (absorb ncoeffs elements, then squeeze one, per round)."""
+    for _ in range(num_rounds):
+        if mode == dsponge._SQUEEZING or index == PC.RATE:
+            index = 0
+        mode = dsponge._ABSORBING
+        for _ in range(ncoeffs):
+            if index == PC.RATE:
+                index = 0
+            index += 1
+        if mode == dsponge._ABSORBING or index == PC.RATE:
+            index = 0
+        mode = dsponge._SQUEEZING
+        index += 1
+    return mode, index
+
+
+def _prove_fused(kind: str, claim: int, num_rounds: int, tables, transcript,
+                 k_par: int = 1, k_seq: int = 0, inst_coeffs=None):
+    """The whole sumcheck on the device (see the module's docstring):
+    returns (proof, r, the tables' final values in stack order) and leaves
+    the host transcript in the final state, mode and index."""
+    host = transcript.sponge
+    spec_s = dsponge._spec_of(transcript.params.modulus)
+    src = torch.stack(list(tables))
+    n = src.shape[1]
+    if n & (n - 1) or n < 1 << num_rounds:
+        raise ValueError(f"fused sumcheck: {num_rounds} rounds on tables of {n} rows")
+    dev = src.device
+    inst_coeffs = [1] if inst_coeffs is None else list(inst_coeffs)
+    # one upload: the sponge state, the claim, the instances' coefficients
+    up = torch.as_tensor(np.concatenate([
+        spec_s.encode(list(host.state)).reshape(-1), FR.encode(claim % FR.modulus),
+        FR.encode([c % FR.modulus for c in inst_coeffs]).reshape(-1)]), device=dev)
+    ns = 3 * spec_s.nlimbs
+    state = up[:ns].reshape(3, spec_s.nlimbs)
+    e = up[ns: ns + FR.nlimbs]
+    coeffs = up[ns + FR.nlimbs:].reshape(len(inst_coeffs), FR.nlimbs)
+    ncoeffs = sk.POINTS[kind] + 1
+    mode, index = host.mode, host.index
+    polys_d, rs_d, r = [], [], None
+    for _ in range(num_rounds):
+        src, partials = sk.sumcheck_round(kind, src, r, k_par, k_seq)
+        if mode == dsponge._SQUEEZING or index == PC.RATE:
+            # the absorb's leading permutation depends on the state alone
+            state = dsponge.permute(spec_s, state)
+            mode, index = dsponge._ABSORBING, 0
+        c, r, e, state = sk.sumcheck_tail(kind, partials, coeffs, e, state, spec_s, mode, index)
+        mode, index = _simulate_schedule(mode, index, 1, ncoeffs)
+        polys_d.append(c)
+        rs_d.append(r)
+    src, _ = sk.sumcheck_round(kind, src, r, k_par, k_seq)  # the last fold: the final values
+    flat = torch.cat([torch.stack(polys_d).reshape(-1), torch.stack(rs_d).reshape(-1),
+                      src[:, 0].reshape(-1), state.reshape(-1)]).cpu()
+    nc = num_rounds * ncoeffs * FR.nlimbs
+    nr = num_rounds * FR.nlimbs
+    nf = src.shape[0] * FR.nlimbs
+    cs = FR.decode(flat[:nc])
+    polys = [UniPoly(cs[i * ncoeffs: (i + 1) * ncoeffs]) for i in range(num_rounds)]
+    rs = FR.decode(flat[nc: nc + nr])
+    finals = FR.decode(flat[nc + nr: nc + nr + nf])
+    host.state = spec_s.decode(flat[nc + nr + nf:])
+    host.mode, host.index = mode, index
+    return SumcheckInstanceProof(polys), rs, finals
+
+
+def _prove_cubic_batched_fused(claim, num_rounds, poly_vec_par, poly_vec_seq, coeffs,
+                               transcript):
+    """The batched product sumcheck fused (the reference's
+    `_prove_cubic_batched_fused`, :597-644): the instances' tables stacked
+    as A_par, B_par, C_par, A_seq, B_seq, C_seq and combined on the device
+    by `coeffs`."""
+    A_par, B_par, C_par = poly_vec_par
+    A_seq, B_seq, C_seq = poly_vec_seq
+    k_par, k_seq = len(A_par), len(A_seq)
+    tables = [*A_par, *B_par, C_par, *A_seq, *B_seq, *C_seq]
+    proof, rs, finals = _prove_fused("cubic", claim, num_rounds, tables, transcript, k_par,
+                                     k_seq, list(coeffs)[: k_par + k_seq])
+    return proof, rs, *_batched_claims(finals, k_par, k_seq)
+
+
+def _batched_claims(finals: List[int], k_par: int, k_seq: int):
+    """(claims_prod, claims_dotp) from the final values in stack order."""
+    s = 2 * k_par + 1
+    claims_prod = (finals[:k_par], finals[k_par: 2 * k_par], finals[2 * k_par])
+    claims_dotp = (finals[s: s + k_seq], finals[s + k_seq: s + 2 * k_seq],
+                   finals[s + 2 * k_seq: s + 3 * k_seq])
+    return claims_prod, claims_dotp
+
+
 # -- provers ----------------------------------------------------------------
 
 
@@ -158,9 +269,13 @@ def prove_cubic_with_additive_term(
     C: torch.Tensor,
     transcript,
     spec=FR,
+    fused: bool = True,
 ) -> Tuple[SumcheckInstanceProof, List[int], List[int]]:
     """Phase-1 Spartan sumcheck over tau * (A*B - C) (sumcheck.rs:67-148).
-    Returns (proof, r, [tau, A, B, C] bound at r)."""
+    Returns (proof, r, [tau, A, B, C] bound at r).  Fused where the
+    reference fuses: `fused`, rounds to prove and Fr tables."""
+    if fused and num_rounds > 0 and spec == FR:
+        return _prove_fused("cubic_tau", claim, num_rounds, (tau, A, B, C), transcript)
     return _prove_looped(_round_evals_cubic_tau_s, claim, num_rounds, (tau, A, B, C),
                          transcript, spec)
 
@@ -172,8 +287,11 @@ def prove_quad(
     B: torch.Tensor,
     transcript,
     spec=FR,
+    fused: bool = True,
 ) -> Tuple[SumcheckInstanceProof, List[int], List[int]]:
     """Phase-2 Spartan sumcheck over A*B (sumcheck.rs:387-443)."""
+    if fused and num_rounds > 0 and spec == FR:
+        return _prove_fused("quad", claim, num_rounds, (A, B), transcript)
     return _prove_looped(_round_evals_quad_s, claim, num_rounds, (A, B), transcript, spec)
 
 
@@ -184,8 +302,11 @@ def prove_cubic(
     B: torch.Tensor,
     C: torch.Tensor,
     transcript,
+    fused: bool = True,
 ) -> Tuple[SumcheckInstanceProof, List[int], List[int]]:
     """Product sumcheck over A*B*C (sumcheck.rs:149-218), over Fr."""
+    if fused and num_rounds > 0:
+        return _prove_fused("cubic", claim, num_rounds, (A, B, C), transcript)
     return _prove_looped(_round_evals_cubic_prod_s, claim, num_rounds, (A, B, C),
                          transcript, FR)
 
@@ -197,6 +318,7 @@ def prove_cubic_batched(
     poly_vec_seq,  # (list[A], list[B], list[C]) device tables
     coeffs: List[int],
     transcript,
+    fused: bool = True,
 ):
     """Batched product sumcheck (sumcheck.rs:220-385): `par` instances share
     poly_C (the eq polynomial); `seq` instances carry their own weights.
@@ -206,12 +328,15 @@ def prove_cubic_batched(
     claims_prod = (A_finals, B_finals, C_final) and claims_dotp the seq
     finals.
     """
+    if fused and num_rounds > 0:
+        return _prove_cubic_batched_fused(claim, num_rounds, poly_vec_par, poly_vec_seq,
+                                          coeffs, transcript)
     m = FR.modulus
     A_par, B_par, C_par = poly_vec_par
     A_seq, B_seq, C_seq = poly_vec_seq
     A_par, B_par = list(A_par), list(B_par)
     A_seq, B_seq, C_seq = list(A_seq), list(B_seq), list(C_seq)
-    n_par = len(A_par)
+    n_par, n_seq = len(A_par), len(A_seq)
     dev = C_par.device
 
     e = claim % m
@@ -236,9 +361,4 @@ def prove_cubic_batched(
         polys.append(poly)
 
     finals = _finals(A_par + B_par + [C_par] + A_seq + B_seq + C_seq)
-    n_seq = len(A_seq)
-    claims_prod = (finals[:n_par], finals[n_par: 2 * n_par], finals[2 * n_par])
-    s = 2 * n_par + 1
-    claims_dotp = (finals[s: s + n_seq], finals[s + n_seq: s + 2 * n_seq],
-                   finals[s + 2 * n_seq: s + 3 * n_seq])
-    return SumcheckInstanceProof(polys), rs, claims_prod, claims_dotp
+    return (SumcheckInstanceProof(polys), rs, *_batched_claims(finals, n_par, n_seq))

@@ -7,6 +7,7 @@
 
 #include "ec_team.cuh"
 #include "mont_rm.cuh"
+#include "sumcheck.cuh"
 
 // Run the statement given (it names the policy C) for the group `ncomp` names.
 #define FOR_GROUP(...)                          \
@@ -153,6 +154,61 @@ static int host_fixed_base_team_impl(const int* table, const int* scal, int* out
     lane_fixed_base_team<C, FIXED_T(NC)>(region.data(), tab->nslots, add, table, scal, out, N,
                                          nl, lane, 0);
   return 0;
+}
+
+// k_sumcheck_round (sumcheck_round.cu) on the CPU: each instance's blocks
+// in turn, the threads of a block as a loop over the same grid-stride pairs,
+// one partial sum a block.
+template <int KIND>
+static void host_round(const int* src, int* dst, const int* r_row, int* partials, long n, int fold,
+                       int kp, int ks, int nblocks) {
+  constexpr int NP = ScKind<KIND>::NPTS;
+  const int k = KIND == SC_CUBIC ? kp + ks : 1;
+  const bool last = fold && n == 2;
+  const long pairs = sc_pairs(n, fold);
+  u32 r[FRN] = {0};
+  if (fold) fp_load_row<Fr>(r, r_row);
+  for (int inst = 0; inst < k; inst++) {
+    for (int b = 0; b < nblocks; b++) {
+      u32 acc[NP][FRN] = {};
+      for (int tid = 0; tid < SC_TPB; tid++)
+        for (long p = (long)b * SC_TPB + tid; p < pairs; p += (long)nblocks * SC_TPB)
+          sc_pair<KIND>(acc, src, dst, r, n, p, inst, kp, ks, fold, !last);
+      for (int pt = 0; pt < NP; pt++)
+        fp_store_row<Fr>(partials + (((long)inst * nblocks + b) * NP + pt) * FR_ROW, acc[pt]);
+    }
+  }
+}
+
+// k_sumcheck_tail (sumcheck_tail.cu) on one thread: the sums in order, the
+// sponge's three elements in an array.
+template <class S, int NPTS>
+static void host_tail(const int* partials, const int* inst_coeffs, const int* e_in,
+                      const int* state_in, int* coeffs_out, int* r_out, int* e_out, int* state_out,
+                      int k, int nblocks, int mode, int index) {
+  u32 ev[NPTS][FRN] = {}, cf[FRN], v[FRN];
+  for (int i = 0; i < k; i++) {
+    u32 s[NPTS][FRN] = {};
+    for (int b = 0; b < nblocks; b++)
+      for (int pt = 0; pt < NPTS; pt++) {
+        fp_load_row<Fr>(v, partials + (((long)i * nblocks + b) * NPTS + pt) * FR_ROW);
+        fp_add<Fr>(s[pt], s[pt], v);
+      }
+    fp_load_row<Fr>(cf, inst_coeffs + (long)i * FR_ROW);
+    for (int pt = 0; pt < NPTS; pt++) {
+      fp_mul_inline<Fr>(s[pt], s[pt], cf);
+      fp_add<Fr>(ev[pt], ev[pt], s[pt]);
+    }
+  }
+  HostSponge<S> sp;
+  for (int j = 0; j < POS_T; j++) fp_load_row<S>(sp.s[j], state_in + j * 2 * S::N);
+  u32 c[NPTS + 1][FRN], r[FRN], e[FRN];
+  fp_load_row<Fr>(e, e_in);
+  sc_tail_round<S, NPTS>(sp, c, r, e, ev, mode, index);
+  for (int j = 0; j < POS_T; j++) fp_store_row<S>(state_out + j * 2 * S::N, sp.s[j]);
+  for (int j = 0; j <= NPTS; j++) fp_store_row<Fr>(coeffs_out + j * FR_ROW, c[j]);
+  fp_store_row<Fr>(r_out, r);
+  fp_store_row<Fr>(e_out, e);
 }
 
 extern "C" {
@@ -336,5 +392,66 @@ int host_bucket(const int* table, const int* idx, const int* start, const int* c
         lane_bucket<C, false>(table, idx, start, count, out, L, perm[i]);
     }
   });
+}
+
+// Poseidon permutations of (nstates, 3, nlimbs) states, as poseidon.cu.
+int host_poseidon_permute(const int* in, int* out, int nlimbs, long nstates) {
+  for (long st = 0; st < nstates; st++) {
+    const long off = st * POS_T * nlimbs;
+    if (nlimbs == 16) {
+      u32 s[POS_T][8];
+      for (int e = 0; e < POS_T; e++) fp_load_row<FrParams>(s[e], in + off + e * nlimbs);
+      pos_permute_host<FrParams>(s);
+      for (int e = 0; e < POS_T; e++) fp_store_row<FrParams>(out + off + e * nlimbs, s[e]);
+    } else if (nlimbs == 24) {
+      u32 s[POS_T][12];
+      for (int e = 0; e < POS_T; e++) fp_load_row<FqParams>(s[e], in + off + e * nlimbs);
+      pos_permute_host<FqParams>(s);
+      for (int e = 0; e < POS_T; e++) fp_store_row<FqParams>(out + off + e * nlimbs, s[e]);
+    } else {
+      return -1;
+    }
+  }
+  return 0;
+}
+
+// One round of the fused sumcheck, as sumcheck_round.cu (its arguments and
+// return codes).
+int host_sumcheck_round(const int* src, int* dst, const int* r, int* partials, int kind, long n,
+                        int fold, int k_par, int k_seq, int nblocks) {
+  if (n < 2 || (n & (n - 1)) || nblocks < 1 || nblocks > SC_MAX_BLOCKS || k_par < 0 ||
+      k_seq < 0 || (kind == SC_CUBIC && k_par + k_seq < 1))
+    return -3;
+  if (kind == SC_QUAD)
+    host_round<SC_QUAD>(src, dst, r, partials, n, fold, k_par, k_seq, nblocks);
+  else if (kind == SC_CUBIC_TAU)
+    host_round<SC_CUBIC_TAU>(src, dst, r, partials, n, fold, k_par, k_seq, nblocks);
+  else if (kind == SC_CUBIC)
+    host_round<SC_CUBIC>(src, dst, r, partials, n, fold, k_par, k_seq, nblocks);
+  else
+    return -1;
+  return 0;
+}
+
+// The tail of a round, as sumcheck_tail.cu (its arguments and return codes).
+int host_sumcheck_tail(const int* partials, const int* inst_coeffs, const int* e_in,
+                       const int* state_in, int* coeffs_out, int* r_out, int* e_out,
+                       int* state_out, int npts, int k, int nblocks, int sponge_nlimbs, int mode,
+                       int index) {
+  if ((npts != 2 && npts != 3) || k < 1 || nblocks < 1 || (mode != 0 && mode != 1) ||
+      index < 0 || index > POS_RATE)
+    return -3;
+#define TAIL(S, P)                                                                         \
+  host_tail<S, P>(partials, inst_coeffs, e_in, state_in, coeffs_out, r_out, e_out, state_out, \
+                  k, nblocks, mode, index)
+  if (sponge_nlimbs == 16) {
+    if (npts == 2) TAIL(FrParams, 2); else TAIL(FrParams, 3);
+  } else if (sponge_nlimbs == 24) {
+    if (npts == 2) TAIL(FqParams, 2); else TAIL(FqParams, 3);
+  } else {
+    return -1;
+  }
+#undef TAIL
+  return 0;
 }
 }

@@ -31,8 +31,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("mont_mul.cu", "mont_mul_rm.cu", "mont_chain.cu", "ec_ops.cu", "ladder.cu",
            "ladder_team.cu", "bucket.cu", "wsum_team.cu", "chain_team.cu", "fold_team.cu",
-           "fixed_base_team.cu")
-HEADERS = ("fp.cuh", "fp2.cuh", "ec.cuh", "ec_team.cuh", "launch.cuh", "mont_rm.cuh")
+           "fixed_base_team.cu", "poseidon.cu", "sumcheck_round.cu", "sumcheck_tail.cu")
+HEADERS = ("fp.cuh", "fp2.cuh", "ec.cuh", "ec_team.cuh", "launch.cuh", "mont_rm.cuh",
+           "poseidon.cuh", "sumcheck.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -63,6 +64,10 @@ _SIGNATURES = {
     "fold_team": ("testudo_fold_team", (_P, _L, _P, _I, _I, _P, _P, _I, _P)),
     "fixed_base": ("testudo_fixed_base_team", (_P, _P, _P, _L, _I, _I, _P)),
     "fixed_base_one": ("testudo_fixed_base_one", (_P, _P, _P, _L, _I, _I, _P)),
+    "poseidon_permute": ("testudo_poseidon_permute", (_P, _P, _I, _L, _P)),
+    "sumcheck_round": ("testudo_sumcheck_round", (_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P)),
+    "sumcheck_tail": ("testudo_sumcheck_tail", (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                                _I, _I, _P)),
 }
 # C functions that launch nothing and take no stream: (symbol, argtypes).
 _QUERIES = {
@@ -74,14 +79,16 @@ _QUERIES = {
 # counted apart, and so are the G1 and the G2 instantiation of every EC
 # kernel: the G1 count keeps the bare name, the G2 count ends in "_g2".  The
 # row-major Montgomery product is counted per field, the grouped chain per
-# variant.
+# variant; the Poseidon permutation and the sumcheck's kernels once each
+# (both fields, every kind).
 EC_KERNELS = ("add2", "add_mask", "step", "scan2", "scan2b", "ladder", "ladder_team",
               "bucket", "bucket_mixed", "wsum", "chain_team", "fold_team", "fixed_base",
               "fixed_base_one")
 FIELD_KERNELS = ("mont_mul", "mont_mul_rm_fq", "mont_mul_rm_fr", "mont_chain",
                  "mont_chain_seq", "mont_chain_wide")
+SUMCHECK_KERNELS = ("poseidon_permute", "sumcheck_round", "sumcheck_tail")
 LAUNCHES = {name: 0 for name in (
-    *FIELD_KERNELS, *EC_KERNELS, *(k + "_g2" for k in EC_KERNELS))}
+    *FIELD_KERNELS, *SUMCHECK_KERNELS, *EC_KERNELS, *(k + "_g2" for k in EC_KERNELS))}
 
 
 def reset_launches() -> None:

@@ -288,25 +288,26 @@ def inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     return pow_fixed(spec, a, spec.modulus - 2)
 
 
-def _fold_wide(spec: FieldSpec, t: torch.Tensor) -> torch.Tensor:
+def _fold_wide(spec: FieldSpec, t: torch.Tensor, mul=mont_mul) -> torch.Tensor:
     """Relaxed non-negative int64 limbs (each < 2^47, value < 2^(16 (n+2)))
     -> the canonical int32 element of the value mod p.  value = lo + hi *
-    2^(16 n); lo mod p = mont_mul(lo, R mod p), hi * 2^(16 n) mod p =
-    mont_mul(hi, R^2 mod p)."""
+    2^(16 n); lo mod p = mul(lo, R mod p), hi * 2^(16 n) mod p =
+    mul(hi, R^2 mod p).  `mul` is the Montgomery product to use."""
     n = spec.nlimbs
     c = _resolve(t, n + 2, True).to(torch.int32)
     lo = c[..., :n].contiguous()
     hi = F.pad(c[..., n:], (0, n - 2))
     r1 = torch.as_tensor(_int_to_limbs(spec.r_mod_p, n), device=t.device)
     r2 = torch.as_tensor(_int_to_limbs(spec.r2_mod_p, n), device=t.device)
-    return add(spec, mont_mul(spec, lo, r1), mont_mul(spec, hi, r2))
+    return add(spec, mul(spec, lo, r1), mul(spec, hi, r2))
 
 
-def reduce_sum(spec: FieldSpec, a: torch.Tensor, axis: int = 0) -> torch.Tensor:
+def reduce_sum(spec: FieldSpec, a: torch.Tensor, axis: int = 0, mul=mont_mul) -> torch.Tensor:
     """Sum of field elements along `axis` (mod p), any domain.  Limbs are
     below 2^16 and are summed in int64, so up to 2^31 elements need no
     chunking; the result is the canonical element, whatever the order of
-    the additions."""
+    the additions.  `mul=mont_mul_plain` keeps it plain tensor code on a
+    CUDA tensor too."""
     _check_limbs(spec, a)
     if axis < 0:
         axis += a.dim()
@@ -314,7 +315,7 @@ def reduce_sum(spec: FieldSpec, a: torch.Tensor, axis: int = 0) -> torch.Tensor:
         raise ValueError(f"reduce_sum: axis {axis} is not a batch axis of {tuple(a.shape)}")
     if a.shape[axis] >= 1 << 31:
         raise ValueError("reduce_sum: more than 2^31 - 1 elements along the axis")
-    return _fold_wide(spec, a.sum(dim=axis, dtype=torch.int64))
+    return _fold_wide(spec, a.sum(dim=axis, dtype=torch.int64), mul)
 
 
 def select(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
