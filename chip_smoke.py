@@ -60,11 +60,14 @@ testudo_tpu_torch/csrc/, then
      shapes and at the NIZK's tables of 2^15 .. 1 elements
      (tools/exp_mont_rm.py); the bucket kernel's rows and a
      line each give the run-length profile of its launch (lanes, longest run,
-     lanes at T_cap, resident blocks per SM, grid); the two ladder kernels
-     (the team kernel, a team of threads per lane, on narrow launches; one
-     thread per lane on wide ones) are held against the plain ladder at the
+     lanes at T_cap, resident blocks per SM, grid); the three ladder
+     kernels (the team kernel, a team of threads per lane, on narrow
+     launches; the wide kernel, lanes longest first, each stopping after its
+     top bit, every lane a team's, on wide ones; the one-thread kernel over
+     all bits it replaced there) are held against the plain ladder at the
      widths each takes (20 lanes of Horner scalars and 1,024 random lanes;
-     the commit's 32,768 lanes) beside each other and `latency_bound_ms`;
+     the commit's Horner at 32,768 and 8,192 lanes; random scalars at
+     4,096 and 32,768) beside each other and `latency_bound_ms`;
      the weighted-sum kernel (a team of threads per lane, one launch for
      all per-group sums of an MSM) against the plain sequence of scan,
      ladder and add steps at the MSM's 2,560 lanes (one more window) and
@@ -165,6 +168,7 @@ _REPLACES = {
     "add_mask": _EC + ":403", "add2": _EC + ":415", "step": _EC + ":424",
     "scan2": _EC + ":437", "scan2b": _EC + ":450", "bucket": _EC + ":461",
     "bucket_mixed": _EC + ":509", "ladder": _EC + ":733", "ladder_team": _EC + ":733",
+    "ladder_wide": _EC + ":733",
     "wsum": _EC + ":450", "chain_team": _EC + ":415", "fold_team": _EC + ":415",
     "fixed_base": _EC + ":403", "fixed_base_one": _EC + ":403",
     # the fused sumcheck: its products over 512 rows or more reach the Pallas
@@ -189,7 +193,8 @@ _SOURCE = {
     "mont_chain_wide": "mont_chain.cu",
     "mont_mul": "mont_mul.cu", "add_mask": "ec_ops.cu", "add2": "ec_ops.cu",
     "step": "ec_ops.cu", "scan2": "ec_ops.cu", "scan2b": "ec_ops.cu",
-    "ladder": "ladder.cu", "ladder_team": "ladder_team.cu", "bucket": "bucket.cu",
+    "ladder": "ladder.cu", "ladder_team": "ladder_team.cu", "ladder_wide": "ladder_wide.cu",
+    "bucket": "bucket.cu",
     "bucket_mixed": "bucket.cu", "wsum": "wsum_team.cu", "chain_team": "chain_team.cu",
     "fold_team": "fold_team.cu", "fixed_base": "fixed_base_team.cu",
     "fixed_base_one": "fixed_base_team.cu", "poseidon_permute": "poseidon.cu",
@@ -218,15 +223,19 @@ NIZK_LABELS = {"polycommit (sqrt-PST)": "commit", "prove_sc_phase_one": "phase o
 # whose 256 launches a fixed-base multiplication the fixed-base kernels do in
 # one (the team kernel at the setup's widths, one thread per lane at the
 # fixed-base phase's 2^16: FIXED_TEAM_MAX_LANES); the G2 chain
-# (the commit is over G1 only); and the one-thread G2 ladder: every G2
-# ladder of the paths is at most TEAM_LADDER_MAX_LANES wide (the MSM's
-# 20-lane Horner, the open's folds), so the team kernel takes it; the
-# one-thread G1 ladder runs the commit's 32,768-lane Horner.  A kernel of
-# the kernel phase only must show no launch on any path.
+# (the commit is over G1 only); the one-thread ladder over all bits, whose
+# wide launches (the commit's Horner) the wide kernel runs (it keeps only
+# unordered launches above WIDE_LADDER_MAX_UNORDERED, which no path makes);
+# and the wide G2
+# ladder: every G2 ladder of the paths is at most TEAM_LADDER_MAX_LANES
+# wide (the MSM's 20-lane Horner, the open's folds), so the team kernel
+# takes it; the wide G1 ladder runs the commit's Horner, 32,768 lanes at
+# nv = 20 and 8,192 in a prove.  A kernel of the kernel phase only must
+# show no launch on any path.
 _MSM_KERNELS = ("fold_team", "wsum", "ladder_team", "bucket", "bucket_mixed")
-_KERNEL_PHASE_ONLY = ("mont_mul", "scan2", "scan2_g2", "ladder_g2", "step", "step_g2", "scan2b",
-                      "scan2b_g2", "add2", "add2_g2", "chain_team_g2", "add_mask",
-                      "add_mask_g2")
+_KERNEL_PHASE_ONLY = ("mont_mul", "scan2", "scan2_g2", "ladder", "ladder_g2", "ladder_wide_g2",
+                      "step", "step_g2", "scan2b", "scan2b_g2", "add2", "add2_g2",
+                      "chain_team_g2", "add_mask", "add_mask_g2")
 MUST_LAUNCH = {
     **{k: () for k in _KERNEL_PHASE_ONLY},
     "mont_mul_rm_fq": ("field", "open"),
@@ -239,7 +248,7 @@ MUST_LAUNCH = {
 }
 MUST_LAUNCH.update({
     "chain_team": ("commit",), "fold_team": ("msm", "commit", "open"),
-    "fold_team_g2": ("msm", "open"), "ladder": ("commit",),
+    "fold_team_g2": ("msm", "open"), "ladder_wide": ("commit",),
     "ladder_team": ("msm", "open"), "ladder_team_g2": ("msm", "open"),
     "bucket": ("msm", "commit", "open"), "wsum": ("msm", "open"),
 })
@@ -250,7 +259,7 @@ MUST_LAUNCH.update({
 # Poseidon and tail kernels, the looped prove's are row-major Fr products of
 # two full operands), and one verify (the verifier's A~, B~, C~(rx, ry); the
 # rest of a verify is on the host)
-_NIZK_PROVE_KERNELS = ("mont_mul_rm_fr", "mont_mul_rm_fq", "chain_team", "bucket", "ladder",
+_NIZK_PROVE_KERNELS = ("mont_mul_rm_fr", "mont_mul_rm_fq", "chain_team", "bucket", "ladder_wide",
                        "fold_team", "ladder_team", "ladder_team_g2", "fold_team_g2", "wsum")
 for _name in _NIZK_PROVE_KERNELS:
     MUST_LAUNCH[_name] += ("nizk_prove", "nizk_prove_looped")
@@ -335,8 +344,8 @@ def counter(grp, kernel: str) -> str:
 
 
 def ladder_launches(grp) -> int:
-    """Launches of either ladder kernel of the group since the last reset."""
-    return sum(build.LAUNCHES[counter(grp, k)] for k in ("ladder", "ladder_team"))
+    """Launches of any ladder kernel of the group since the last reset."""
+    return sum(build.LAUNCHES[counter(grp, k)] for k in ("ladder", "ladder_team", "ladder_wide"))
 
 
 class Report:
@@ -1673,16 +1682,23 @@ def kernels_group(dev, grp, rep: Report, proj, pts_cmp, scal_cmp, pts_time, scal
     # the plain version at the Horner combine's shape and data (20 window
     # sums times 2^(13 w); behind them lanes with scalars 0, 1, r-1, 2 and
     # random ones), timed there and at the open's widest fold (1,024 lanes,
-    # random scalars).  The one-thread kernel takes the commit's Horner
-    # (32,768 lanes, scalars 2^(8 w)): compared on a stride of those lanes.
-    # At every shape the other kernel must give the same limbs, and is timed
-    # beside it.  The plain ladder is a chain of 512 group operations whose
-    # time hardly depends on the lane count: it is timed once, on the
-    # compared call.  latency_bound_ms: the scalars' top bit times the rounds
-    # of dependent products a step needs (2, G2 3) times one dependent
-    # product's latency at one warp (the harness's latency mode).
+    # random scalars).  The wide kernel takes the commit's Horner (scalars
+    # 2^(8 w), lanes longest first as `_multi_horner_packed` orders them):
+    # 32,768 lanes at nv = 20 and 8,192 in a prove, each compared on a
+    # stride of its lanes.  The one-thread kernel over all bits, which it
+    # replaced there, is compared and timed beside it, and so is the team
+    # kernel.  Random scalars in no order at 4,096 lanes (the wide kernel's)
+    # and 32,768 (the one-thread kernel's): each kernel timed, the
+    # wrapper's pick beside them.  At every shape every
+    # kernel must give the same limbs.  The plain ladder is a chain of 512
+    # group operations whose time hardly depends on the lane count: it is
+    # timed once, on the compared call.  latency_bound_ms: the scalars' top
+    # bit times the rounds of dependent products a step needs (2, G2 3)
+    # times one dependent product's latency at one warp (the harness's
+    # latency mode).
     team = lambda p, k: Gp.ladder_launch("ladder_team", p, k)
     one = lambda p, k: Gp.ladder_launch("ladder", p, k)
+    wide = lambda p, k, o=None: Gp.ladder_wide_launch(p, k, o)
 
     def ladder_need(ks):  # products an add per set bit and a double per bit need
         return sum(grp.muls[0] * bin(k).count("1") + grp.muls[2] * k.bit_length() for k in ks)
@@ -1726,24 +1742,74 @@ def kernels_group(dev, grp, rep: Report, proj, pts_cmp, scal_cmp, pts_time, scal
         f"{t1:.4f} ms (one thread {o1:.4f}); latency bound {latency_ms(ks[:20]):.4f} / "
         f"{latency_ms(k1):.4f} ms")
 
-    Lc = 2048 if quick else 32768
-    pc, _ = edge_points(dev, grp, proj, Lc)
-    kc = [1 << (8 * (l % 32)) for l in range(Lc)]
-    sc = rows_of(kc)
-    gotc = one(pc, sc)
-    if not torch.equal(team(pc, sc), gotc):
-        raise AssertionError(f"{nm('ladder_team')} and {nm('ladder')} differ at {Lc} lanes")
-    pick = torch.as_tensor(sorted({int(i) for i in np.linspace(0, Lc - 1, 64 + ODD)}), device=dev)
-    wantc, plainc = timed_once(
-        lambda: Gp.ladder_plain(pc[:, pick].contiguous(), sc[:, pick].contiguous()))
-    tc_one, tc_team = time_ms(lambda: one(pc, sc), 3), time_ms(lambda: team(pc, sc), 3)
-    rep.add(nm("ladder"), gotc[:, pick].contiguous(), wantc, tc_one, plainc,
-            (2 * pt_bytes + 16 * 4) * Lc, ladder_need(kc) * MADD_FQ,
-            f"({rows}, {Lc}) x 256 bits, scalars 2^(8 w) (the commit's Horner); compared on "
-            f"{len(pick)} of these lanes, plain_ms from there")
-    rep.rows[nm("ladder")].update({"latency_bound_ms": latency_ms(kc),
-                                   "latency_us_per_product": lat_us, "team_ms": tc_team})
-    say(f"  {nm('ladder')} at {Lc} lanes: {tc_one:.4f} ms (team kernel {tc_team:.4f})")
+    # the commit's Horner: K columns of 32 windows, lanes k-major
+    # points in and out, scalars, and the wide kernel's order
+    ladder_bytes = lambda L, order=True: (2 * pt_bytes + 16 * 4 + 4 * order) * L
+    shapes = {}
+    for Lc in ((2048, 512) if quick else (32768, 8192)):
+        pc, _ = edge_points(dev, grp, proj, Lc)
+        kc = [1 << (8 * (l % 32)) for l in range(Lc)]
+        sc = rows_of(kc)
+        oc = torch.as_tensor(np.argsort([-k.bit_length() for k in kc], kind="stable")
+                             .astype(np.int32), device=dev)
+        gotw, goto = wide(pc, sc, oc), one(pc, sc)
+        if not torch.equal(gotw, goto) or not torch.equal(team(pc, sc), goto):
+            raise AssertionError(f"the ladder kernels of {grp.name} differ at {Lc} lanes")
+        pick = torch.as_tensor(sorted({int(i) for i in np.linspace(0, Lc - 1, 64 + ODD)}), device=dev)
+        wantc, plainc = timed_once(
+            lambda: Gp.ladder_plain(pc[:, pick].contiguous(), sc[:, pick].contiguous()))
+        shapes[Lc] = dict(
+            got_wide=gotw[:, pick].contiguous(), got_one=goto[:, pick].contiguous(), want=wantc,
+            plain=plainc, wide=time_ms(lambda: wide(pc, sc, oc), 3),
+            one=time_ms(lambda: one(pc, sc), 3), team=time_ms(lambda: team(pc, sc), 3),
+            need=ladder_need(kc) * MADD_FQ,
+            latency=latency_ms(kc), compared=len(pick))
+        del pc, sc, oc, gotw, goto
+    (Lc, sh), (Lp, sp) = shapes.items()
+    # random scalars in no order
+    random_rows = {}
+    for Lr in ((256, 2048) if quick else (4096, 32768)):
+        pr_, _ = edge_points(dev, grp, proj, Lr)
+        sr = rows_of([int(v) for v in FR.from_limbs(random_scalars(Lr, 31))])
+        goto = one(pr_, sr)
+        if not torch.equal(wide(pr_, sr), goto):
+            raise AssertionError(f"{nm('ladder_wide')} and {nm('ladder')} differ at {Lr} random lanes")
+        random_rows[Lr] = (Gp.ladder_kernel(Lr), time_ms(lambda: wide(pr_, sr), 3),
+                           time_ms(lambda: one(pr_, sr), 3))
+        del pr_, sr, goto
+    notes = {
+        "ladder_wide": "lanes longest first, each to its top bit",
+        "ladder": "lanes in index order, every bit",
+    }
+    for name, got_key, ms_key in (("ladder_wide", "got_wide", "wide"), ("ladder", "got_one", "one")):
+        rep.add(nm(name), sh[got_key], sh["want"], sh[ms_key], sh["plain"],
+                ladder_bytes(Lc, name == "ladder_wide"), sh["need"],
+                f"({rows}, {Lc}) x 256 bits, scalars 2^(8 w) (the commit's Horner), "
+                f"{notes[name]}; compared on {sh['compared']} of these lanes, plain_ms from "
+                f"there; also at ({rows}, {Lp}) (a prove's witness commit) and random scalars at "
+                f"{' and '.join(str(L) for L in random_rows)} lanes")
+        if max_abs_err(sp[got_key], sp["want"]) != 0:
+            raise AssertionError(f"kernel {nm(name)} differs from its plain version at {Lp} lanes")
+    b_p, _ = bound(ladder_bytes(Lp), sp["need"])
+    rep.rows[nm("ladder_wide")].update({
+        "latency_bound_ms": sh["latency"], "latency_us_per_product": lat_us,
+        "one_thread_ms": sh["one"], "team_ms": sh["team"],
+        f"ms_{Lp}": sp["wide"], f"one_thread_ms_{Lp}": sp["one"], f"team_ms_{Lp}": sp["team"],
+        f"plain_ms_{Lp}": sp["plain"], f"bound_ms_{Lp}": b_p, f"latency_bound_ms_{Lp}": sp["latency"],
+        **{f"random_{key}_{Lr}": v for Lr, row in random_rows.items()
+           for key, v in zip(("in_use", "ms", "one_thread_ms"), row)},
+        "ptxas": ptxas_of("k_ladder_wide", Gp.ncomp)})
+    rep.rows[nm("ladder")].update({
+        "latency_bound_ms": sh["latency"], "latency_us_per_product": lat_us,
+        "wide_ms": sh["wide"], "team_ms": sh["team"], f"ms_{Lp}": sp["one"],
+        f"plain_ms_{Lp}": sp["plain"], f"bound_ms_{Lp}": bound(ladder_bytes(Lp, False), sp["need"])[0]})
+    say(f"  {nm('ladder_wide')}: {Lc} lanes {sh['wide']:.4f} ms (one thread over all bits "
+        f"{sh['one']:.4f}, team kernel {sh['team']:.4f}), {Lp} lanes {sp['wide']:.4f} ms "
+        f"({sp['one']:.4f}, {sp['team']:.4f}); random: " +
+        ", ".join(f"{Lr} lanes {w:.4f} ms (one thread over all bits {o:.4f}; the wrapper takes "
+                  f"{k})" for Lr, (k, w, o) in random_rows.items()) + "; bound "
+        f"{rep.rows[nm('ladder_wide')]['bound_ms']:.4f} / {b_p:.4f} ms, latency bound "
+        f"{sh['latency']:.4f} / {sp['latency']:.4f} ms")
 
     kernels_wsum(dev, grp, rep, proj, rounds, lat_us, quick)
     kernels_chain_fold(dev, grp, rep, proj, rounds, lat_us, quick)

@@ -231,9 +231,9 @@ def test_team_table_read_in_python_gives_the_host_multiple(host_lib, ncomp):
 def test_ladder_picks_the_team_kernel_up_to_its_threshold(Gp):
     top = packed_curve.TEAM_LADDER_MAX_LANES[Gp.ncomp]
     assert Gp.ladder_kernel(1) == Gp.ladder_kernel(top) == "ladder_team"
-    assert Gp.ladder_kernel(top + 1) == "ladder"
+    assert Gp.ladder_kernel(top + 1) == "ladder_wide"
     # the launch counters of both kernels exist for the group
-    assert {Gp._counter("ladder_team"), Gp._counter("ladder")} <= set(build.LAUNCHES)
+    assert {Gp._counter("ladder_team"), Gp._counter("ladder_wide")} <= set(build.LAUNCHES)
 
 
 def test_ladder_tools_need_a_card():

@@ -246,8 +246,9 @@ def test_cpu_path_launches_no_kernel():
     G1P.chain(A.T[:2].contiguous(), 3)
     G1P.fold(A, [0, 3], [3, 4])
     assert all(v == 0 for v in build.LAUNCHES.values()), build.LAUNCHES
-    ec = {"add2", "add_mask", "step", "scan2", "scan2b", "ladder", "ladder_team", "bucket",
-          "bucket_mixed", "wsum", "chain_team", "fold_team", "fixed_base", "fixed_base_one"}
+    ec = {"add2", "add_mask", "step", "scan2", "scan2b", "ladder", "ladder_team", "ladder_wide",
+          "bucket", "bucket_mixed", "wsum", "chain_team", "fold_team", "fixed_base",
+          "fixed_base_one"}
     field = {"mont_mul", "mont_mul_rm_fq", "mont_mul_rm_fr", "mont_chain", "mont_chain_seq",
              "mont_chain_wide"}
     sumcheck = {"poseidon_permute", "sumcheck_round", "sumcheck_tail"}

@@ -1,7 +1,8 @@
 // Group operations of ec.cuh worked by a TEAM of threads per lane: the
 // schedule of a short program of them, as a table, and the work of one rank.
-// Four kernels run such tables: the LSB-first ladder of ec.cuh's
-// `lane_ladder` (ladder_team.cu: one program, the ladder step), the
+// These kernels run such tables: the LSB-first ladder of ec.cuh's
+// `lane_ladder` (ladder_team.cu: one program, the ladder step; and
+// ladder_wide.cu: the step and the doubling alone), the
 // weighted bucket sum of the MSM (wsum_team.cu: three programs, the scan
 // step, the same ladder step and one complete add), and two on one complete
 // add of a pair of points (`team_pair_add`): the chain of the commit's
@@ -118,6 +119,16 @@ static_assert(32 % FOLD_T(1) == 0 && 32 % FOLD_T(2) == 0, "a team must not span 
 #define FIXED_T(nc) ((nc) == 1 ? 8 : 16)
 #define FIXED_TEAMS(nc) 4
 static_assert(32 % FIXED_T(1) == 0 && 32 % FIXED_T(2) == 0, "a team must not span warps");
+// The wide ladder (ladder_wide.cu): threads a lane and a block.
+// A G1 doubling is two rounds of four Fq products, a G2 doubling's rounds
+// hold twelve.  Chosen with tools/exp_ladder.py --forms on an H100 at the
+// commit's Horner, 8,192 and 32,768 lanes (PERF.md section 6): G1 T = 4 on
+// blocks of 128 (1.53 / 3.22 ms; T = 2: 2.12 / 3.15, T = 8: 2.22 / 6.14;
+// blocks of 32: 1.54 / 3.42), G2 T = 8 on blocks of 32 (5.00 / 16.38 ms;
+// T = 4: 6.11 / 17.21, T = 16: 6.75 / 22.10).
+#define WIDE_T(nc) ((nc) == 1 ? 4 : 8)
+#define WIDE_TPB(nc) ((nc) == 1 ? 128 : 32)
+static_assert(32 % WIDE_T(1) == 0 && 32 % WIDE_T(2) == 0, "a team must not span warps");
 
 // A team syncs after every stage: the warp's sync on the card.  On the CPU
 // (csrc/host_check.cpp) one thread runs the ranks one after another.
@@ -135,19 +146,23 @@ static_assert(32 % FIXED_T(1) == 0 && 32 % FIXED_T(2) == 0, "a team must not spa
 #define TEAM_SYNC()
 #define TEAM_BLOCK_SYNC()
 #define TEAM_ONE_THREAD 1
+// The CPU build's warp: false (the default) runs a lane as in a warp where
+// another lane needs every step, so the select, not the skip or the stop,
+// must keep its result: the harder case; true runs a lane as a warp of its
+// own, so every skip and stop follows the lane's own bits.
+// csrc/host_check.cpp sets it per call.
+static bool host_warp_of_one = false;
 #endif
 
 // Is `b` true for any thread of the warp?  The same answer for all 32, so a
 // branch on it keeps every team of the warp on the same stages and syncs;
 // every thread of the warp must call it (the kernels clamp lanes past the
-// end, never return early).  On the CPU a lane runs as in a warp where
-// another lane needs every step (as `any_lane`): the select keeps acc.
+// end, never return early).  On the CPU by `host_warp_of_one`.
 FP_FN bool team_any(bool b) {
 #ifdef __CUDACC__
   return __any_sync(0xffffffffu, b) != 0;
 #else
-  (void)b;
-  return true;
+  return host_warp_of_one ? b : true;
 #endif
 }
 
@@ -333,6 +348,63 @@ FP_FN void lane_ladder_team(u32* region, int ns, const TeamCode& step, const int
       team_run<T>(region, ns, step, TEAM_DUMMY_OP(NF), rank, ((limb >> bit) & 1u) != 0);
   }
   if (lane < L) team_store<NC>(out, 1, L, lane, region, ns, 0, first, stride);
+}
+
+// Bit length of the scalar of `lane` (0 for 0): one more than its top set
+// bit.  scal is (nl, L) canonical 16-bit limbs.
+FP_FN int scalar_bits(const int* scal, int nl, long L, long lane) {
+  for (int k = nl - 1; k >= 0; k--) {
+    u32 limb = (u32)scal[(long)k * L + lane];
+    if (limb) {
+      int b = 16 * k;
+      while (limb) {
+        limb >>= 1;
+        b++;
+      }
+      return b;
+    }
+  }
+  return 0;
+}
+
+// Position i of the wide ladder (ladder_wide.cu): lane order[i] (`order`
+// given: a permutation of the L lanes) or i of ec.cuh's `lane_ladder`,
+// stopping after the top set bit of its scalar (past it a step would only
+// select acc again), by two tables on the same slots: `step` (the ladder
+// step, add and double side by side, the add's sums selected by the bit)
+// while any lane of the warp has the bit set, else `dbl` (base = 2 base
+// alone); it stops once no lane of the warp has bits left.  Both are
+// warp-uniform choices, so every team of the warp runs the same stages,
+// and a warp whose lanes share a length (the order longest first) stops
+// with them and skips every add but theirs.  Up to the lane's top bit the
+// adds, doubles and selects of lane_ladder, so the same limbs.  Positions
+// past L run on as position L - 1 (the shortest lane when the order is
+// longest first) and store nothing.
+template <class C, int T>
+FP_FN void lane_ladder_wide_team(u32* region, int ns, const TeamCode& step, const TeamCode& dbl,
+                                 const int* pts, const int* scal, const int* order, int* out,
+                                 int nl, long L, long i, int rank) {
+  constexpr int NC = C::COMP_ROWS / (2 * FQN);
+  constexpr int NF = TEAM_NFIXED(NC, LADDER_NPTS);
+  const int first = TEAM_ONE_THREAD ? 0 : rank, stride = TEAM_ONE_THREAD ? 1 : T;
+  const long pos = i < L ? i : L - 1;
+  const long lane = order ? (long)order[pos] : pos;
+  const int nb = scalar_bits(scal, nl, L, lane);
+  team_identity<NC>(region, ns, 0, first, stride);
+  team_load<NC>(region, ns, 1, pts, 1, L, lane, first, stride);
+  team_consts(region, ns, NF, first, stride);
+  TEAM_SYNC();
+  u32 limb = 0;
+  FP_NO_UNROLL
+  for (int b = 0; b < 16 * nl && team_any(b < nb); b++) {
+    if ((b & 15) == 0) limb = (u32)scal[(long)(b >> 4) * L + lane];
+    const bool set = b < nb && ((limb >> (b & 15)) & 1u) != 0;
+    if (team_any(set))
+      team_run<T>(region, ns, step, TEAM_DUMMY_OP(NF), rank, set);
+    else
+      team_run<T>(region, ns, dbl, TEAM_DUMMY_OP(NF), rank, false);
+  }
+  if (i < L) team_store<NC>(out, 1, L, lane, region, ns, 0, first, stride);
 }
 
 // The per-group weighted sum of msm.py's `_weighted_sum_packed` for lane
@@ -683,6 +755,13 @@ static void team_step(TeamProg& p, int acc, int base) {
   team_put<TC>(p, base, d, false);
 }
 
+// base = 2 base: the ladder step without its add, for the steps of the wide
+// ladder at which no lane of the warp has its bit set
+template <class TC>
+static void team_double(TeamProg& p, int base) {
+  team_put<TC>(p, base, team_rec_double<TC>(p, team_pt<TC>(base)), false);
+}
+
 // One scan step of the weighted sum, as lane_scan2b: run' = run + bucket,
 // tot' = tot + run (the old run); tot lives in WS_OPD.
 template <class TC>
@@ -851,7 +930,8 @@ enum {
   TEAM_WSUM_STEP = 2,
   TEAM_WSUM_ADD = 3,
   TEAM_PAIR_ADD = 4,
-  TEAM_MASKED_ADD = 5
+  TEAM_MASKED_ADD = 5,
+  TEAM_LADDER_DOUBLE = 6
 };
 
 template <class TC>
@@ -866,16 +946,19 @@ static void team_record(TeamProg& p, int program) {
     team_add_opd<TC>(p);
   else if (program == TEAM_PAIR_ADD)
     team_pair_add<TC>(p);
-  else
+  else if (program == TEAM_MASKED_ADD)
     team_masked_add<TC>(p);
+  else
+    team_double<TC>(p, 1);
 }
 
 // The table of `program` for the group with nc components (1: G1, 2: G2);
 // 0, or -1 if the program does not fit.
 static int team_table(TeamTable& t, int nc, int program) {
   static TeamProg p;  // large: kept off the stack
-  if ((nc != 1 && nc != 2) || program < TEAM_LADDER_STEP || program > TEAM_MASKED_ADD) return -1;
-  const int npts = program == TEAM_LADDER_STEP ? LADDER_NPTS
+  if ((nc != 1 && nc != 2) || program < TEAM_LADDER_STEP || program > TEAM_LADDER_DOUBLE)
+    return -1;
+  const int npts = program == TEAM_LADDER_STEP || program == TEAM_LADDER_DOUBLE ? LADDER_NPTS
                    : program >= TEAM_PAIR_ADD  ? PAIR_NPTS
                                                : WS_NPTS;
   p.init(TEAM_NFIXED(nc, npts));
@@ -890,9 +973,10 @@ static int team_table(TeamTable& t, int nc, int program) {
 // The table of `program` for group nc, built at its first use and kept for
 // the process; null if it does not fit.
 static const TeamTable* team_table_once(int nc, int program) {
-  static TeamTable tables[TEAM_MASKED_ADD + 1][2];
-  static int state[TEAM_MASKED_ADD + 1][2];  // 0: not built, 1: built, -1: failed
-  if ((nc != 1 && nc != 2) || program < TEAM_LADDER_STEP || program > TEAM_MASKED_ADD) return nullptr;
+  static TeamTable tables[TEAM_LADDER_DOUBLE + 1][2];
+  static int state[TEAM_LADDER_DOUBLE + 1][2];  // 0: not built, 1: built, -1: failed
+  if ((nc != 1 && nc != 2) || program < TEAM_LADDER_STEP || program > TEAM_LADDER_DOUBLE)
+    return nullptr;
   int& st = state[program][nc - 1];
   if (st == 0) st = team_table(tables[program][nc - 1], nc, program) == 0 ? 1 : -1;
   return st == 1 ? &tables[program][nc - 1] : nullptr;

@@ -95,6 +95,24 @@ static int host_team(const int* pts, const int* scal, int* out, int nl, long L) 
   return 0;
 }
 
+// The wide ladder of ladder_wide.cu: every position of the order by the
+// kernel's team body, one after another.
+template <class C>
+static int host_ladder_wide_impl(const int* pts, const int* scal, const int* order, int* out,
+                                 int nl, long L) {
+  constexpr int NC = C::COMP_ROWS / (2 * FQN);
+  const TeamTable* s = team_table_once(NC, TEAM_LADDER_STEP);
+  const TeamTable* d = team_table_once(NC, TEAM_LADDER_DOUBLE);
+  if (!s || !d) return -2;
+  const int ns = s->nslots > d->nslots ? s->nslots : d->nslots;
+  std::vector<u32> region((std::size_t)ns * FQN);
+  const TeamCode step = {s->op, s->stage, s->nstages}, dbl = {d->op, d->stage, d->nstages};
+  for (long i = 0; i < L; i++)
+    lane_ladder_wide_team<C, WIDE_T(NC)>(region.data(), ns, step, dbl, pts, scal, order, out, nl,
+                                         L, i, 0);
+  return 0;
+}
+
 template <class C>
 static int host_wsum(const int* buckets, int* out, int W, int c, bool plus_one) {
   constexpr int NC = C::COMP_ROWS / (2 * FQN);
@@ -313,6 +331,20 @@ int host_ladder_team(const int* pts, const int* scal, int* out, int nl, long L, 
   return -1;
 }
 
+// The wide ladder: order null or a permutation of the L lanes;
+// warp_of_one runs each lane as a warp of its own (its skips and its stop
+// at its top bit its own), else as in a warp where another lane needs every
+// step.
+int host_ladder_wide(const int* pts, const int* scal, const int* order, int* out, int nl, long L,
+                     int warp_of_one, int ncomp) {
+  if (ncomp != 1 && ncomp != 2) return -1;
+  host_warp_of_one = warp_of_one != 0;
+  const int rc = ncomp == 1 ? host_ladder_wide_impl<FqCoord>(pts, scal, order, out, nl, L)
+                            : host_ladder_wide_impl<Fq2Coord>(pts, scal, order, out, nl, L);
+  host_warp_of_one = false;
+  return rc;
+}
+
 // Per-group weighted sums of (rows, W 2^c) buckets into (rows, W groups),
 // as wsum_team.cu.
 int host_wsum_team(const int* buckets, int* out, int W, int c, int plus_one, int ncomp) {
@@ -358,7 +390,7 @@ int host_fixed_base(const int* table, const int* scal, int* out, long N, int nl,
 
 // The table of a team program (ec_team.cuh: 0 the ladder step, 1-3 the
 // weighted sum's scan step, ladder step and add, 4 the pair add, 5 the
-// masked add) for a group: dims =
+// masked add, 6 the ladder's doubling alone) for a group: dims =
 // (nops, nstages, nslots, nfixed), ops and stages as the kernels receive
 // them (room for TEAM_MAX_OPS and TEAM_MAX_STAGES words).
 int host_team_program(int ncomp, int program, u32* ops, u32* stages, int* dims) {

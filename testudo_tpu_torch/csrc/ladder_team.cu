@@ -3,7 +3,7 @@
 // (ncomp 2): the launches the main paths make at 1,024 lanes or fewer (the
 // Horner combine of every MSM, the MIPP folds and cross MSMs, the PST opens).
 //
-// Replaces, with ladder.cu, testudo_tpu/tpu/pallas_curve.py:733
+// Replaces, with ladder_wide.cu and ladder.cu, testudo_tpu/tpu/pallas_curve.py:733
 // `_ladder_chain` (one `step` launch per scalar bit on the TPU).
 //
 // Bound on this card at these widths: latency.  A lane is a chain of 256
@@ -21,9 +21,11 @@
 // stage's kind, which is the same for the whole warp.
 //
 // Above the width where the team kernel's extra threads stop paying (the
-// sqrt-PST commit's 32,768-lane Horner), ladder.cu's one thread per lane
-// does the same work in fewer instructions: the wrapper picks
-// (device/packed_curve.py, TEAM_LADDER_MAX_LANES).
+// sqrt-PST commit's 32,768-lane Horner), ladder_wide.cu's smaller teams,
+// each lane stopping after its top bit, do the same work in fewer
+// instructions, and ladder.cu's one thread per lane the widest launches in
+// no order: the wrapper picks (device/packed_curve.py, TEAM_LADDER_MAX_LANES,
+// WIDE_LADDER_MAX_UNORDERED).
 #include "ec_team.cuh"
 #include "launch.cuh"
 

@@ -30,8 +30,9 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("mont_mul.cu", "mont_mul_rm.cu", "mont_chain.cu", "ec_ops.cu", "ladder.cu",
-           "ladder_team.cu", "bucket.cu", "wsum_team.cu", "chain_team.cu", "fold_team.cu",
-           "fixed_base_team.cu", "poseidon.cu", "sumcheck_round.cu", "sumcheck_tail.cu")
+           "ladder_team.cu", "ladder_wide.cu", "bucket.cu", "wsum_team.cu", "chain_team.cu",
+           "fold_team.cu", "fixed_base_team.cu", "poseidon.cu", "sumcheck_round.cu",
+           "sumcheck_tail.cu")
 HEADERS = ("fp.cuh", "fp2.cuh", "ec.cuh", "ec_team.cuh", "launch.cuh", "mont_rm.cuh",
            "poseidon.cuh", "sumcheck.cuh")
 NVCC_FLAGS = (
@@ -58,6 +59,7 @@ _SIGNATURES = {
     "scan2b": ("testudo_scan2b", (_P, _P, _P, _P, _P, _L, _I, _P)),
     "ladder": ("testudo_ladder", (_P, _P, _P, _I, _L, _I, _P)),
     "ladder_team": ("testudo_ladder_team", (_P, _P, _P, _I, _L, _I, _P)),
+    "ladder_wide": ("testudo_ladder_wide", (_P, _P, _P, _P, _I, _L, _I, _P)),
     "bucket": ("testudo_bucket", (_P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _P)),
     "wsum": ("testudo_wsum_team", (_P, _P, _I, _I, _I, _I, _P)),
     "chain_team": ("testudo_chain_team", (_P, _P, _L, _I, _I, _P)),
@@ -82,8 +84,8 @@ _QUERIES = {
 # variant; the Poseidon permutation and the sumcheck's kernels once each
 # (both fields, every kind).
 EC_KERNELS = ("add2", "add_mask", "step", "scan2", "scan2b", "ladder", "ladder_team",
-              "bucket", "bucket_mixed", "wsum", "chain_team", "fold_team", "fixed_base",
-              "fixed_base_one")
+              "ladder_wide", "bucket", "bucket_mixed", "wsum", "chain_team", "fold_team",
+              "fixed_base", "fixed_base_one")
 FIELD_KERNELS = ("mont_mul", "mont_mul_rm_fq", "mont_mul_rm_fr", "mont_chain",
                  "mont_chain_seq", "mont_chain_wide")
 SUMCHECK_KERNELS = ("poseidon_permute", "sumcheck_round", "sumcheck_tail")

@@ -622,8 +622,9 @@ def _multi_msm_windows(Gp: PackedGroup, table: torch.Tensor, scal: torch.Tensor,
 
 def _multi_horner_packed(Gp: PackedGroup, wins: torch.Tensor, K: int, c: int) -> torch.Tensor:
     """wins (rows, K * W), lanes k-major -> (rows, K): one ladder launch by
-    2^(c w), then ONE fold launch over the K columns' segments of W
-    (`acc[..., :half] + acc[..., half:]`)."""
+    2^(c w), its lanes longest first (window w's scalar has c w + 1 bits:
+    the wide kernel stops a lane after them), then ONE fold launch over the
+    K columns' segments of W (`acc[..., :half] + acc[..., half:]`)."""
     W = wins.shape[1] // K
     if W & (W - 1):
         raise ValueError(f"multi-MSM: the window count {W} must be a power of two")
@@ -631,7 +632,9 @@ def _multi_horner_packed(Gp: PackedGroup, wins: torch.Tensor, K: int, c: int) ->
     for w in range(W):
         pows[w, (c * w) // 16] = 1 << ((c * w) % 16)
     scal = torch.as_tensor(np.tile(pows, (K, 1)).T.copy(), device=wins.device)
-    acc = Gp.ladder(wins.contiguous(), scal)
+    by_length = np.arange(W - 1, -1, -1)  # window w's scalar has c w + 1 bits
+    order = (np.arange(K)[None, :] * W + by_length[:, None]).reshape(-1).astype(np.int32)
+    acc = Gp.ladder(wins.contiguous(), scal, order)
     return Gp.fold(acc, np.arange(K) * W, np.full(K, W))
 
 

@@ -8,8 +8,8 @@ along L.  The row of coordinate c, component comp, limb k is
 `(c * ncomp + comp) * 24 + k`: 72 rows for G1 (ncomp 1), 144 for G2.
 
 Every fused op has a wrapper that, on CUDA tensors, checks its arguments,
-launches the hand-written kernel (csrc/ec_ops.cu, ladder_team.cu or
-ladder.cu by width, bucket.cu, wsum_team.cu, chain_team.cu, fold_team.cu,
+launches the hand-written kernel (csrc/ec_ops.cu, ladder_team.cu,
+ladder_wide.cu or ladder.cu by width, bucket.cu, wsum_team.cu, chain_team.cu, fold_team.cu,
 fixed_base_team.cu)
 on the current stream and raises on failure;
 on CPU tensors it runs the plain
@@ -19,8 +19,10 @@ also run on CUDA tensors when called directly, which is how a kernel is
 held against its plain version on the card; they never launch a kernel.
 
 What differs from the JAX package: `ladder` is one launch (not one `step`
-launch per bit); so is `weighted_sum` (not a `scan2b` launch per bucket of
-a group and a `step` launch per weight bit); so are `chain`, the commit's
+launch per bit), and a wide one runs its lanes in the caller's order and
+stops each after its scalar's top bit; so is `weighted_sum` (not a `scan2b`
+launch per bucket of a group and a `step` launch per weight bit); so are
+`chain`, the commit's
 table (not an `add2` launch per multiple), and `fold`, every tree of
 pairwise sums of a batch (not an `add2` launch per level), and
 `fixed_base`, the fixed-base multiplication (not an `add_mask` launch per
@@ -49,14 +51,44 @@ def longest_first(count: torch.Tensor) -> torch.Tensor:
 
 
 # The widest launch the team ladder (csrc/ladder_team.cu) takes, per group
-# (ncomp); wider ones go to one thread per lane (csrc/ladder.cu).  Measured on
+# (ncomp); wider ones go to the wide ladder (csrc/ladder_wide.cu).  Measured on
 # an H100 with tools/exp_ladder.py (PERF.md section 6, the ladder crossover
-# table): at 1,024 lanes the team kernel beats one thread for Horner and
-# random scalars alike (G1 1.58 against 3.82 ms on Horner scalars, G2 4.18
-# against 14.07 ms); at 4,096 it loses for G1 (3.93 against 3.82 ms) and
-# wins G2 by 2% only (13.78 against 14.08 ms).  Every path's G2 ladder is
-# 1,024 lanes or fewer.
+# table), with the wide kernel in place: on random scalars (the open's folds)
+# the team kernel wins at 1,024 lanes (G1 1.52 against 3.34 ms, G2 4.12
+# against 6.40) and loses at 4,096 (G1 3.88 against 3.34) and 2,048 (G2 7.32
+# against 6.71); on Horner scalars the wide kernel wins for G1 at every width
+# (20 lanes: 1.35 against 1.48 ms) and for G2 from 1,024 lanes on.  Every
+# path's ladder of 1,024 lanes or fewer is the MSM's 20-lane Horner or a
+# fold of random scalars.  The wider ones are the commit's Horner (lanes
+# longest first) and, at nv = 11-12, `_multi_msm_small`'s 2,048-4,096 lanes
+# of random scalars in no order.
 TEAM_LADDER_MAX_LANES = {1: 1024, 2: 1024}
+
+# The widest launch given in no order that the wide ladder takes, per group;
+# wider ones go to one thread a lane over all bits (csrc/ladder.cu).  A launch
+# given its lanes longest first takes the wide ladder at any width.  Measured
+# on an H100 with tools/exp_ladder.py (PERF.md section 6): on random scalars
+# the wide ladder beats the one-thread ladder up to 8,192 lanes (G1 4.83
+# against 8.77 ms, G2 17.98 against 32.35) and loses at 32,768 (17.19 against
+# 14.05, 65.89 against 64.77); on the commit's scalars, longest first, it
+# wins at 8,192 and 32,768 lanes (G1 1.55 against 4.09 ms, 3.24 against
+# 6.20).  With --forms no launch split between teams and one thread a lane
+# beat the better of the two.  No path makes an unordered launch wider than
+# 4,096 lanes.
+WIDE_LADDER_MAX_UNORDERED = {1: 8192, 2: 8192}
+
+
+def lane_order(order, L: int) -> np.ndarray:
+    """`order` (host integers) as int32 (L,), checked to be a permutation of
+    the L lanes: the wide ladder reads lane order[i] with no check of its
+    own.  ValueError otherwise."""
+    o = np.asarray(order)
+    if o.shape != (L,) or o.dtype.kind not in "iu":
+        raise ValueError(f"ladder: order must be ({L},) host integers, got {o.dtype} {o.shape}")
+    if L and (o.min() < 0 or o.max() >= L or (np.bincount(o, minlength=L) != 1).any()):
+        raise ValueError(f"ladder: order must be a permutation of the {L} lanes")
+    return o.astype(np.int32)
+
 
 # The widest fixed-base launch the team kernel (csrc/fixed_base_team.cu,
 # `k_fixed_base_team`) takes, per group (ncomp); wider ones go to one thread
@@ -312,31 +344,48 @@ class PackedGroup:
                 base = tc._complete_double(self._plain, base)
         return self.pack(acc)
 
-    def ladder_kernel(self, L: int) -> str:
+    def ladder_kernel(self, L: int, ordered: bool = False) -> str:
         """The kernel `ladder` launches for L lanes: the team ladder up to
-        TEAM_LADDER_MAX_LANES of this group, the one-thread ladder above."""
-        return "ladder_team" if L <= TEAM_LADDER_MAX_LANES[self.ncomp] else "ladder"
+        TEAM_LADDER_MAX_LANES of this group; above, the wide ladder when the
+        lanes come longest first (`ordered`) or number at most
+        WIDE_LADDER_MAX_UNORDERED, else one thread a lane over all bits."""
+        if L <= TEAM_LADDER_MAX_LANES[self.ncomp]:
+            return "ladder_team"
+        if ordered or L <= WIDE_LADDER_MAX_UNORDERED[self.ncomp]:
+            return "ladder_wide"
+        return "ladder"
 
-    def ladder(self, pts: torch.Tensor, scal_rows: torch.Tensor) -> torch.Tensor:
+    def ladder(self, pts: torch.Tensor, scal_rows: torch.Tensor, order=None) -> torch.Tensor:
         """pts (rows, L) x canonical scalars (nscal_limbs, L) int32 ->
         [s_l] P_l: LSB-first double-and-add over all 16 * nscal_limbs bits.
-        On the card a narrow batch goes to the team kernel (a team of
-        threads per lane), a wide one to one thread per lane
-        (`ladder_kernel`); both give the plain version's limbs."""
+        On the card the kernel by width (`ladder_kernel`): a narrow batch a
+        team of threads a lane, a wide one the wide kernel, which stops
+        each lane after its scalar's top bit and runs the lanes in `order`
+        (host integers (L,), a permutation of the lanes, checked: longest
+        scalars first, from a caller that knows its scalars' lengths; None:
+        index order).  The order changes when a lane runs, never its
+        result: every form gives the plain version's limbs."""
         L = self._check_points("ladder", pts)
         if scal_rows.dim() != 2 or scal_rows.shape[1] != L:
             raise ValueError(
                 f"ladder: scalars must be (nlimbs, {L}), got {tuple(scal_rows.shape)}"
             )
+        if order is not None:
+            order = lane_order(order, L)
         if not self._on_cuda(pts, scal_rows):
             return self.ladder_plain(pts, scal_rows)
-        return self.ladder_launch(self.ladder_kernel(L), pts, scal_rows)
+        kernel = self.ladder_kernel(L, order is not None)
+        if kernel == "ladder_wide":
+            return self.ladder_wide_launch(
+                pts, scal_rows, None if order is None else torch.as_tensor(order, device=pts.device))
+        return self.ladder_launch(kernel, pts, scal_rows)
 
     def ladder_launch(self, kernel: str, pts: torch.Tensor,
                       scal_rows: torch.Tensor) -> torch.Tensor:
-        """Launch ladder kernel `kernel` ("ladder" or "ladder_team") on
-        checked CUDA tensors: what `ladder` calls, and what a measurement
-        calls to time either kernel at any width."""
+        """Launch ladder kernel `kernel` ("ladder", one thread a lane over
+        all bits, or "ladder_team") on checked CUDA tensors: what `ladder`
+        calls at narrow widths, and what a measurement calls to time either
+        kernel at any width."""
         build.require_cuda_int32(kernel, pts=pts, scal_rows=scal_rows)
         out = torch.empty_like(pts)
         with torch.cuda.device(pts.device):
@@ -344,6 +393,27 @@ class PackedGroup:
                 kernel, pts.data_ptr(), scal_rows.data_ptr(), out.data_ptr(),
                 scal_rows.shape[0], pts.shape[1], self.ncomp,
                 counted_as=self._counter(kernel),
+            )
+        return out
+
+    def ladder_wide_launch(self, pts: torch.Tensor, scal_rows: torch.Tensor,
+                           order: torch.Tensor | None) -> torch.Tensor:
+        """Launch the wide ladder (csrc/ladder_wide.cu) on checked CUDA
+        tensors, its lanes in `order` (an int32 CUDA tensor that must be a
+        permutation of the lanes, which `ladder` checks and this launcher
+        does not; None: index order): what `ladder` calls at wide widths,
+        and what a measurement calls to time the kernel at any width."""
+        tensors = dict(pts=pts, scal_rows=scal_rows)
+        if order is not None:
+            tensors["order"] = order
+        build.require_cuda_int32("ladder_wide", **tensors)
+        out = torch.empty_like(pts)
+        with torch.cuda.device(pts.device):
+            build.launch(
+                "ladder_wide", pts.data_ptr(), scal_rows.data_ptr(),
+                order.data_ptr() if order is not None else None, out.data_ptr(),
+                scal_rows.shape[0], pts.shape[1], self.ncomp,
+                counted_as=self._counter("ladder_wide"),
             )
         return out
 
