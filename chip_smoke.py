@@ -46,7 +46,9 @@ testudo_tpu_torch/csrc/, then
      row-major product's device time and launches by size class), and the
      launches of one warm fused prove, one looped prove and one verify
      counted (paths nizk_prove, nizk_prove_looped, nizk_verify: the fused
-     sumcheck's three kernels must run in the first and not in the second);
+     sumcheck's three kernels must run in the first and not in the second),
+     and the round kernel's launches by shape in one warm fused prove with
+     their summed device time;
   6. runs the chained-product harness (tools/exp_montmul.py), which
      measures the card's Montgomery products per second;
   7. calls every kernel's wrapper at the shapes the main paths gave it and
@@ -82,11 +84,12 @@ testudo_tpu_torch/csrc/, then
      masked adds (on a stride of the lanes at 2^16), timed beside the 256
      `add_mask` launches they replaced, `bound_ms` and `latency_bound_ms`;
      the fused sumcheck's kernels: the Poseidon permutation on Fr and Fq
-     states, the round kernel for each kind at the NIZK's 2^16 and 2^17 rows
-     and at 2, 4 and 8 rows, with and without the fold (and the fold as
-     launches of its own beside it), the round tail on both sponges, each
-     against its plain version, timed beside `bound_ms` and, for the
-     permutation and the tail, `latency_bound_ms`;
+     states, the round kernel for each kind at the NIZK's 2^16 and 2^17 rows,
+     phase one's and phase two's at 2^20 and 2^21, and at 2, 4 and 8 rows,
+     with and without the fold (and the fold as launches of its own beside
+     it), the round tail on both sponges at the round's partial count, each
+     against its plain version, timed beside `bound_ms` and
+     `latency_bound_ms`;
   8. checks a small MSM against the host oracle;
   9. prints one JSON line {"kernels": [...]} (each row's `launches` is the
      sum of `launches_by_path`, the kernel's count on each driven path: msm,
@@ -138,7 +141,7 @@ from testudo_tpu_torch.fields.bls12_377 import R
 from testudo_tpu_torch.poly import dense
 from testudo_tpu_torch.poseidon import sponge
 from testudo_tpu_torch.poseidon.transcript import PoseidonTranscript, fq_params, fr_params
-from testudo_tpu_torch.tools import exp_mont_rm, exp_montmul, time_open
+from testudo_tpu_torch.tools import exp_mont_rm, exp_montmul, exp_sumcheck_round, time_open
 from testudo_tpu_torch.utils import timer
 
 # Least-time model.  Bytes: every input read once, every output written
@@ -1032,6 +1035,10 @@ def phase_nizk(dev, log2n: int):
     # for the fused one (the default)
     prof_lines = {"fused": nizk_profile(prove) + "\n    " + nizk_phase_profile(prove),
                   "looped": nizk_phase_profile(prove_looped)}
+    # and the round kernel's launches by shape with their device time
+    rounds = exp_sumcheck_round.prove_round_profile(prove)
+    by_shape = {k: [c["launches"], None if c["device_ms"] is None else round(c["device_ms"], 5)]
+                for k, c in rounds["by_shape"].items()}
 
     nz = lambda d: {k: v for k, v in d.items() if v}
     say(f"{what} ({n} constraints, {n} variables, {NIZK_INPUTS} inputs): sat proof {len(blob)} B, "
@@ -1053,6 +1060,9 @@ def phase_nizk(dev, log2n: int):
             f"{secs:.4f} s (that prove {ms / 1e3:.4f} s)")
     for which, line in prof_lines.items():
         say(f"  {what} {which} {line}")
+    say(f"  {what} k_sumcheck_round in one warm fused prove (torch.profiler): {rounds['launches']} "
+        f"launches, {rounds['device_ms']:.5f} ms of device time; by shape [launches, device ms]: "
+        f"{json.dumps(by_shape)}")
     say(f"  {what} launches of the fused sumcheck's kernels in one warm prove: "
         f"{json.dumps({k: counts_prove[k] for k in FUSED_KERNELS})}")
     say(f"  {what} launches, one warm fused prove: {json.dumps(nz(counts_prove))}")
@@ -1912,16 +1922,19 @@ POS_PRODUCTS = 5 * (3 * 8 + 31) + 9 * 39  # a permutation: S-boxes (x^17) and MD
 POS_DEPENDENT = 39 * 6  # its chain of dependent products: 5 a round's S-box, 1 its MDS
 
 
-def _round_work(kind, n, k_par, k_seq, fold):
-    """(bytes, products) of one round launch on n-row tables: every table
-    read once, the folded half written once, the partial sums; the fold's
-    2 products a table a pair and the combination's products."""
+def _round_work(kind, n, k_par, k_seq, fold, nblocks):
+    """(bytes, products, dependent products) of one round launch on n-row
+    tables over `nblocks` blocks a row: every table read once, the folded
+    half written once, the partial sums; the fold's 2 products a table a
+    pair and the combination's products; a thread's chain in the tiled
+    body (one fold product, then the combination's one or two)."""
     T = sk.stack_size(kind, k_par, k_seq)
     k = len(sk.instance_tables(kind, k_par, k_seq))
     pairs = n // 4 if fold else n // 2
-    comb = {"quad": 1, "cubic_tau": 2, "cubic": 2}[kind] * sk.POINTS[kind] * k
-    nbytes = T * n * 64 + (T * n // 2 * 64 if fold else 0) + k * sk.round_blocks(n, fold) * sk.POINTS[kind] * 64
-    return nbytes, pairs * ((2 * T if fold else 0) + comb)
+    comb = exp_sumcheck_round.CHAIN[kind] * sk.POINTS[kind] * k
+    nbytes = T * n * 64 + (T * n // 2 * 64 if fold else 0) + k * nblocks * sk.POINTS[kind] * 64
+    return (nbytes, pairs * ((2 * T if fold else 0) + comb),
+            exp_sumcheck_round.round_work(kind, n, fold, k_par, k_seq)[1])
 
 
 def kernels_sumcheck(dev, rep: Report, lat_fq: float, lat_fr: float, quick: bool):
@@ -1931,16 +1944,19 @@ def kernels_sumcheck(dev, rep: Report, lat_fq: float, lat_fr: float, quick: bool
     limbs), timed on one state (the prove's shape) by its device time
     (torch.profiler); latency_bound_ms: the permutation's 234 dependent
     products times one product's latency at one warp.  Round: each kind at
-    the NIZK's widths (phase one's cubic_tau at 2^16 rows, phase two's quad
-    at 2^17) and the batched layout (k_par, k_seq) = (2, 1) at 2^12, with and
-    without the fold, and at 2, 4 and 8 rows (the last fold among them); the
-    folded tables and the sums of the partials compared; timed with the L2
-    cache flushed before each launch and back to back, and beside the fold
-    as launches of its own.  Tail: both sponges, both point counts, from
-    (absorbing, 0) (the path's start) and (squeezing, 2) (the CPU tests take
-    every start), three instances over the blocks of a 2^16 round; timed at
-    phase one's shape on the Fr sponge from (absorbing, 0), as the prove runs
-    it."""
+    the NIZK's widths (phase one's cubic_tau at 2^16 and 2^20 rows, phase
+    two's quad at 2^17 and 2^21) and the batched layout (k_par, k_seq) =
+    (2, 1) at 2^12, with and without the fold, and at 2, 4 and 8 rows (the
+    last fold among them); the folded tables and the sums of the partials
+    compared; timed with and without the fold, with the L2 cache flushed
+    before each launch and back to back, beside `bound_ms` and
+    `latency_bound_ms` (the tiled body's dependent products times one
+    product's latency at one warp), and beside the fold as launches of its
+    own.  Tail: both sponges, both point counts, from (absorbing, 0) (the
+    path's start) and (squeezing, 2) (the CPU tests take every start), three
+    instances over the partials of phase one's 2^16 round; timed at that
+    round's partial count (the blocks of its launch) on the Fr sponge from
+    (absorbing, 0), as the prove runs it."""
     rng = np.random.default_rng(61)
     flush = exp_mont_rm.l2_flusher(dev)
     prof = lambda fn, name, fl=None: exp_mont_rm.profiled_ms(fn, name, reps=20, flush=fl)
@@ -1970,6 +1986,8 @@ def kernels_sumcheck(dev, rep: Report, lat_fq: float, lat_fr: float, quick: bool
     # -- round
     big = [("cubic_tau", 1, 0, 1 << (10 if quick else 16)), ("quad", 1, 0, 1 << (11 if quick else 17)),
            ("cubic", 2, 1, 1 << 12)]
+    if not quick:
+        big += [("cubic_tau", 1, 0, 1 << 20), ("quad", 1, 0, 1 << 21)]
     small = [(kind, kp, ks, n) for kind, kp, ks in (("quad", 1, 0), ("cubic_tau", 1, 0),
                                                      ("cubic", 1, 0), ("cubic", 2, 1))
              for n in (2, 4, 8)]
@@ -1983,11 +2001,16 @@ def kernels_sumcheck(dev, rep: Report, lat_fq: float, lat_fr: float, quick: bool
             gots += [dst, tf.reduce_sum(FR, part, axis=1, mul=tf.mont_mul_plain)]
             wants += [w_dst, w_part[:, 0]]
         if (kind, kp, ks, n) in big:
-            cold = prof(lambda: sk.sumcheck_round(kind, src, r, kp, ks), "k_sumcheck_round", flush)
-            warm = prof(lambda: sk.sumcheck_round(kind, src, r, kp, ks), "k_sumcheck_round")
-            plain = time_ms(lambda: sk.sumcheck_round_plain(kind, src, r, kp, ks), 1)
-            nbytes, products = _round_work(kind, n, kp, ks, True)
-            timed[f"{kind} ({kp}, {ks}) 2^{n.bit_length() - 1}"] = (cold, warm, plain, nbytes, products)
+            for rr in (r, None):
+                run = lambda: sk.sumcheck_round(kind, src, rr, kp, ks)
+                cold = prof(run, "k_sumcheck_round", flush)
+                warm = prof(run, "k_sumcheck_round")
+                plain = time_ms(lambda: sk.sumcheck_round_plain(kind, src, rr, kp, ks), 1)
+                fold = rr is not None
+                nb = sk.round_blocks(kind, n, fold, dev, kp, ks)
+                timed[f"{kind} ({kp}, {ks}) 2^{n.bit_length() - 1}" + (" fold" if fold else "")] = (
+                    cold, warm, plain, *_round_work(kind, n, kp, ks, fold, nb), nb)
+        del src
     # the fold inside the round against the fold as launches of its own
     # (dense.bound_top of each table, then the round without a fold), at
     # phase one's shape: device time of all their kernels, and CUDA events
@@ -1997,7 +2020,9 @@ def kernels_sumcheck(dev, rep: Report, lat_fq: float, lat_fr: float, quick: bool
     r = _random_elements(FR, (1,), rng, dev)[0].contiguous()
     inside = lambda: sk.sumcheck_round(kind, src, r, kp, ks)
     apart = lambda: sk.sumcheck_round(kind, torch.stack([dense.bound_top(t, r) for t in src]))
-    if not all(torch.equal(a, b) for a, b in zip(inside(), apart())):
+    (d_in, p_in), (d_ap, p_ap) = inside(), apart()
+    psum = lambda part: tf.reduce_sum(FR, part, axis=1, mul=tf.mont_mul_plain)
+    if not (torch.equal(d_in, d_ap) and torch.equal(psum(p_in), psum(p_ap))):
         raise AssertionError("sumcheck_round: the fold inside the round and apart differ")
     fold_cmp = {"inside_device_ms": all_kernels_ms(inside, "k_sumcheck_round"),
                 "apart_device_ms": all_kernels_ms(apart, "k_sumcheck_round"),
@@ -2006,21 +2031,24 @@ def kernels_sumcheck(dev, rep: Report, lat_fq: float, lat_fr: float, quick: bool
         f"{fold_cmp['inside_device_ms']} ms of device time ({fold_cmp['inside_events_ms']:.5f} ms "
         f"a call back to back); apart {fold_cmp['apart_device_ms']} "
         f"({fold_cmp['apart_events_ms']:.5f})")
-    label = f"cubic_tau (1, 0) 2^{big[0][3].bit_length() - 1}"
-    cold, warm, plain, nbytes, products = timed[label]
+    label = f"cubic_tau (1, 0) 2^{big[0][3].bit_length() - 1} fold"
+    cold, warm, plain, nbytes, products, chain, nb = timed[label]
     rep.add("sumcheck_round", tuple(gots), tuple(wants), cold, plain, nbytes, products * MADD_FR,
-            f"{label}: phase one's round with the fold, 4 tables, L2 flushed; compared at "
-            f"{len(big) + len(small)} shapes with and without the fold")
+            f"{label}: phase one's round with the fold, 4 tables, {nb} blocks, L2 flushed; compared "
+            f"at {len(big) + len(small)} shapes with and without the fold")
     extra = {}
-    for lbl, (c, w, pl, nb_, pr) in timed.items():
-        b_ms, b_by = bound(nb_, pr * MADD_FR)
-        extra[lbl] = {"ms": c, "ms_l2_warm": w, "plain_ms": pl, "bound_ms": b_ms, "bound_by": b_by}
-        say(f"  sumcheck_round {lbl} (fold): {c:.5f} ms L2 flushed, {w:.5f} warm, bound "
-            f"{b_ms:.5f} ({b_by}), plain {pl:.2f}")
-    rep.rows["sumcheck_round"].update({"shapes": extra, "ms_l2_warm": warm, "fold": fold_cmp})
+    for lbl, (c, w, pl, nbytes_, pr, ch, nb_) in timed.items():
+        b_ms, b_by = bound(nbytes_, pr * MADD_FR)
+        extra[lbl] = {"ms": c, "ms_l2_warm": w, "plain_ms": pl, "bound_ms": b_ms, "bound_by": b_by,
+                      "latency_bound_ms": ch * lat_fr / 1e3, "blocks": nb_}
+        say(f"  sumcheck_round {lbl}: {c:.5f} ms L2 flushed, {w:.5f} warm, bound {b_ms:.5f} "
+            f"({b_by}), latency bound {ch * lat_fr / 1e3:.5f}, {nb_} blocks, plain {pl:.2f}")
+    rep.rows["sumcheck_round"].update({"shapes": extra, "ms_l2_warm": warm, "fold": fold_cmp,
+                                       "latency_bound_ms": chain * lat_fr / 1e3,
+                                       "latency_us_per_product": lat_fr, "blocks": nb})
 
-    # -- tail
-    nb = sk.round_blocks(big[0][3], True)
+    # -- tail, at the partial count of phase one's round with the fold
+    nb = timed[label][-1]
     gots, wants = [], []
     for spec in (FR, FQ):
         for kind in ("quad", "cubic_tau"):
@@ -2047,8 +2075,9 @@ def kernels_sumcheck(dev, rep: Report, lat_fq: float, lat_fr: float, quick: bool
             f"phase one's tail: {nb} blocks x 3 points, Fr sponge from (absorbing, 0); compared on "
             f"both sponges, 2 and 3 points, 3 instances, 2 (mode, index) starts")
     rep.rows["sumcheck_tail"].update({"latency_bound_ms": dependent * lat_fr / 1e3,
-                                      "latency_us_per_product": lat_fr})
-    say(f"  sumcheck_tail: {ms:.5f} ms (latency bound {dependent * lat_fr / 1e3:.5f})")
+                                      "latency_us_per_product": lat_fr, "partials": nb})
+    say(f"  sumcheck_tail: {ms:.5f} ms at {nb} partials (latency bound "
+        f"{dependent * lat_fr / 1e3:.5f})")
     for name in FUSED_KERNELS:
         rep.rows[name]["replaces_also"] = _REPLACES_ALSO[name]
         rep.rows[name]["ptxas"] = [ln for ln in build.build_report()["ptxas"]

@@ -14,9 +14,11 @@ Poseidon and tail kernels' plain versions run in their place.
     (mode, index); the host verifier accepts every fused proof.
   - `num_rounds = 0` takes the looped path, as in the reference.
   - csrc/host_check.cpp (built with the host C++ compiler; skipped where
-    there is none) runs the round kernel's body over its blocks and threads
-    and is held against `sumcheck_round_plain`: each kind, with and without
-    the fold, 2 to 1,024 rows, one block, the launch's blocks and three.
+    there is none) runs the round kernel's phases over its blocks, tiles
+    and threads, on small and large tiles, and without the fold also its
+    straight form, and is held against `sumcheck_round_plain`: each layout,
+    with and without the fold, 2 to 1,024 rows, on 1, 2, 3 and 8 blocks
+    (fewer blocks than tiles: the blocks loop).
   - Slow-marked: the JAX package's fused jit (`_prove_fused`) for quad and
     cubic_tau at 2 and 3 rounds, on both transcripts, against the port's
     fused prover.
@@ -187,7 +189,7 @@ def host_lib(tmp_path_factory):
     )
     lib = ctypes.CDLL(str(out))
     lib.host_sumcheck_round.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_long] + [
-        ctypes.c_int] * 4
+        ctypes.c_int] * 5
     return lib
 
 
@@ -203,29 +205,35 @@ LAYOUTS = [("quad", 1, 0), ("cubic_tau", 1, 0), ("cubic", 1, 0), ("cubic", 2, 1)
 
 @pytest.mark.parametrize("kind,k_par,k_seq", LAYOUTS, ids=[f"{k}-{p}-{s}" for k, p, s in LAYOUTS])
 def test_round_body_equals_plain(host_lib, kind, k_par, k_seq):
-    """The round kernel's body, block by block and thread by thread, against
-    the plain version: the folded stack and the partials' sums (and the
-    plain sums against the definition in host ints at one size)."""
+    """The round kernel's body, block by block, tile by tile and thread by
+    thread, against the plain version: the folded stack and the partials'
+    sums (and the plain sums against the definition in host ints at one
+    size)."""
     T = sk.stack_size(kind, k_par, k_seq)
     k = len(sk.instance_tables(kind, k_par, k_seq))
     rng = np.random.default_rng(31 + T)
-    for n in (2, 4, 8, 64, 1024):
+    for n in (1 << e for e in range(1, 11)):
         vals = [_ints(rng, n) for _ in range(T)]
         src = torch.as_tensor(np.stack([FR.encode(v) for v in vals]))
         r_int = _ints(rng, 4)[3]
         r = torch.as_tensor(FR.encode(r_int))
         for fold in (False, True):
             want_dst, want = sk.sumcheck_round_plain(kind, src, r if fold else None, k_par, k_seq)
-            for nb in sorted({1, sk.round_blocks(n, fold), 3}):
-                dst = torch.full((T, n // 2, FR.nlimbs), -1, dtype=torch.int32) if fold else None
-                part = torch.full((k, nb, sk.POINTS[kind], FR.nlimbs), -1, dtype=torch.int32)
-                rc = host_lib.host_sumcheck_round(_ptr(src), _ptr(dst), _ptr(r) if fold else None,
-                                                  _ptr(part), sk.KINDS[kind], n, int(fold),
-                                                  k_par, k_seq, nb)
-                assert rc == 0
-                if fold:
-                    assert torch.equal(dst, want_dst), (n, nb)
-                assert torch.equal(tf.reduce_sum(FR, part, axis=1), want[:, 0]), (n, fold, nb)
+            # the launcher's form, both tile sizes and, without the fold, the
+            # straight form
+            for form in (-1, 0, 1, 2) if not fold else (-1, 0, 1):
+                for nb in (1, 2, 3, 8):
+                    dst = torch.full((T, n // 2, FR.nlimbs), -1, dtype=torch.int32) if fold else None
+                    part = torch.full((k, nb, sk.POINTS[kind], FR.nlimbs), -1, dtype=torch.int32)
+                    rc = host_lib.host_sumcheck_round(_ptr(src), _ptr(dst),
+                                                      _ptr(r) if fold else None, _ptr(part),
+                                                      sk.KINDS[kind], n, int(fold), k_par, k_seq,
+                                                      nb, form)
+                    assert rc == 0
+                    if fold:
+                        assert torch.equal(dst, want_dst), (n, nb)
+                    assert torch.equal(tf.reduce_sum(FR, part, axis=1), want[:, 0]), (n, fold, nb,
+                                                                                      form)
             if n == 8 and fold:  # the definition: fold, then the lines at 0, 2, 3
                 h = n // 2
                 folded = [[(lo + r_int * (hi - lo)) % R for lo, hi in zip(v[:h], v[h:])]
@@ -248,7 +256,7 @@ def test_round_body_equals_plain(host_lib, kind, k_par, k_seq):
     bad = torch.zeros((T, 3, FR.nlimbs), dtype=torch.int32)
     part = torch.zeros((k, 1, sk.POINTS[kind], FR.nlimbs), dtype=torch.int32)
     assert host_lib.host_sumcheck_round(_ptr(bad), None, None, _ptr(part), sk.KINDS[kind], 3, 0,
-                                        k_par, k_seq, 1) == -3
+                                        k_par, k_seq, 1, -1) == -3
 
 
 SLOW_CASES = [(kind, sponge, rounds) for kind in ("quad", "cubic_tau") for sponge in ("fr", "fq")

@@ -3,6 +3,7 @@
 // with the same C interface minus the stream.  tests/test_torch_csrc.py
 // builds this with the host compiler and holds it against the plain PyTorch
 // versions, so the field and group code is checked where there is no GPU.
+#include <algorithm>
 #include <vector>
 
 #include "ec_team.cuh"
@@ -174,28 +175,78 @@ static int host_fixed_base_team_impl(const int* table, const int* scal, int* out
   return 0;
 }
 
-// k_sumcheck_round (sumcheck_round.cu) on the CPU: each instance's blocks
-// in turn, the threads of a block as a loop over the same grid-stride pairs,
-// one partial sum a block.
-template <int KIND>
-static void host_round(const int* src, int* dst, const int* r_row, int* partials, long n, int fold,
-                       int kp, int ks, int nblocks) {
+// k_sumcheck_round (sumcheck_round.cu) on the CPU: each block row's blocks
+// in turn, each walking its tiles of P pairs as the kernel does, with its
+// shared memory as a plain array, the threads of a phase as a loop and the
+// barriers between phases as the ends of those loops.  A block's shared
+// memory starts with poison limbs (on the card it starts with whatever it
+// held), so that a stale row that reached a store or a sum would show.  A
+// block's partial for point pt sums the accumulators of threads pt TC .. pt
+// TC + TC - 1.
+template <int KIND, int P>
+static void host_round_tiled(const int* src, int* dst, const int* r_row, int* partials, long n,
+                             int fold, int kp, int ks, int nblocks) {
   constexpr int NP = ScKind<KIND>::NPTS;
-  const int k = KIND == SC_CUBIC ? kp + ks : 1;
-  const bool last = fold && n == 2;
+  typedef ScTile<KIND, P> G;
   const long pairs = sc_pairs(n, fold);
+  const int PT = sc_tile_pairs(P, fold), TC = sc_comb_threads<KIND, G::TPB>(PT);
   u32 r[FRN] = {0};
   if (fold) fp_load_row<Fr>(r, r_row);
-  for (int inst = 0; inst < k; inst++) {
+  std::vector<Limb4> smem(G::SMEM / 16);
+  std::vector<u32> acc((std::size_t)G::TPB * FRN);
+  for (int y = 0; y < sc_rows<KIND>(kp, ks, fold); y++) {
+    const ScRow row = sc_row<KIND>(y, kp, ks, n, fold);
     for (int b = 0; b < nblocks; b++) {
-      u32 acc[NP][FRN] = {};
-      for (int tid = 0; tid < SC_TPB; tid++)
-        for (long p = (long)b * SC_TPB + tid; p < pairs; p += (long)nblocks * SC_TPB)
-          sc_pair<KIND>(acc, src, dst, r, n, p, inst, kp, ks, fold, !last);
-      for (int pt = 0; pt < NP; pt++)
-        fp_store_row<Fr>(partials + (((long)inst * nblocks + b) * NP + pt) * FR_ROW, acc[pt]);
+      std::fill(smem.begin(), smem.end(), Limb4{0x7a5c, 0x13f1, 0x5e0d, 0x0b6a});
+      std::fill(acc.begin(), acc.end(), 0u);
+      for (long tile = b; tile * PT < pairs; tile += nblocks) {
+        for (int tid = 0; tid < G::TPB; tid++)
+          sc_load<KIND, P>(smem.data(), dst, src, r, n, tile * PT, pairs, fold, row, tid);
+        if (row.eval)
+          for (int tid = 0; tid < G::TPB; tid++)
+            sc_comb_item<KIND, P, G::TPB>(&acc[(std::size_t)tid * FRN], smem.data(), tile * PT,
+                                          pairs, fold, tid);
+      }
+      if (y >= sc_instances<KIND>(kp, ks)) continue;
+      for (int pt = 0; pt < NP; pt++) {
+        u32 sum[FRN] = {0};
+        for (int tid = pt * TC; tid < (pt + 1) * TC; tid++)
+          fp_add<Fr>(sum, sum, &acc[(std::size_t)tid * FRN]);
+        fp_store_row<Fr>(partials + (((long)y * nblocks + b) * NP + pt) * FR_ROW, sum);
+      }
     }
   }
+}
+
+// k_sumcheck_round_straight (no fold) on the CPU: each block's threads over
+// their grid-stride pairs.
+template <int KIND>
+static void host_round_straight(const int* src, int* partials, long n, int kp, int ks,
+                                int nblocks) {
+  constexpr int NP = ScKind<KIND>::NPTS, T = sc_straight_tpb<KIND>();
+  for (int y = 0; y < sc_instances<KIND>(kp, ks); y++) {
+    const ScRow row = sc_row<KIND>(y, kp, ks, n, false);
+    for (int b = 0; b < nblocks; b++) {
+      u32 sums[NP][FRN] = {};
+      for (int tid = 0; tid < T; tid++)
+        for (long p = (long)b * T + tid; p < n / 2; p += (long)nblocks * T)
+          sc_pair_straight<KIND>(sums, src, n, p, row);
+      for (int pt = 0; pt < NP; pt++)
+        fp_store_row<Fr>(partials + (((long)y * nblocks + b) * NP + pt) * FR_ROW, sums[pt]);
+    }
+  }
+}
+
+// The round of `kind` in form `form` (an SC_TILED_* or SC_STRAIGHT).
+template <int KIND>
+static void host_round(const int* src, int* dst, const int* r, int* partials, long n, int fold,
+                       int kp, int ks, int nblocks, int form) {
+  if (form == SC_STRAIGHT)
+    host_round_straight<KIND>(src, partials, n, kp, ks, nblocks);
+  else if (form == SC_TILED_SMALL)
+    host_round_tiled<KIND, ScKind<KIND>::P_SMALL>(src, dst, r, partials, n, fold, kp, ks, nblocks);
+  else
+    host_round_tiled<KIND, ScKind<KIND>::P_LARGE>(src, dst, r, partials, n, fold, kp, ks, nblocks);
 }
 
 // k_sumcheck_tail (sumcheck_tail.cu) on one thread: the sums in order, the
@@ -448,18 +499,24 @@ int host_poseidon_permute(const int* in, int* out, int nlimbs, long nstates) {
 }
 
 // One round of the fused sumcheck, as sumcheck_round.cu (its arguments and
-// return codes).
+// return codes), in the form the launcher takes for the shape (form -1), or
+// in form `form` (SC_TILED_LARGE, SC_TILED_SMALL, or SC_STRAIGHT without a
+// fold) whatever the shape.
 int host_sumcheck_round(const int* src, int* dst, const int* r, int* partials, int kind, long n,
-                        int fold, int k_par, int k_seq, int nblocks) {
-  if (n < 2 || (n & (n - 1)) || nblocks < 1 || nblocks > SC_MAX_BLOCKS || k_par < 0 ||
-      k_seq < 0 || (kind == SC_CUBIC && k_par + k_seq < 1))
+                        int fold, int k_par, int k_seq, int nblocks, int form) {
+  if (n < 2 || (n & (n - 1)) || nblocks < 1 || k_par < 0 || k_seq < 0 ||
+      (kind == SC_CUBIC && k_par + k_seq < 1) || form < -1 || form > SC_STRAIGHT ||
+      (form == SC_STRAIGHT && fold))
     return -3;
   if (kind == SC_QUAD)
-    host_round<SC_QUAD>(src, dst, r, partials, n, fold, k_par, k_seq, nblocks);
+    host_round<SC_QUAD>(src, dst, r, partials, n, fold, k_par, k_seq, nblocks,
+                             form < 0 ? sc_form<SC_QUAD>(n, fold) : form);
   else if (kind == SC_CUBIC_TAU)
-    host_round<SC_CUBIC_TAU>(src, dst, r, partials, n, fold, k_par, k_seq, nblocks);
+    host_round<SC_CUBIC_TAU>(src, dst, r, partials, n, fold, k_par, k_seq, nblocks,
+                                  form < 0 ? sc_form<SC_CUBIC_TAU>(n, fold) : form);
   else if (kind == SC_CUBIC)
-    host_round<SC_CUBIC>(src, dst, r, partials, n, fold, k_par, k_seq, nblocks);
+    host_round<SC_CUBIC>(src, dst, r, partials, n, fold, k_par, k_seq, nblocks,
+                              form < 0 ? sc_form<SC_CUBIC>(n, fold) : form);
   else
     return -1;
   return 0;

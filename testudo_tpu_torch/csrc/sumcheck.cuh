@@ -12,15 +12,28 @@
 //                 (k_par), C, A_seq (k_seq), B_seq (k_seq), C_seq (k_seq);
 //                 `prove_cubic` is k_par = 1, k_seq = 0.
 // A round may first fold every table by the previous round's challenge r
-// (dense.bound_top: Z'[i] = Z[i] + r (Z[i + n/2] - Z[i])): then the thread of
-// pair p reads rows p, p + n/4, p + n/2, p + 3n/4 of a table, writes the two
-// folded rows p and p + n/4 of the half-size table, and those two are the
-// (lo, hi) of its pair in the round's evaluation.  Sources and destinations
-// are separate stacks, so the instances of the batched layout read their
-// shared C while instance 0 writes its fold.  A fold of 2-row tables (the
-// last challenge) writes the final row and evaluates nothing.  Every sum is
-// exact (canonical modular additions); a block writes one partial sum per
-// instance and point.
+// (dense.bound_top: Z'[i] = Z[i] + r (Z[i + n/2] - Z[i])): a pair p then
+// reads rows p, p + n/4, p + n/2, p + 3n/4 of a table, gives the two folded
+// rows p and p + n/4 of the half-size table, and those two are the (lo, hi)
+// of its pair in the round's evaluation.  Sources and destinations are
+// separate stacks, so the instances of the batched layout read their shared
+// C while instance 0 writes its fold.  A fold of 2-row tables (the last
+// challenge) writes the final row and evaluates nothing.  Every sum is exact
+// (canonical modular additions); a block writes one partial sum per instance
+// and point.
+//
+// Two forms of a round (sumcheck_round.cu picks one by shape):
+//   - tiled (every round with a fold, and small ones without): a block
+//     works a tile of pairs at a time (ScTile, small or large tiles); a
+//     thread a (table, pair) reads its rows straight from device memory and
+//     folds both halves (two independent products), the folded rows go
+//     through shared memory (in mont_rm.cuh's swizzled slots) to a thread a
+//     (pair, point) that forms the combination, so that a thread's chain is
+//     one fold product and one or two combination products (`sc_load`,
+//     `sc_comb_item`, a barrier after each);
+//   - straight (rounds without a fold from SC_STRAIGHT_MIN_PAIRS pairs): a
+//     thread a pair reads its rows and adds the combination at every point
+//     (`sc_pair_straight`), with no barrier between warps.
 //
 // The tail, one warp: sums the partials, combines the instances by the
 // random-linear coefficients, forms the round polynomial's coefficients
@@ -30,19 +43,41 @@
 // claim by Horner.  The sponge's mode and index come in as arguments: the
 // caller replays the mode machine (core/sumcheck.py `_simulate_schedule`).
 //
-// The file also compiles as plain C++: csrc/host_check.cpp runs the pair
-// body over a plain loop of "threads" and blocks and the tail's machine on
-// one thread (`HostSponge`).
+// The file also compiles as plain C++: csrc/host_check.cpp runs each form
+// of the round over a plain loop of "threads", block after block, and the
+// tail's machine on one thread (`HostSponge`).
 #pragma once
+#include "mont_rm.cuh"
 #include "poseidon.cuh"
 
-#define SC_TPB 128       // threads of a round block
-#define SC_MAX_BLOCKS 528  // most blocks of a round (4 a multiprocessor of an H100)
 #define SC_QUAD 0
 #define SC_CUBIC_TAU 1
 #define SC_CUBIC 2
 #define FRN 8      // 32-bit words of an Fr element
 #define FR_ROW 16  // int32 limbs of an Fr row in device memory
+// Pairs of a tile (P), a block having NT P threads: small tiles (64 pairs
+// for quad, 32 for the others) for rounds that need at most SC_SMALL_GRID
+// of them (a block's chain is shorter), large tiles (SC_P pairs, 64 for
+// quad) above.  A tiled round's grid is at most SC_SMALL_GRID blocks or one
+// block for SC_PAIRS_A_BLOCK pairs, whichever is more: the tail sums the
+// partials 32 a lane step, so it gets no more steps than from one thread a
+// pair at 128 threads a block.
+#define SC_P 128
+#define SC_SMALL_GRID 32
+#define SC_PAIRS_A_BLOCK 128
+// Rounds without a fold and with this many pairs or more take the straight
+// form (tools/exp_sumcheck_round.py times every form at every shape).
+#define SC_STRAIGHT_MIN_PAIRS (1L << 15)
+#define SC_TILED_LARGE 0  // the forms of a round (sc_form)
+#define SC_TILED_SMALL 1
+#define SC_STRAIGHT 2
+
+// Helpers the launcher calls on the host as well.
+#ifdef __CUDACC__
+#define SC_HD __host__ __device__ __forceinline__
+#else
+#define SC_HD static inline
+#endif
 
 typedef FrParams Fr;
 
@@ -50,11 +85,72 @@ template <int KIND>
 struct ScKind {
   static constexpr int NT = KIND == SC_QUAD ? 2 : KIND == SC_CUBIC_TAU ? 4 : 3;  // tables
   static constexpr int NPTS = KIND == SC_QUAD ? 2 : 3;  // evaluation points
+  static constexpr int P_LARGE = KIND == SC_QUAD ? 64 : SC_P;
+  static constexpr int P_SMALL = KIND == SC_QUAD ? 64 : 32;
 };
 
-// Pairs a round block's threads take: n / 2 without a fold, n / 4 with one;
-// the last fold (n = 2) is one "pair", row 0.
-FP_FN long sc_pairs(long n, bool fold) { return fold ? (n == 2 ? 1 : n / 4) : n / 2; }
+// A tile: with a fold, P pairs (their rows p0 + i, + n/4, + n/2, + 3n/4 of
+// each table); without, 2P pairs (rows p0 + i and + n/2).  Shared memory
+// holds a region of 4P rows a table (REGION 16-byte chunks), and the lo and
+// hi rows of the tile's pair i are its rows i and PT + i (PT the tile's
+// pairs).  A thread a (table, i < P).
+template <int KIND, int P>
+struct ScTile {
+  static constexpr int NT = ScKind<KIND>::NT;
+  static constexpr int NPTS = ScKind<KIND>::NPTS;
+  static constexpr int TPB = NT * P;
+  static constexpr int REGION = 16 * P;
+  static constexpr int SMEM = NT * REGION * 16;  // bytes of a block's regions
+  static_assert(P % 32 == 0, "a warp's threads share one table and one point");
+};
+
+// Pairs of a round block's threads take: n / 2 without a fold, n / 4 with
+// one; the last fold (n = 2) is one "pair", row 0.
+SC_HD long sc_pairs(long n, bool fold) { return fold ? (n == 2 ? 1 : n / 4) : n / 2; }
+
+// Pairs of a tile.
+SC_HD int sc_tile_pairs(int P, bool fold) { return fold ? P : 2 * P; }
+
+// Tiles of P pairs a round needs.
+SC_HD long sc_tiles(int P, long n, bool fold) {
+  return (sc_pairs(n, fold) + sc_tile_pairs(P, fold) - 1) / sc_tile_pairs(P, fold);
+}
+
+// Threads of a straight block: a block covers at least 128 pairs, and the
+// card keeps no more than 4 an SM resident (quad's body is small).
+template <int KIND>
+SC_HD constexpr int sc_straight_tpb() {
+  return KIND == SC_QUAD ? 256 : 128;
+}
+
+// The form a round takes (the SC_TILED_* and SC_STRAIGHT above).
+template <int KIND>
+SC_HD int sc_form(long n, bool fold) {
+  if (!fold && sc_pairs(n, fold) >= SC_STRAIGHT_MIN_PAIRS) return SC_STRAIGHT;
+  return sc_tiles(ScKind<KIND>::P_SMALL, n, fold) <= SC_SMALL_GRID ? SC_TILED_SMALL
+                                                                   : SC_TILED_LARGE;
+}
+
+// Combination threads a point (a multiple of 32): the tile's pairs, or as
+// many as the block has for each point; a thread then takes PT / TC pairs
+// (one or two).
+template <int KIND, int TPB>
+FP_FN int sc_comb_threads(int PT) {
+  constexpr int most = TPB / ScKind<KIND>::NPTS / 32 * 32;
+  return PT < most ? PT : most;
+}
+
+// Instances of a layout.
+template <int KIND>
+SC_HD int sc_instances(int kp, int ks) { return KIND == SC_CUBIC ? kp + ks : 1; }
+
+// Block rows (grid y) of a round: one an instance, and with a fold of the
+// batched layout without par instances one more, which folds the shared C
+// that no instance reads.
+template <int KIND>
+SC_HD int sc_rows(int kp, int ks, bool fold) {
+  return sc_instances<KIND>(kp, ks) + (KIND == SC_CUBIC && kp == 0 && fold ? 1 : 0);
+}
 
 // The stack indexes of instance `inst`'s tables, and which of them its
 // blocks write the fold of (a shared C: instance 0).
@@ -75,84 +171,178 @@ FP_FN void sc_tables(int* tab, bool* own, int inst, int kp, int ks) {
   }
 }
 
-// (lo, hi) of table t at pair p.  With `fold`, the source tables have n
-// rows: lo and hi are the folded rows p and p + h of the n/2-row result
-// (h = n/4), stored to dst when `store`; without, rows p and p + n/2.
-FP_FN void sc_line(u32* lo, u32* hi, const int* src, int* dst, const u32* r, long n, long p, int t,
-                   bool fold, bool store) {
-  const int* tab = src + (long)t * n * FR_ROW;
-  if (!fold) {
-    fp_load_row<Fr>(lo, tab + p * FR_ROW);
-    fp_load_row<Fr>(hi, tab + (p + n / 2) * FR_ROW);
-    return;
+// What the blocks of row y read, fold and sum: its first nt tables (stack
+// indexes tab, folds stored where own) and, with eval, the sums.
+struct ScRow {
+  int tab[4];
+  bool own[4];
+  int nt;
+  bool eval;
+};
+
+template <int KIND>
+FP_FN ScRow sc_row(int y, int kp, int ks, long n, bool fold) {
+  ScRow row = {{0, 0, 0, 0}, {false, false, false, false}, 1, false};
+  if (y < sc_instances<KIND>(kp, ks)) {
+    sc_tables<KIND>(row.tab, row.own, y, kp, ks);
+    row.nt = ScKind<KIND>::NT;
+    row.eval = !(fold && n == 2);
+  } else {  // the unread shared C (sc_rows): table 0, folded only
+    row.own[0] = true;
   }
-  const long s = n / 2, h = s / 2;
-  u32 a[FRN], b[FRN];
-  fp_load_row<Fr>(a, tab + p * FR_ROW);
-  fp_load_row<Fr>(b, tab + (p + s) * FR_ROW);
-  fp_sub<Fr>(b, b, a);
-  fp_mul_inline<Fr>(b, b, r);
-  fp_add<Fr>(lo, a, b);
-  fp_load_row<Fr>(a, tab + (p + h) * FR_ROW);
-  fp_load_row<Fr>(b, tab + (p + h + s) * FR_ROW);
-  fp_sub<Fr>(b, b, a);
-  fp_mul_inline<Fr>(b, b, r);
-  fp_add<Fr>(hi, a, b);
-  if (store) {
-    int* d = dst + (long)t * s * FR_ROW;
-    fp_store_row<Fr>(d + p * FR_ROW, lo);
-    fp_store_row<Fr>(d + (p + h) * FR_ROW, hi);
+  return row;
+}
+
+// Row w of a table region as 8 words, and back.
+FP_FN void sc_get(u32* x, const Limb4* t, int w) {
+  FP_UNROLL
+  for (int k = 0; k < 4; k++) {
+    const Limb4 v = t[rm_slot<Fr>(w, k)];
+    x[2 * k] = (u32)v.a | ((u32)v.b << 16);
+    x[2 * k + 1] = (u32)v.c | ((u32)v.d << 16);
   }
 }
 
-// The kind's combination of one instance's table values x at a point.
+FP_FN void sc_put(Limb4* t, int w, const u32* x) {
+  FP_UNROLL
+  for (int k = 0; k < 4; k++) {
+    Limb4 v;
+    v.a = (int)(x[2 * k] & 0xffffu);
+    v.b = (int)(x[2 * k] >> 16);
+    v.c = (int)(x[2 * k + 1] & 0xffffu);
+    v.d = (int)(x[2 * k + 1] >> 16);
+    t[rm_slot<Fr>(w, k)] = v;
+  }
+}
+
+// Phase 1: thread (table j, i) reads its rows straight, with a fold the
+// four rows of pair p = p0 + i, folds both halves (Z[p] + r (Z[p + n/2] -
+// Z[p]), two independent products), stores the folded rows p and p + n/4
+// to the destination (when the row owns the table; for n = 2 both are row
+// 0, stored once) and puts them at rows i and P + i; without, the lo and hi
+// rows of pairs p0 + i and p0 + P + i at rows i, P + i and 2P + i, 3P + i.
+// A pair past the tables' end reads the last pair's rows and stores
+// nothing.  A warp's threads share j: a block row with one table leaves
+// the other warps idle.
+template <int KIND, int P>
+FP_FN void sc_load(Limb4* st, int* dst, const int* src, const u32* r, long n, long p0, long pairs,
+                   bool fold, const ScRow& row, int tid) {
+  const int j = tid / P, i = tid % P;
+  if (j >= row.nt) return;
+  const int* tab = src + (long)row.tab[j] * n * FR_ROW;
+  Limb4* t = st + j * ScTile<KIND, P>::REGION;
+  const long s = n / 2;
+  if (fold) {
+    const long h = s / 2, p = p0 + i < pairs ? p0 + i : pairs - 1;
+    u32 a0[FRN], b0[FRN], a1[FRN], b1[FRN];
+    fp_load_row<Fr>(a0, tab + p * FR_ROW);
+    fp_load_row<Fr>(b0, tab + (p + s) * FR_ROW);
+    fp_load_row<Fr>(a1, tab + (p + h) * FR_ROW);
+    fp_load_row<Fr>(b1, tab + (p + h + s) * FR_ROW);
+    fp_sub<Fr>(b0, b0, a0);
+    fp_sub<Fr>(b1, b1, a1);
+    fp_mul_inline<Fr>(b0, b0, r);
+    fp_mul_inline<Fr>(b1, b1, r);
+    fp_add<Fr>(a0, a0, b0);
+    fp_add<Fr>(a1, a1, b1);
+    sc_put(t, i, a0);
+    sc_put(t, P + i, a1);
+    if (row.own[j] && p0 + i < pairs) {
+      int* d = dst + (long)row.tab[j] * s * FR_ROW;
+      fp_store_row<Fr>(d + p * FR_ROW, a0);
+      if (h > 0) fp_store_row<Fr>(d + (p + h) * FR_ROW, a1);
+    }
+    return;
+  }
+  FP_UNROLL
+  for (int m = 0; m < 2; m++) {
+    const long q = p0 + i + m * P, p = q < pairs ? q : pairs - 1;
+    u32 a[FRN], b[FRN];
+    fp_load_row<Fr>(a, tab + p * FR_ROW);
+    fp_load_row<Fr>(b, tab + (p + s) * FR_ROW);
+    sc_put(t, i + m * P, a);
+    sc_put(t, 2 * P + i + m * P, b);
+  }
+}
+
+// The value at X = 0, 2 or 3 (pt = 0, 1, 2) of the line through lo and hi.
+FP_FN void sc_line_at(u32* x, const u32* lo, const u32* hi, int pt) {
+  u32 d[FRN];
+  fp_copy<Fr>(x, lo);
+  if (pt == 0) return;
+  fp_sub<Fr>(d, hi, lo);  // the line's slope
+  fp_add<Fr>(x, x, d);
+  fp_add<Fr>(x, x, d);
+  if (pt == 2) fp_add<Fr>(x, x, d);
+}
+
+// The same for rows lo and hi of a table region.
+FP_FN void sc_point(u32* x, const Limb4* t, int lo, int hi, int pt) {
+  u32 a[FRN], b[FRN];
+  sc_get(a, t, lo);
+  if (pt != 0) sc_get(b, t, hi);
+  sc_line_at(x, a, b, pt);
+}
+
+// The kind's combination of one instance's values x at a point: A B,
+// tau (A B - C) or A B C.
 template <int KIND>
-FP_FN void sc_comb(u32* out, u32 (*x)[FRN]) {
+FP_FN void sc_comb_of(u32* v, u32 (*x)[FRN]) {
   u32 t[FRN];
   if (KIND == SC_QUAD) {
-    fp_mul_inline<Fr>(out, x[0], x[1]);
+    fp_mul_inline<Fr>(v, x[0], x[1]);
   } else if (KIND == SC_CUBIC_TAU) {
     fp_mul_inline<Fr>(t, x[1], x[2]);
     fp_sub<Fr>(t, t, x[3]);
-    fp_mul_inline<Fr>(out, x[0], t);
+    fp_mul_inline<Fr>(v, x[0], t);
   } else {
     fp_mul_inline<Fr>(t, x[0], x[1]);
-    fp_mul_inline<Fr>(out, t, x[2]);
+    fp_mul_inline<Fr>(v, t, x[2]);
   }
 }
 
-// One pair of one instance: the fold (with `fold`), then, with `eval`, the
-// combination at X = 0 (lo), 2 (2 hi - lo) and 3 (3 hi - 2 lo) added into acc.
-template <int KIND>
-FP_FN void sc_pair(u32 (*acc)[FRN], const int* src, int* dst, const u32* r, long n, long p,
-                   int inst, int kp, int ks, bool fold, bool eval) {
-  constexpr int NT = ScKind<KIND>::NT;
-  int tab[NT];
-  bool own[NT];
-  sc_tables<KIND>(tab, own, inst, kp, ks);
-  u32 lo[NT][FRN], hi[NT][FRN], v[FRN];
+// Phase 2 (with eval): thread `tid` forms the combination at point tid /
+// TC of the tile's pairs tid % TC (and + TC when the tile has twice TC
+// pairs) and adds them into acc, for pairs of the tables (a select: pairs
+// past the end add nothing).  Threads from NPTS TC on form nothing; TC is a
+// multiple of 32, so a warp's threads share a point and take the same side
+// of every branch.
+template <int KIND, int P, int TPB>
+FP_FN void sc_comb_item(u32* acc, const Limb4* st, long p0, long pairs, bool fold, int tid) {
+  constexpr int NT = ScKind<KIND>::NT, REGION = 16 * P;
+  const int PT = sc_tile_pairs(P, fold), TC = sc_comb_threads<KIND, TPB>(PT);
+  const int pt = tid / TC;
+  if (pt >= ScKind<KIND>::NPTS) return;
   FP_UNROLL
-  for (int j = 0; j < NT; j++) sc_line(lo[j], hi[j], src, dst, r, n, p, tab[j], fold, own[j]);
-  if (KIND == SC_CUBIC && fold && kp == 0 && inst == 0) {  // a shared C that no instance reads
-    u32 w[FRN];
-    sc_line(v, w, src, dst, r, n, p, 0, true, true);
+  for (int m = 0; m < 2; m++) {
+    const int i = tid % TC + m * TC;
+    if (i >= PT) break;
+    u32 x[NT][FRN], v[FRN];
+    FP_UNROLL
+    for (int j = 0; j < NT; j++) sc_point(x[j], st + j * REGION, i, PT + i, pt);
+    sc_comb_of<KIND>(v, x);
+    fp_add<Fr>(v, acc, v);
+    fp_select<Fr>(acc, p0 + i < pairs, v, acc);
   }
-  if (!eval) return;
-  sc_comb<KIND>(v, lo);
-  fp_add<Fr>(acc[0], acc[0], v);
+}
+
+// The straight form: pair p of the row's instance, its tables' lo and hi
+// rows read straight, the combination at every point added into acc.
+template <int KIND>
+FP_FN void sc_pair_straight(u32 (*acc)[FRN], const int* src, long n, long p, const ScRow& row) {
+  constexpr int NT = ScKind<KIND>::NT;
+  u32 lo[NT][FRN], hi[NT][FRN], x[NT][FRN], v[FRN];
   FP_UNROLL
   for (int j = 0; j < NT; j++) {
-    fp_sub<Fr>(hi[j], hi[j], lo[j]);  // the line's slope
-    fp_add<Fr>(lo[j], lo[j], hi[j]);
-    fp_add<Fr>(lo[j], lo[j], hi[j]);  // X = 2
+    fp_load_row<Fr>(lo[j], src + ((long)row.tab[j] * n + p) * FR_ROW);
+    fp_load_row<Fr>(hi[j], src + ((long)row.tab[j] * n + p + n / 2) * FR_ROW);
   }
-  sc_comb<KIND>(v, lo);
-  fp_add<Fr>(acc[1], acc[1], v);
-  if (ScKind<KIND>::NPTS == 3) {
+  FP_UNROLL
+  for (int pt = 0; pt < ScKind<KIND>::NPTS; pt++) {
     FP_UNROLL
-    for (int j = 0; j < NT; j++) fp_add<Fr>(lo[j], lo[j], hi[j]);  // X = 3
-    sc_comb<KIND>(v, lo);
-    fp_add<Fr>(acc[2], acc[2], v);
+    for (int j = 0; j < NT; j++) sc_line_at(x[j], lo[j], hi[j], pt);
+    sc_comb_of<KIND>(v, x);
+    fp_add<Fr>(acc[pt], acc[pt], v);
   }
 }
 

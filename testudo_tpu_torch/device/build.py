@@ -74,6 +74,7 @@ _SIGNATURES = {
 # C functions that launch nothing and take no stream: (symbol, argtypes).
 _QUERIES = {
     "bucket_capacity": ("testudo_bucket_capacity", (_I, _I)),
+    "sumcheck_round_grid": ("testudo_sumcheck_round_grid", (_I, _L, _I, _I, _I)),
 }
 
 # Launches per kernel since the last reset_launches().  The mixed and the

@@ -11,7 +11,11 @@ launches and no copy to the host (core/sumcheck.py `_prove_fused`):
     (`dense.bound_top`), then each instance's sums of the kind's
     combination at X = 0, 2 (and 3) over the half-tables
     (`_round_evals_*`), one partial sum a block: returns the folded stack
-    and the partials `(k, blocks, points, 16)`.
+    and the partials `(k, blocks, points, 16)`.  A block works tiles of P
+    pairs (2P without the fold): a thread a (table, pair) reads its rows
+    and folds, a thread a (pair, point) sums; large rounds without the fold
+    take a thread a pair; the grid is at most the blocks the card keeps
+    resident (`round_blocks`).
   - `sumcheck_tail` (csrc/sumcheck_tail.cu): sum the partials, combine the
     instances by their coefficients, form the round polynomial's
     coefficients (`unipoly_coeffs_dev`), absorb them into the device sponge
@@ -30,6 +34,7 @@ runs the plain version beside it.
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Sequence, Tuple
 
 import torch
@@ -41,8 +46,6 @@ from .field import FR, FieldSpec
 
 KINDS = {"quad": 0, "cubic_tau": 1, "cubic": 2}  # SC_QUAD, SC_CUBIC_TAU, SC_CUBIC
 POINTS = {"quad": 2, "cubic_tau": 3, "cubic": 3}
-TPB = 128  # SC_TPB in csrc/sumcheck.cuh
-MAX_BLOCKS = 528  # SC_MAX_BLOCKS
 
 
 def instance_tables(kind: str, k_par: int = 1, k_seq: int = 0) -> List[Tuple[int, ...]]:
@@ -60,11 +63,22 @@ def stack_size(kind: str, k_par: int = 1, k_seq: int = 0) -> int:
     return {"quad": 2, "cubic_tau": 4}.get(kind, 2 * k_par + 1 + 3 * k_seq)
 
 
-def round_blocks(n: int, fold: bool) -> int:
-    """Blocks of a round launch on n-row tables: one thread a pair of rows,
-    at most MAX_BLOCKS (the threads then loop)."""
-    pairs = (1 if n == 2 else n // 4) if fold else n // 2
-    return max(1, min(-(-pairs // TPB), MAX_BLOCKS))
+@functools.lru_cache(maxsize=None)
+def _grid(kind: str, n: int, fold: bool, k_par: int, k_seq: int, device_index: int) -> int:
+    with torch.cuda.device(device_index):
+        nb = build.query("sumcheck_round_grid", KINDS[kind], n, int(fold), k_par, k_seq)
+    if nb <= 0:
+        raise RuntimeError(f"sumcheck_round ({kind}): the occupancy query failed ({nb})")
+    return nb
+
+
+def round_blocks(kind: str, n: int, fold: bool, device, k_par: int = 1, k_seq: int = 0) -> int:
+    """Blocks a row of a round launch on the card in the form the launcher
+    takes for the shape: the tiles (or, in the straight form, blocks of
+    128 or 256 pairs), at most the kernel's resident blocks shared by the
+    rows (csrc/sumcheck_round.cu `round_grid`; the blocks then loop).  CUDA
+    only."""
+    return _grid(kind, n, bool(fold), k_par, k_seq, torch.device(device).index or 0)
 
 
 def _check_round(kind: str, src: torch.Tensor, r, k_par: int, k_seq: int) -> None:
@@ -126,7 +140,7 @@ def sumcheck_round(kind: str, src: torch.Tensor, r=None, k_par: int = 1, k_seq: 
     T, n, nl = src.shape
     fold = r is not None
     k = len(instance_tables(kind, k_par, k_seq))
-    nb = round_blocks(n, fold)
+    nb = round_blocks(kind, n, fold, src.device, k_par, k_seq)
     src = src.contiguous()
     dst = torch.empty((T, n // 2, nl), dtype=torch.int32, device=src.device) if fold else src
     partials = torch.empty((k, nb, POINTS[kind], nl), dtype=torch.int32, device=src.device)
