@@ -49,6 +49,23 @@ testudo_tpu_torch/csrc/, then
      sumcheck's three kernels must run in the first and not in the second),
      and the round kernel's launches by shape in one warm fused prove with
      their summed device time;
+  5b. drives TestudoSNARK without Groth16 (core/snark.py: `TestudoSnarkGens.setup(...,
+     with_groth16=False)`, `snark_encode`, `snark_prove`, `snark_verify`; Spark
+     in core/spark.py over the product trees, the row-wise Pedersen commitment
+     and the dot-product argument): a 16 x 16 x 3 instance proved on the card
+     and on the CPU with host groups under one seeded blind stream, byte-equal
+     with equal commitments; then config #4 (`produce_synthetic_r1cs(n, n,
+     10)`, n nonzero entries a matrix, as benches/testudo.py builds it) at 2^12
+     and 2^16: sat, eval and total bytes (testudo.csv's 13,192 + 43,800 B at
+     2^12, 57,905 B in all without the Groth16 proof; 17,192 B of sat proof at
+     2^16; the total's identity), codec round trip, verify, inst_evals + 1 and
+     a flipped byte of the eval proof rejected, the evaluations against
+     Python ints; setup, encode, prove (cold and three warm, byte-equal, split
+     by the Timer labels: sat proof, evaluate A,B,C, derefs commit, product
+     layers, hash layer) and verify (cold, warm) timed; at 2^16 one warm
+     prove's CUDA kernels and device time under torch.profiler and the
+     launches of the encode, one warm prove and one warm verify (paths
+     snark_encode, snark_prove, snark_verify);
   6. runs the chained-product harness (tools/exp_montmul.py), which
      measures the card's Montgomery products per second;
   7. calls every kernel's wrapper at the shapes the main paths gave it and
@@ -94,7 +111,8 @@ testudo_tpu_torch/csrc/, then
   9. prints one JSON line {"kernels": [...]} (each row's `launches` is the
      sum of `launches_by_path`, the kernel's count on each driven path: msm,
      fixed_base, field, setup, commit, open, verify, nizk_prove,
-     nizk_prove_looped, nizk_verify, harness; the run fails if a
+     nizk_prove_looped, nizk_verify, snark_encode, snark_prove, snark_verify,
+     harness; the run fails if a
      kernel was not launched on a path it belongs to) and, last,
      {"ok": true, "device": {...}}.
 
@@ -106,8 +124,10 @@ stops after `msm_g1` and `msm_g2` at 2^20 (exact check, cold and warm times,
 phase split: to compare two checkouts on one card, run it from each in turn
 within one shell command); `--nizk-only` stops after the NIZK phase at 2^16
 and at 2^20 (a 21,192 B sat proof; the 2^20 instance takes most of a minute
-of host Python to build), for the same use; the default run is the full
-check.
+of host Python to build), for the same use; `--snark-only` stops after the
+SNARK phase at 2^12, 2^16 and 2^20 (config #4 without its Groth16 half:
+21,192 + 180,504 B, 203,121 B in all; each size profiled); the default run is
+the full check.
 """
 from __future__ import annotations
 
@@ -115,6 +135,7 @@ import argparse
 import hashlib
 import json
 import os
+import random
 import statistics
 import subprocess
 import sys
@@ -213,6 +234,16 @@ NIZK_INPUTS = 10
 NIZK_SAT_BYTES = {16: 17192, 20: 21192}
 GOLDEN_NIZK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
                            "golden_nizk.json")
+# TestudoSNARK without Groth16 on the same instances (config #4, with
+# num_nz_entries = n): (sat, eval, total) bytes per k, from testudo.csv's
+# sat and eval columns and ser_testudo_snark's layout (total = sat + eval +
+# 3 x 32 + rx + ry + the empty Option's tag); at 2^16 the sat proof only
+SNARK_BYTES = {12: (13192, 43800, 57905), 16: (17192, None, None), 20: (21192, 180504, 203121)}
+# the small instance proved on the card and on the CPU under one blind stream
+SNARK_SMALL = (16, 16, 3, 5)  # constraints, variables, inputs, seed
+SNARK_LABELS = {"r1csproof::prove": "sat proof", "snark_prove::evaluate A,B,C": "evaluate A,B,C",
+                "spark::derefs commit": "derefs commit", "spark::product layers": "product layers",
+                "spark::hash layer": "hash layer"}
 # the Timer labels that split a prove (core/r1csproof.py)
 NIZK_LABELS = {"polycommit (sqrt-PST)": "commit", "prove_sc_phase_one": "phase one",
                "prove_sc_phase_two": "phase two", "polyeval (sqrt-PST open)": "open"}
@@ -270,6 +301,26 @@ MUST_LAUNCH["mont_mul_rm_fr"] += ("nizk_verify",)
 FUSED_KERNELS = build.SUMCHECK_KERNELS  # launched by the fused prove only
 for _name in FUSED_KERNELS:
     MUST_LAUNCH[_name] = ("nizk_prove",)
+# TestudoSNARK without Groth16 at 2^16 (the kernels these paths launch on the
+# H100, as their counters read): the encode's two row commitments
+# are shared-basis multi-MSMs (the general bucket kernel, the chain, the
+# wide ladder, the fold) over Montgomery tables turned canonical by the Fr
+# row-major product; the prove adds the NIZK's kernels, Spark's product
+# layers on the fused sumcheck (the round kernel's `cubic` kind, the
+# permutation, the tail), the dot-product arguments' MSMs (ladder, bucket,
+# weighted sum, fold) and generator folds (the team ladder, G1 adds through
+# the Fq product); the verify's device work is the dot-product verifiers'
+# MSMs over the generators
+_SNARK_MUST = {
+    "snark_encode": ("mont_mul_rm_fr", "ladder_wide", "bucket", "chain_team", "fold_team"),
+    "snark_prove": ("mont_mul_rm_fq", "mont_mul_rm_fr", "poseidon_permute", "sumcheck_round",
+                    "sumcheck_tail", "ladder_team", "ladder_wide", "bucket", "wsum", "chain_team",
+                    "fold_team", "ladder_team_g2", "fold_team_g2"),
+    "snark_verify": ("ladder_team", "bucket", "wsum", "fold_team"),
+}
+for _path, _names in _SNARK_MUST.items():
+    for _name in _names:
+        MUST_LAUNCH[_name] += (_path,)
 # A row that times a kernel at a second shape reads its launches from the
 # kernel's counter, on the paths that give it that shape.
 ROW_COUNTER = {"mont_mul_rm_fr_full": ("mont_mul_rm_fr",
@@ -1142,6 +1193,172 @@ def nizk_phase_profile(prove) -> str:
     return f"kernels by phase [count, device ms] (profiled, synchronised at the labels): {json.dumps(split)}"
 
 
+# ---------------------------------------------------------------------------
+# TestudoSNARK without Groth16: encode, prove, verify
+# ---------------------------------------------------------------------------
+
+
+def _snark_setup(n_cons, n_vars, n_inputs, seed, profile):
+    inst, vars_, inputs = r1cs.Instance.produce_synthetic_r1cs(n_cons, n_vars, n_inputs, seed=seed)
+    gens = snark.TestudoSnarkGens.setup(n_cons, n_vars, n_inputs, inst.inst.A.nnz,
+                                        with_groth16=False, profile=profile)
+    return inst, vars_, inputs, gens
+
+
+def _snark_sizes(proof) -> tuple:
+    sat = len(proofs.ser_r1cs_proof(proof.r1cs_sat_proof))
+    ev = len(proofs.ser_spark_proof(proof.r1cs_eval_proof.proof))
+    return sat, ev, len(proofs.ser_testudo_snark(proof))
+
+
+def phase_snark_small(dev):
+    """The small instance proved on the card (fused sumchecks, the default)
+    and on the CPU with host groups (looped sumchecks: the same bytes, the
+    CPU tests hold the two provers equal) under one seeded blind stream:
+    byte-equal proofs and equal commitments; the card's proof verifies on
+    the card."""
+    nc, nv, ni, seed = SNARK_SMALL
+    out = {}
+    for where, pf, fused in (("card", cprof.bls12_377(dev), True),
+                             ("cpu", cprof.bls12_377("cpu", host_groups=True), False)):
+        inst, vars_, inputs, gens = _snark_setup(nc, nv, ni, seed, pf)
+        comm, decomm = snark.snark_encode(inst, gens)
+        proof = snark.snark_prove(inst, comm, decomm, vars_, inputs, gens,
+                                  PoseidonTranscript(fr_params()), fused=fused,
+                                  rng=random.Random(seed))
+        out[where] = (proofs.ser_testudo_snark(proof), comm, proof, gens, inputs)
+    blob, comm, proof, gens, inputs = out["card"]
+    if blob != out["cpu"][0]:
+        raise AssertionError("SNARK small: the card's proof differs from the CPU's")
+    if comm != out["cpu"][1]:
+        raise AssertionError("SNARK small: the card's computation commitment differs from the CPU's")
+    if snark.snark_verify(proof, gens, comm, inputs, PoseidonTranscript(fr_params())) is not True:
+        raise AssertionError("SNARK small: the card's proof did not verify on the card")
+    say(f"SNARK small ({nc} x {nv} x {ni}, seed {seed}): {len(blob)} B proof on the card "
+        f"byte-equal to the CPU's (host groups) under one blind stream, commitments equal, "
+        f"verified on the card")
+
+
+def phase_snark(dev, log2n: int, profiled: bool = True):
+    """TestudoSNARK without Groth16 on produce_synthetic_r1cs(2^log2n,
+    2^log2n, 10) with 2^log2n nonzero entries a matrix (config #4): sizes,
+    codec round trip, verifier accepts and rejects inst_evals + 1 and a
+    flipped byte of the eval proof, the evaluations against Python ints;
+    setup, encode, prove (cold, then three warm, split by the Timer labels)
+    and verify (cold, warm) timed; with `profiled`, one more warm prove under
+    torch.profiler; the launches of the encode, of one warm prove and of one
+    warm verify (returned by path), each path's kernels of _SNARK_MUST
+    launched."""
+    n = 1 << log2n
+    what = f"SNARK 2^{log2n}"
+    t0 = time.perf_counter()
+    inst, vars_, inputs = r1cs.Instance.produce_synthetic_r1cs(n, n, NIZK_INPUTS)
+    inst_s = time.perf_counter() - t0
+    pf = cprof.bls12_377(dev)
+    gens, setup_ms = timed_once(lambda: snark.TestudoSnarkGens.setup(
+        n, n, NIZK_INPUTS, n, with_groth16=False, profile=pf))
+    build.reset_launches()
+    with timer.record() as rec:
+        (comm, decomm), encode_ms = timed_once(lambda: snark.snark_encode(inst, gens))
+    counts_encode = dict(build.LAUNCHES)
+    encode_split = _split(rec)
+
+    def prove():
+        return snark.snark_prove(inst, comm, decomm, vars_, inputs, gens,
+                                 PoseidonTranscript(fr_params()), rng=random.Random(log2n))
+
+    def verify(proof):
+        return snark.snark_verify(proof, gens, comm, inputs, PoseidonTranscript(fr_params()))
+
+    def split_of(records) -> dict:
+        sp = _split(records)
+        out = {short: sp.get(label, 0.0) for label, short in SNARK_LABELS.items()}
+        return out
+
+    with timer.record() as rec:
+        proof, prove_cold = timed_once(prove)
+    split_cold = split_of(rec)
+    blob = proofs.ser_testudo_snark(proof)
+    sizes = _snark_sizes(proof)
+    rx, ry = proof.r
+    if sizes[2] != sizes[0] + sizes[1] + 96 + (8 + 32 * len(rx)) + (8 + 32 * len(ry)) + 1:
+        raise AssertionError(f"{what}: the proof's sizes {sizes} break the total's identity")
+    for got, want, part in zip(sizes, SNARK_BYTES[log2n], ("sat", "eval", "total")):
+        if want is not None and got != want:
+            raise AssertionError(f"{what}: {part} proof of {got} B, expected {want}")
+    back = proofs.parse_testudo_snark(blob)
+    if proofs.ser_testudo_snark(back) != blob:
+        raise AssertionError(f"{what}: the proof does not re-serialize to its bytes")
+    ok, verify_cold = timed_once(lambda: verify(proof))
+    if ok is not True:
+        raise AssertionError(f"{what}: the verifier rejected an honest proof")
+    if verify(back) is not True:
+        raise AssertionError(f"{what}: the verifier rejected the proof read back by the codec")
+    e = proof.inst_evals
+    bumped = snark.TestudoSnark(proof.r1cs_sat_proof, proof.r1cs_eval_proof,
+                                ((e[0] + 1) % R, e[1], e[2]), proof.r)
+    if verify(bumped) is not False:
+        raise AssertionError(f"{what}: the verifier accepted inst_evals[0] + 1")
+    flipped = bytearray(blob)
+    flipped[sizes[0] + sizes[1] - 32] ^= 1  # the low byte of the eval proof's last scalar
+    if verify(proofs.parse_testudo_snark(bytes(flipped))) is not False:
+        raise AssertionError(f"{what}: the verifier accepted a flipped byte of the eval proof")
+
+    # the evaluations Spark proves, in Python ints
+    t0 = time.perf_counter()
+    eq_x, eq_y = host_eq(rx), host_eq(ry)
+    want = tuple(sum(v * eq_x[r_] * eq_y[c_] for r_, c_, v in
+                     zip(m.rows.tolist(), m.cols.tolist(), m.vals)) % R
+                 for m in (inst.inst.A, inst.inst.B, inst.inst.C))
+    if tuple(e) != want:
+        raise AssertionError(f"{what}: inst_evals differ from the host sums at (rx, ry)")
+    host_s = time.perf_counter() - t0
+
+    walls, splits = [], []
+    for _ in range(3):
+        build.reset_launches()
+        with timer.record() as rec:
+            p2, ms = timed_once(prove)
+        counts_prove = dict(build.LAUNCHES)
+        walls.append(ms / 1e3)
+        splits.append(split_of(rec))
+        if proofs.ser_testudo_snark(p2) != blob:
+            raise AssertionError(f"{what}: a warm prove under the same blinds gave other bytes")
+    build.reset_launches()
+    with timer.record() as rec:
+        ok, verify_warm = timed_once(lambda: verify(proof))
+    counts_verify = dict(build.LAUNCHES)
+    verify_parts = _split(rec)
+    if ok is not True:
+        raise AssertionError(f"{what}: the warm verify rejected")
+    by_path = {"snark_encode": counts_encode, "snark_prove": counts_prove,
+               "snark_verify": counts_verify}
+    for path, names in _SNARK_MUST.items():
+        missing = [k for k in names if not by_path[path][k]]
+        if missing:
+            raise AssertionError(f"{what}: path {path} launched none of {missing}")
+    prof_line = nizk_profile(prove) if profiled else "not profiled in this run"
+
+    nz = lambda d: {k: v for k, v in d.items() if v}
+    say(f"{what} ({n} constraints, {n} variables, {NIZK_INPUTS} inputs, {n} nonzero entries a "
+        f"matrix): sat {sizes[0]} B, eval {sizes[1]} B, total {sizes[2]} B; codec round trip, "
+        f"verified; inst_evals[0] + 1 and a flipped byte of the eval proof rejected; inst_evals "
+        f"equal Python ints ({host_s:.1f} s of host checks); instance built in {inst_s:.1f} s")
+    say(f"  {what} times: setup (cold) {setup_ms / 1e3:.4f} s; encode (cold) {encode_ms / 1e3:.4f} s "
+        f"{json.dumps(encode_split)}; prove cold {prove_cold / 1e3:.4f} s {json.dumps(split_cold)}; "
+        f"verify cold {verify_cold / 1e3:.4f} s, warm {verify_warm / 1e3:.4f} s")
+    say(f"  {what} warm proves: {[round(x, 4) for x in walls]} s, median "
+        f"{statistics.median(walls):.4f} s")
+    for i, sp in enumerate(splits):
+        say(f"  {what} warm prove {i} split (s): {json.dumps(sp)}")
+    say(f"  {what} verify parts (s): {json.dumps(verify_parts)}")
+    say(f"  {what} {prof_line}")
+    say(f"  {what} launches, encode: {json.dumps(nz(counts_encode))}")
+    say(f"  {what} launches, one warm prove: {json.dumps(nz(counts_prove))}")
+    say(f"  {what} launches, one warm verify: {json.dumps(nz(counts_verify))}")
+    return by_path
+
+
 def phase_harness(dev):
     """The chained-product harness as its user runs it; returns the launches
     it made."""
@@ -1987,9 +2204,12 @@ def kernels_sumcheck(dev, rep: Report, lat_fq: float, lat_fr: float, quick: bool
     big = [("cubic_tau", 1, 0, 1 << (10 if quick else 16)), ("quad", 1, 0, 1 << (11 if quick else 17)),
            ("cubic", 2, 1, 1 << 12)]
     if not quick:
-        big += [("cubic_tau", 1, 0, 1 << 20), ("quad", 1, 0, 1 << 21)]
+        # and Spark's widest stack: the ops tree's layer 0 at 2^16, 12 product
+        # circuits' halves, the eq table and 6 dot-product halves' 3 tables
+        big += [("cubic_tau", 1, 0, 1 << 20), ("quad", 1, 0, 1 << 21), ("cubic", 12, 6, 1 << 15)]
     small = [(kind, kp, ks, n) for kind, kp, ks in (("quad", 1, 0), ("cubic_tau", 1, 0),
-                                                     ("cubic", 1, 0), ("cubic", 2, 1))
+                                                     ("cubic", 1, 0), ("cubic", 2, 1),
+                                                     ("cubic", 12, 6))
              for n in (2, 4, 8)]
     gots, wants, timed = [], [], {}
     for kind, kp, ks, n in big + small:
@@ -2092,6 +2312,9 @@ def main(argv=None) -> int:
                     help="build, check and time msm_g1 and msm_g2 at 2^20, stop")
     ap.add_argument("--nizk-only", action="store_true",
                     help="build, check and time TestudoNIZK at 2^16 and 2^20, stop")
+    ap.add_argument("--snark-only", action="store_true",
+                    help="build, check and time TestudoSNARK without Groth16 at 2^12, 2^16 "
+                         "and 2^20, stop")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the GPU", file=sys.stderr)
@@ -2105,6 +2328,13 @@ def main(argv=None) -> int:
             phase_nizk(dev, log2n)
             say(f"NIZK 2^{log2n} done ({time.time() - t_start:.1f} s)")
         say("nizk-only pass done; run without arguments for the full check")
+        return 0
+    if args.snark_only:
+        phase_snark_small(dev)
+        for log2n in (12, 16, 20):
+            phase_snark(dev, log2n)
+            say(f"SNARK 2^{log2n} done ({time.time() - t_start:.1f} s)")
+        say("snark-only pass done; run without arguments for the full check")
         return 0
     g1, g2 = GROUPS["g1"], GROUPS["g2"]
     rep = Report()
@@ -2179,6 +2409,15 @@ def main(argv=None) -> int:
     for path, snap in phase_nizk(dev, 16).items():
         note(path, snap)
     say(f"NIZK done ({time.time() - t_start:.1f} s)")
+
+    # TestudoSNARK without Groth16: the small instance against the CPU, then
+    # config #4 at 2^12 and at 2^16 (the paths counted at 2^16)
+    t_snark = time.time()
+    phase_snark_small(dev)
+    phase_snark(dev, 12, profiled=False)
+    for path, snap in phase_snark(dev, 16).items():
+        note(path, snap)
+    say(f"SNARK done in {time.time() - t_snark:.1f} s ({time.time() - t_start:.1f} s)")
 
     # the measuring harness: the chain kernels' own path
     note("harness", phase_harness(dev))

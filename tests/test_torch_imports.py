@@ -46,7 +46,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     )
     assert out.returncode == 0, out.stderr
     lines = dict(l.split(" ", 1) for l in out.stdout.strip().splitlines())
-    assert int(lines["MODULES"]) >= 38
+    assert int(lines["MODULES"]) >= 54
     assert lines["BAD"] == "[]"
     # the native host library, where one was loaded, is the port's own build
     build_dir = os.path.join(REPO, "testudo_tpu_torch", "_build") + os.sep
@@ -62,7 +62,8 @@ def test_new_modules_are_all_there():
                  "curves.pairing", "poseidon.sponge", "poseidon.transcript",
                  "poseidon.constants_377", "serialize", "proofs", "native", "utils.ark_rng",
                  "utils.timer", "tools.exp_montmul", "poly.unipoly", "core.sumcheck",
-                 "core.r1cs", "core.r1csproof", "core.snark"):
+                 "core.r1cs", "core.r1csproof", "core.snark", "core.errors", "core.commitments",
+                 "core.nizk", "core.polycommit", "core.product_tree", "core.spark"):
         importlib.import_module("testudo_tpu_torch." + name)
 
 
@@ -104,6 +105,29 @@ def test_nizk_entry_points_default_to_cuda_and_raise_without_a_card():
     inst, _, _ = r1cs.R1CSInstance.produce_synthetic_r1cs(4, 4, 1)
     with pytest.raises((RuntimeError, AssertionError)):
         inst.evaluate([0, 1], [0, 1, 1])
+
+
+def test_snark_entry_points_default_to_cuda_and_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device works")
+    import inspect
+
+    import numpy as np
+
+    from testudo_tpu_torch.core import commitments, r1cs, snark, spark
+
+    cuda = torch.device("cuda")
+    assert inspect.signature(snark.TestudoSnarkGens.setup).parameters["profile"].default is None
+    for fn in (spark.multi_sparse_to_dense_rep, spark.AddrTimestamps.new):
+        assert inspect.signature(fn).parameters["device"].default == cuda, fn
+    assert commitments.MultiCommitGens.new(1, b"t").profile.device == cuda
+    with pytest.raises((RuntimeError, AssertionError)):
+        snark.TestudoSnarkGens.setup(4, 4, 1, 4, with_groth16=False)
+    with pytest.raises((RuntimeError, AssertionError)):
+        spark.AddrTimestamps.new(4, 2, [np.array([0, 1])])
+    inst, _, _ = r1cs.R1CSInstance.produce_synthetic_r1cs(4, 4, 1)
+    with pytest.raises((RuntimeError, AssertionError)):
+        spark.multi_sparse_to_dense_rep([inst.A, inst.B, inst.C])
 
 
 def test_no_port_source_mentions_the_jax_imports():

@@ -271,3 +271,108 @@ def r1cs_proof_to_reference(proof, towers, proof_cls, sumcheck_cls, unipoly_cls,
     `fields.host` module, the classes its `R1CSProof`,
     `SumcheckInstanceProof`, `UniPoly` and `MippProof`."""
     return _r1cs_proof(proof, towers, proof_cls, sumcheck_cls, unipoly_cls, mipp_cls)
+
+
+# -- Spark and TestudoSNARK ------------------------------------------------------
+#
+# Both packages name the classes of Spark's commitment, its generators and the
+# SNARK's proof alike and give them the same fields in the same order, so one
+# walk carries them across by class name: the caller hands over the modules
+# that hold the target classes (the reference's core.snark, core.spark,
+# core.polycommit, core.nizk, core.product_tree, core.sumcheck, core.commitments,
+# core.r1csproof, core.mipp, poly.unipoly and its fields.host module as
+# `towers`).  Leaves are ints and host affine G1 points ((x, y) ints or None),
+# which both packages hold alike; the R1CS proof inside keeps its own converter
+# (its pairing value and G2 points need the towers), and a MultiCommitGens
+# takes the profile of the port's side (the reference's carries none).
+
+_SPARK_CLASSES = (
+    "TestudoSnark", "R1CSEvalProof", "SparseMatPolyEvalProof", "DerefsCommitment",
+    "PolyCommitment", "ProductLayerProof", "ProductCircuitEvalProofBatched",
+    "LayerProofBatched", "SumcheckInstanceProof", "HashLayerProof", "PolyEvalProof",
+    "DotProductProofLog", "BulletReductionProof", "DerefsEvalProof",
+    "SparseMatPolyCommitment", "ComputationCommitment", "R1CSCommitmentGens",
+    "SparseMatPolyCommitmentGens", "PolyCommitmentGens", "DotProductProofGens",
+    "MultiCommitGens", "UniPoly", "R1CSProof", "MippProof",
+)
+
+
+def _classes(modules) -> dict:
+    out = {}
+    for m in modules:
+        for name in _SPARK_CLASSES:
+            if hasattr(m, name):
+                out.setdefault(name, getattr(m, name))
+    return out
+
+
+def _port_modules():
+    from .core import commitments, mipp, nizk, polycommit, product_tree, r1csproof, snark
+    from .core import spark, sumcheck
+    from .poly import unipoly
+
+    return (snark, spark, polycommit, nizk, product_tree, sumcheck, commitments, r1csproof,
+            mipp, unipoly)
+
+
+def _carry(obj, cls: dict, towers, profile):
+    """`obj` rebuilt from the classes in `cls` (see above)."""
+    import dataclasses
+
+    if obj is None or isinstance(obj, (bool, bytes)):
+        return obj
+    if isinstance(obj, int):
+        return int(obj)
+    if isinstance(obj, (list, tuple)):
+        out = [_carry(x, cls, towers, profile) for x in obj]
+        return out if isinstance(obj, list) else tuple(out)
+    name = type(obj).__name__
+    if name == "R1CSProof":
+        return _r1cs_proof(obj, towers, cls["R1CSProof"], cls["SumcheckInstanceProof"],
+                           cls["UniPoly"], cls["MippProof"])
+    if name == "UniPoly":
+        return cls["UniPoly"]([int(c) for c in obj.coeffs])
+    if name == "MultiCommitGens":
+        pts = [_point_from(p, towers) for p in obj.G]
+        h = _point_from(obj.h, towers)
+        if profile is None:
+            return cls[name](int(obj.n), pts, h)
+        return cls[name](int(obj.n), pts, h, profile)
+    if not dataclasses.is_dataclass(obj) or name not in cls:
+        raise TypeError(f"no counterpart for a {name}")
+    target = cls[name]
+    names = [f.name for f in dataclasses.fields(target) if not f.name.startswith("_")]
+    return target(*[_carry(getattr(obj, n), cls, towers, profile) for n in names])
+
+
+def snark_proof_from_reference(proof):
+    """The reference's `TestudoSnark` (without its Groth16 proof) in the
+    port's classes."""
+    if getattr(proof, "r1cs_verifier_proof", None) is not None:
+        raise NotImplementedError("the Groth16 verifier proof is not ported yet")
+    return _carry(proof, _classes(_port_modules()), hf, None)
+
+
+def snark_proof_to_reference(proof, towers, *modules):
+    """The port's `TestudoSnark` in the reference's classes, found in
+    `modules`; `towers` is its `fields.host` module."""
+    return _carry(proof, _classes(modules), towers, None)
+
+
+def computation_commitment_from_reference(comm):
+    """The reference's `ComputationCommitment` (host points and counts)."""
+    return _carry(comm, _classes(_port_modules()), hf, None)
+
+
+def computation_commitment_to_reference(comm, towers, *modules):
+    return _carry(comm, _classes(modules), towers, None)
+
+
+def spark_gens_from_reference(gens, profile):
+    """The reference's `R1CSCommitmentGens` or `SparseMatPolyCommitmentGens`
+    (their host points) as the port's, over `profile`."""
+    return _carry(gens, _classes(_port_modules()), hf, profile)
+
+
+def spark_gens_to_reference(gens, towers, *modules):
+    return _carry(gens, _classes(modules), towers, None)

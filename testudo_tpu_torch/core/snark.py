@@ -1,15 +1,28 @@
-"""TestudoNIZK: the public proving API for R1CS satisfiability.
+"""TestudoNIZK and TestudoSNARK: the public proving API.
 
-Counterpart of the NIZK half of testudo_tpu/core/snark.py (itself of
-Testudo's src/testudo_nizk.rs): the proof is the Spartan R1CS proof
-(core/r1csproof.py), and the verifier evaluates A~, B~, C~(rx, ry) itself
-(suitable for uniform circuits).  The SNARK half (Spark's computation
-commitment, TestudoSNARK) and the Groth16-compressed verifier are not
-ported yet.
+Counterpart of testudo_tpu/core/snark.py (itself of Testudo's
+src/testudo_nizk.rs and src/testudo_snark.rs), without the Groth16 half:
+
+  - TestudoNIZK: R1CS satisfiability only; the proof is the Spartan R1CS
+    proof (core/r1csproof.py) and the verifier evaluates A~, B~, C~(rx, ry)
+    itself (suitable for uniform circuits).
+  - TestudoSNARK with `with_groth16=False`: the Spark computation
+    commitment to (A, B, C) (`snark_encode`, core/spark.py) and, beside the
+    R1CS proof, Spark's proof of A~, B~, C~(rx, ry) (`R1CSEvalProof`), so
+    the verifier checks those evaluations instead of computing them; the
+    verifier is the reference's native branch (full transcript replay, the
+    PST + MIPP opening and the Spark checks).
+The Groth16-compressed verifier (`with_groth16=True` for either) is not
+ported yet (ROADMAP A.3(ii)).
 
 Transcript: the Fr sponge (`PoseidonTranscript(fr_params())`), as in
 Testudo's pipeline.  The generators carry the curve profile, and with it
-the device every table of a prove lives on (default: CUDA).
+the device every table of a prove lives on (default: CUDA).  The provers
+take `fused` (the sumcheck provers, fused by default; looped with False)
+and `snark_prove` takes `rng` (the blinds of Spark's dot-product
+arguments, default `secrets.SystemRandom()`).  The Timer labels
+`r1csproof::prove`, `snark_prove::evaluate A,B,C` and spark.py's split a
+SNARK prove, `snark_verify::sat proof` and `snark_verify::spark` a verify.
 """
 from __future__ import annotations
 
@@ -18,7 +31,7 @@ from typing import List, Tuple
 
 from ..poseidon.transcript import PoseidonTranscript
 from ..utils.timer import Timer
-from . import r1cs, r1csproof
+from . import r1cs, r1csproof, spark
 
 
 @dataclass
@@ -32,7 +45,7 @@ class TestudoNizkGens:
         (default: BLS12-377 with the CUDA device backends)."""
         if with_groth16:
             raise NotImplementedError(
-                "the Groth16-compressed verifier is not ported yet (ROADMAP A.3, the SNARK)")
+                "the Groth16-compressed verifier is not ported yet (ROADMAP A.3(ii))")
         _, nv = r1cs.pad_params(num_cons, num_vars, num_inputs)
         return TestudoNizkGens(r1csproof.R1CSGens.setup(nv, profile=profile))
 
@@ -82,3 +95,176 @@ def nizk_verify(proof: TestudoNizk, gens: TestudoNizkGens, inst: r1cs.Instance,
         proof.r1cs_sat_proof, inst_evals, inst.inst.num_cons,
         inst.inst.num_vars, inputs.assignment, gens.gens_r1cs_sat, transcript,
     )
+
+
+# ---------------------------------------------------------------------------
+# TestudoSNARK (without Groth16)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class ComputationCommitment:
+    """Spark commitment to (A, B, C) (lib.rs:54-56, r1csinstance.rs:55-88)."""
+
+    num_cons: int
+    num_vars: int
+    num_inputs: int
+    comm: spark.SparseMatPolyCommitment
+
+    def write_to_transcript(self, transcript) -> None:
+        transcript.append_u64(self.num_cons)
+        transcript.append_u64(self.num_vars)
+        transcript.append_u64(self.num_inputs)
+        self.comm.write_to_transcript(transcript)
+
+
+@dataclass
+class ComputationDecommitment:
+    dense: spark.MultiSparseMatPolynomialAsDense
+
+
+@dataclass
+class R1CSCommitmentGens:
+    gens: spark.SparseMatPolyCommitmentGens
+
+    @staticmethod
+    def setup(label: bytes, num_cons: int, num_vars: int, num_inputs: int,
+              num_nz_entries: int, profile=None) -> "R1CSCommitmentGens":
+        if num_inputs >= num_vars:
+            raise ValueError(f"{num_inputs} inputs need more than {num_vars} variables")
+        num_poly_vars_x = num_cons.bit_length() - 1
+        num_poly_vars_y = (2 * num_vars).bit_length() - 1
+        return R1CSCommitmentGens(spark.SparseMatPolyCommitmentGens.setup(
+            label, num_poly_vars_x, num_poly_vars_y, num_nz_entries, 3, profile))
+
+
+@dataclass
+class R1CSEvalProof:
+    proof: spark.SparseMatPolyEvalProof
+
+
+def r1cs_commit(inst: r1cs.R1CSInstance, gens: R1CSCommitmentGens):
+    comm, dense_rep = spark.multi_commit([inst.A, inst.B, inst.C], gens.gens)
+    return (
+        ComputationCommitment(inst.num_cons, inst.num_vars, inst.num_inputs, comm),
+        ComputationDecommitment(dense_rep),
+    )
+
+
+def r1cs_eval_prove(decomm: ComputationDecommitment, rx, ry, evals, gens: R1CSCommitmentGens,
+                    transcript, fused: bool = True, rng=None) -> R1CSEvalProof:
+    return R1CSEvalProof(
+        spark.prove(decomm.dense, rx, ry, list(evals), gens.gens, transcript, fused, rng))
+
+
+def r1cs_eval_verify(proof: R1CSEvalProof, comm: ComputationCommitment, rx, ry, evals,
+                     gens: R1CSCommitmentGens, transcript) -> bool:
+    return spark.verify(proof.proof, comm.comm, rx, ry, list(evals), gens.gens, transcript)
+
+
+@dataclass
+class TestudoSnarkGens:
+    gens_r1cs_sat: r1csproof.R1CSGens
+    gens_r1cs_eval: R1CSCommitmentGens
+
+    @staticmethod
+    def setup(num_cons: int, num_vars: int, num_inputs: int, num_nz_entries: int,
+              with_groth16: bool = True, profile=None) -> "TestudoSnarkGens":
+        """TestudoSnarkGens::setup (testudo_snark.rs:41-90) without the
+        Groth16 circuit keys: the sqrt-PST key of the padded witness and
+        Spark's generators, on `profile` (default: BLS12-377 on CUDA).  As
+        in the reference `with_groth16` defaults to True, which is not
+        ported yet: callers pass False."""
+        if with_groth16:
+            raise NotImplementedError(
+                "the Groth16-compressed verifier is not ported yet (ROADMAP A.3(ii)); "
+                "pass with_groth16=False")
+        nc, nv = r1cs.pad_params(num_cons, num_vars, num_inputs)
+        return TestudoSnarkGens(
+            r1csproof.R1CSGens.setup(nv, profile=profile),
+            R1CSCommitmentGens.setup(b"gens_r1cs_eval", nc, nv, num_inputs, num_nz_entries,
+                                     profile),
+        )
+
+
+@dataclass
+class TestudoSnark:
+    """testudo_snark.rs:23-33 without the Groth16-compressed verifier
+    proof: `r1cs_verifier_proof` is always None here (the codec writes
+    the empty Option)."""
+
+    r1cs_sat_proof: r1csproof.R1CSProof
+    r1cs_eval_proof: R1CSEvalProof
+    inst_evals: Tuple[int, int, int]
+    r: Tuple[List[int], List[int]]
+    r1cs_verifier_proof: None = None
+
+
+def snark_encode(inst: r1cs.Instance, gens: TestudoSnarkGens):
+    """TestudoSnark::encode (testudo_snark.rs:100-114): (commitment,
+    decommitment), the decommitment's tables on the generators' device."""
+    return r1cs_commit(inst.inst, gens.gens_r1cs_eval)
+
+
+def snark_prove(inst: r1cs.Instance, comm: ComputationCommitment,
+                decomm: ComputationDecommitment, vars_: r1cs.Assignment,
+                inputs: r1cs.Assignment, gens: TestudoSnarkGens,
+                transcript: PoseidonTranscript, fused: bool = True, rng=None) -> TestudoSnark:
+    """testudo_snark.rs:120-196 without the Groth16 block."""
+    R = gens.gens_r1cs_sat.ck.profile.R  # noqa: N806
+    comm.write_to_transcript(transcript)
+    c = transcript.challenge_scalar(R)
+    transcript.new_from_state(c)
+
+    padded = (
+        vars_.pad(inst.inst.num_vars)
+        if inst.inst.num_vars > len(vars_.assignment)
+        else vars_
+    )
+    sat_proof, rx, ry = r1csproof.prove(
+        inst.inst, padded.assignment, inputs.assignment, gens.gens_r1cs_sat, transcript, fused)
+
+    tev = Timer("snark_prove::evaluate A,B,C")
+    Ar, Br, Cr = inst.inst.evaluate(rx, ry, gens.gens_r1cs_sat.ck.profile.device)
+    tev.stop()
+    transcript.append_scalar(Ar, R)
+    transcript.append_scalar(Br, R)
+    transcript.append_scalar(Cr, R)
+
+    eval_proof = r1cs_eval_prove(decomm, rx, ry, (Ar, Br, Cr), gens.gens_r1cs_eval, transcript,
+                                 fused, rng)
+    return TestudoSnark(sat_proof, eval_proof, (Ar, Br, Cr), (rx, ry))
+
+
+def snark_verify(proof: TestudoSnark, gens: TestudoSnarkGens, comm: ComputationCommitment,
+                 inputs: r1cs.Assignment, transcript: PoseidonTranscript) -> bool:
+    """testudo_snark.rs:198-235, the native branch.  The point Spark's proof
+    is checked at must be the sat proof's (rx, ry)."""
+    if proof.r1cs_verifier_proof is not None:
+        raise NotImplementedError("the Groth16-compressed verifier is not ported yet "
+                                  "(ROADMAP A.3(ii))")
+    R = gens.gens_r1cs_sat.ck.profile.R  # noqa: N806
+    comm.write_to_transcript(transcript)
+    c = transcript.challenge_scalar(R)
+    transcript.new_from_state(c)
+
+    rx, ry = proof.r
+    sat = proof.r1cs_sat_proof
+    if list(rx) != list(sat.rx) or list(ry) != list(sat.ry):
+        return False
+    tsat = Timer("snark_verify::sat proof")
+    sat_ok = r1csproof.verify_native(sat, proof.inst_evals, comm.num_cons, comm.num_vars,
+                                     inputs.assignment, gens.gens_r1cs_sat, transcript)
+    tsat.stop()
+    if not sat_ok:
+        return False
+
+    Ar, Br, Cr = proof.inst_evals
+    transcript.append_scalar(Ar, R)
+    transcript.append_scalar(Br, R)
+    transcript.append_scalar(Cr, R)
+    tev = Timer("snark_verify::spark")
+    ok = r1cs_eval_verify(proof.r1cs_eval_proof, comm, rx, ry, proof.inst_evals,
+                          gens.gens_r1cs_eval, transcript)
+    tev.stop()
+    return ok

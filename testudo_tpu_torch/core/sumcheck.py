@@ -31,8 +31,10 @@ an Fq-sponge transcript.  There is no environment switch: the prover is
 chosen by the keyword `fused`.  The reference's sharded fused prover
 (:294-413) is multi-GPU work and not ported.
 
-`prove_cubic` and `prove_cubic_batched` are Spark's provers (product
-trees); no path of the port drives them yet.
+`prove_cubic_batched` is Spark's prover: every layer of its product trees
+(core/product_tree.py) is one batched cubic sumcheck, fused (the round
+kernel's `cubic` kind) unless `fused=False`; `prove_cubic` is its
+single-instance form, on no path.
 """
 from __future__ import annotations
 

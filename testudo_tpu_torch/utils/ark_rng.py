@@ -232,9 +232,10 @@ def fq2_rand(rng: ChaChaRng) -> hf.Fq2:
     return hf.Fq2(c0, c1)
 
 
-def g1_affine_rand(rng: ChaChaRng):
+def g1_affine_rand(rng: ChaChaRng, mul=hc.g1_mul):
     """ark `G1Affine::rand`: x = Fq::rand, greatest = bool, point-from-x,
-    cofactor-cleared.  Returns host affine (x, y) or None (infinity)."""
+    cofactor-cleared by `mul(point, H1)`.  Returns host affine (x, y) or
+    None (infinity)."""
     while True:
         x = fq_rand(rng)
         greatest = rng.gen_bool()
@@ -245,7 +246,7 @@ def g1_affine_rand(rng: ChaChaRng):
         y_big = max(y, (P - y) % P)
         y_small = min(y, (P - y) % P)
         pt = (x, y_big if greatest else y_small)
-        return hc.g1_mul(pt, H1)
+        return mul(pt, H1)
 
 
 def g2_affine_rand(rng: ChaChaRng):
