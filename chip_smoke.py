@@ -49,23 +49,33 @@ testudo_tpu_torch/csrc/, then
      sumcheck's three kernels must run in the first and not in the second),
      and the round kernel's launches by shape in one warm fused prove with
      their summed device time;
-  5b. drives TestudoSNARK without Groth16 (core/snark.py: `TestudoSnarkGens.setup(...,
-     with_groth16=False)`, `snark_encode`, `snark_prove`, `snark_verify`; Spark
-     in core/spark.py over the product trees, the row-wise Pedersen commitment
-     and the dot-product argument): a 16 x 16 x 3 instance proved on the card
-     and on the CPU with host groups under one seeded blind stream, byte-equal
-     with equal commitments; then config #4 (`produce_synthetic_r1cs(n, n,
-     10)`, n nonzero entries a matrix, as benches/testudo.py builds it) at 2^12
-     and 2^16: sat, eval and total bytes (testudo.csv's 13,192 + 43,800 B at
-     2^12, 57,905 B in all without the Groth16 proof; 17,192 B of sat proof at
-     2^16; the total's identity), codec round trip, verify, inst_evals + 1 and
-     a flipped byte of the eval proof rejected, the evaluations against
-     Python ints; setup, encode, prove (cold and three warm, byte-equal, split
-     by the Timer labels: sat proof, evaluate A,B,C, derefs commit, product
-     layers, hash layer) and verify (cold, warm) timed; at 2^16 one warm
-     prove's CUDA kernels and device time under torch.profiler and the
-     launches of the encode, one warm prove and one warm verify (paths
-     snark_encode, snark_prove, snark_verify);
+  5b. drives TestudoSNARK (core/snark.py: `TestudoSnarkGens.setup`,
+     `snark_encode`, `snark_prove`, `snark_verify`; Spark in core/spark.py
+     over the product trees, the row-wise Pedersen commitment and the
+     dot-product argument; the Groth16-compressed verifier in
+     core/groth16.py, core/circuit.py, core/ntt.py): without Groth16, a 16 x
+     16 x 3 instance proved on the card and on the CPU with host groups under
+     one seeded blind stream, byte-equal with equal commitments, and config
+     #4 (`produce_synthetic_r1cs(n, n, 10)`, n nonzero entries a matrix, as
+     benches/testudo.py builds it) at 2^12 to its 57,905 B; the port's twin
+     of examples/cubic.py (config #1 with Groth16: setup, prove, verify, y + 1
+     rejected); then config #4 with Groth16 (the default) at 2^12 and 2^16:
+     sat, eval and total bytes (testudo.csv's 13,192 + 43,800 B at 2^12,
+     58,097 B in all; 100,881 B at 2^16; the Groth16 proof 192 B; the total's
+     identity), codec round trip, verify, inst_evals + 1, a flipped byte of
+     the eval proof and the Groth16 proof with -C rejected, the evaluations
+     against Python ints; at 2^12 8 lanes of each key batch against the
+     host's multiples of the setup's scalars and the five MSMs against native
+     host MSMs over the keys in affine; setup (split: circuit build, lagrange,
+     keys G1 / G2), encode, prove (cold and three warm, byte-equal, split by
+     the Timer labels: sat proof, evaluate A,B,C, derefs commit, product
+     layers, hash layer, prove_verifier and Groth16's circuit build, row
+     evals, witness_h and five MSMs) and verify (cold, warm; Groth16, the
+     sqrt-PST check, Spark) timed; at 2^16 one warm prove's CUDA kernels and
+     device time under torch.profiler and the launches of the setup, the
+     encode, one warm prove, one `groth16.prove` and one warm verify (paths
+     snark_groth16_setup, snark_encode, snark_prove, groth16_prove,
+     snark_verify);
   6. runs the chained-product harness (tools/exp_montmul.py), which
      measures the card's Montgomery products per second;
   7. calls every kernel's wrapper at the shapes the main paths gave it and
@@ -111,8 +121,8 @@ testudo_tpu_torch/csrc/, then
   9. prints one JSON line {"kernels": [...]} (each row's `launches` is the
      sum of `launches_by_path`, the kernel's count on each driven path: msm,
      fixed_base, field, setup, commit, open, verify, nizk_prove,
-     nizk_prove_looped, nizk_verify, snark_encode, snark_prove, snark_verify,
-     harness; the run fails if a
+     nizk_prove_looped, nizk_verify, snark_groth16_setup, snark_encode,
+     snark_prove, groth16_prove, snark_verify, harness; the run fails if a
      kernel was not launched on a path it belongs to) and, last,
      {"ok": true, "device": {...}}.
 
@@ -125,9 +135,9 @@ phase split: to compare two checkouts on one card, run it from each in turn
 within one shell command); `--nizk-only` stops after the NIZK phase at 2^16
 and at 2^20 (a 21,192 B sat proof; the 2^20 instance takes most of a minute
 of host Python to build), for the same use; `--snark-only` stops after the
-SNARK phase at 2^12, 2^16 and 2^20 (config #4 without its Groth16 half:
-21,192 + 180,504 B, 203,121 B in all; each size profiled); the default run is
-the full check.
+SNARK phase, with Groth16 at 2^12, 2^16 and 2^20 (config #4 at 2^20: 21,192 +
+180,504 B, 203,313 B in all; each size profiled); the default run is the full
+check.
 """
 from __future__ import annotations
 
@@ -146,7 +156,7 @@ import numpy as np
 import torch
 
 from testudo_tpu_torch import native, proofs
-from testudo_tpu_torch.core import pst, r1cs, r1csproof, snark, sqrt_pst
+from testudo_tpu_torch.core import circuit, groth16, pst, r1cs, r1csproof, snark, sqrt_pst
 from testudo_tpu_torch.curves import host_curve as hc
 from testudo_tpu_torch.curves import pairing as pr
 from testudo_tpu_torch.curves import profile as cprof
@@ -158,6 +168,7 @@ from testudo_tpu_torch.device import sponge as dsponge
 from testudo_tpu_torch.device import sumcheck_kernels as sk
 from testudo_tpu_torch.device.field import FQ, FR
 from testudo_tpu_torch.device.packed_curve import G1P, G2P
+from testudo_tpu_torch.examples import cubic
 from testudo_tpu_torch.fields.bls12_377 import R
 from testudo_tpu_torch.poly import dense
 from testudo_tpu_torch.poseidon import sponge
@@ -195,6 +206,7 @@ _REPLACES = {
     "ladder_wide": _EC + ":733",
     "wsum": _EC + ":450", "chain_team": _EC + ":415", "fold_team": _EC + ":415",
     "fixed_base": _EC + ":403", "fixed_base_one": _EC + ":403",
+    "fixed_base_one_key": _EC + ":403",
     # the fused sumcheck: its products over 512 rows or more reach the Pallas
     # product inside the reference's fused jit (tpu/field.py:292-295); the
     # permutation and the tail are XLA ops there (row key "replaces_also")
@@ -221,7 +233,8 @@ _SOURCE = {
     "bucket": "bucket.cu",
     "bucket_mixed": "bucket.cu", "wsum": "wsum_team.cu", "chain_team": "chain_team.cu",
     "fold_team": "fold_team.cu", "fixed_base": "fixed_base_team.cu",
-    "fixed_base_one": "fixed_base_team.cu", "poseidon_permute": "poseidon.cu",
+    "fixed_base_one": "fixed_base_team.cu", "fixed_base_one_key": "fixed_base_team.cu",
+    "poseidon_permute": "poseidon.cu",
     "sumcheck_round": "sumcheck_round.cu", "sumcheck_tail": "sumcheck_tail.cu",
 }
 # proof bytes (PST opening + MIPP proof) of sqrt-PST per number of variables:
@@ -234,16 +247,33 @@ NIZK_INPUTS = 10
 NIZK_SAT_BYTES = {16: 17192, 20: 21192}
 GOLDEN_NIZK = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures",
                            "golden_nizk.json")
-# TestudoSNARK without Groth16 on the same instances (config #4, with
-# num_nz_entries = n): (sat, eval, total) bytes per k, from testudo.csv's
-# sat and eval columns and ser_testudo_snark's layout (total = sat + eval +
-# 3 x 32 + rx + ry + the empty Option's tag); at 2^16 the sat proof only
-SNARK_BYTES = {12: (13192, 43800, 57905), 16: (17192, None, None), 20: (21192, 180504, 203121)}
+# TestudoSNARK on the same instances (config #4, with num_nz_entries = n):
+# (sat, eval, total) bytes per k, from testudo.csv's sat and eval columns and
+# ser_testudo_snark's layout (total = sat + eval + 3 x 32 + rx + ry + the
+# Option's tag + the 192-B Groth16 proof: testudo.csv's totals 58,097 B at
+# 2^12 and 203,313 B at 2^20); at 2^16 the 100,689 B measured without
+# Groth16 + 192; without Groth16 (the empty Option) 57,905 B at 2^12
+SNARK_BYTES = {12: (13192, 43800, 58097), 16: (17192, 82328, 100881),
+               20: (21192, 180504, 203313)}
+GROTH16_BYTES = 192
+SNARK_BYTES_NO_GROTH16 = {12: 57905}
 # the small instance proved on the card and on the CPU under one blind stream
 SNARK_SMALL = (16, 16, 3, 5)  # constraints, variables, inputs, seed
 SNARK_LABELS = {"r1csproof::prove": "sat proof", "snark_prove::evaluate A,B,C": "evaluate A,B,C",
                 "spark::derefs commit": "derefs commit", "spark::product layers": "product layers",
-                "spark::hash layer": "hash layer"}
+                "spark::hash layer": "hash layer", "snark_prove::prove_verifier": "prove_verifier"}
+# the Groth16 parts of a setup, a prove and a verify (core/groth16.py, core/r1csproof.py)
+GROTH16_SETUP_LABELS = ("groth16::circuit build", "groth16::lagrange", "groth16::keys",
+                        "groth16::keys G1", "groth16::keys G2")
+GROTH16_PROVE_LABELS = ("groth16::circuit build", "groth16::row evals", "groth16::witness_h",
+                        "groth16::msm a", "groth16::msm b_g1", "groth16::msm b_g2",
+                        "groth16::msm h", "groth16::msm l")
+GROTH16_VERIFY_LABELS = ("snark_verify::groth16", "snark_verify::sqrt-PST check",
+                         "snark_verify::sat proof", "snark_verify::spark")
+# the Groth16 key batches of the 2^16 circuit (31,654 variables, domain 2^15):
+# the widths chip_smoke times `fixed_base_one` at, G1 the h query's, G2 b_g2's
+KEY_LANES = {"g1": (1 << 15) - 1, "g2": 31654}
+
 # the Timer labels that split a prove (core/r1csproof.py)
 NIZK_LABELS = {"polycommit (sqrt-PST)": "commit", "prove_sc_phase_one": "phase one",
                "prove_sc_phase_two": "phase two", "polyeval (sqrt-PST open)": "open"}
@@ -301,8 +331,8 @@ MUST_LAUNCH["mont_mul_rm_fr"] += ("nizk_verify",)
 FUSED_KERNELS = build.SUMCHECK_KERNELS  # launched by the fused prove only
 for _name in FUSED_KERNELS:
     MUST_LAUNCH[_name] = ("nizk_prove",)
-# TestudoSNARK without Groth16 at 2^16 (the kernels these paths launch on the
-# H100, as their counters read): the encode's two row commitments
+# TestudoSNARK at 2^16 (the kernels these paths launch on the H100, as their
+# counters read): the encode's two row commitments
 # are shared-basis multi-MSMs (the general bucket kernel, the chain, the
 # wide ladder, the fold) over Montgomery tables turned canonical by the Fr
 # row-major product; the prove adds the NIZK's kernels, Spark's product
@@ -311,11 +341,22 @@ for _name in FUSED_KERNELS:
 # weighted sum, fold) and generator folds (the team ladder, G1 adds through
 # the Fq product); the verify's device work is the dot-product verifiers'
 # MSMs over the generators
+# With Groth16 (the default): the setup's keys are fixed-base batches, the
+# one-thread kernel above FIXED_TEAM_MAX_LANES (every batch of the 2^16
+# circuit but gamma_abc's) and the team kernel for gamma_abc and sqrt-PST's
+# key; the Groth16 prove (path groth16_prove: `groth16.prove` alone on the
+# circuit of the warm proof) runs four general-bucket `msm_g1` and one
+# `msm_g2` over the projective keys (bucket, weighted sum, the MSM's Horner
+# on the team ladder, folds) and seven NTTs on the row-major Fr product; the
+# SNARK prove holds it, so its G2 MSM's kernels join that path too
 _SNARK_MUST = {
+    "snark_groth16_setup": ("fixed_base_one", "fixed_base_one_g2", "fixed_base"),
     "snark_encode": ("mont_mul_rm_fr", "ladder_wide", "bucket", "chain_team", "fold_team"),
     "snark_prove": ("mont_mul_rm_fq", "mont_mul_rm_fr", "poseidon_permute", "sumcheck_round",
                     "sumcheck_tail", "ladder_team", "ladder_wide", "bucket", "wsum", "chain_team",
-                    "fold_team", "ladder_team_g2", "fold_team_g2"),
+                    "fold_team", "ladder_team_g2", "fold_team_g2", "bucket_g2", "wsum_g2"),
+    "groth16_prove": ("mont_mul_rm_fr", "bucket", "wsum", "ladder_team", "fold_team",
+                      "bucket_g2", "wsum_g2", "ladder_team_g2", "fold_team_g2"),
     "snark_verify": ("ladder_team", "bucket", "wsum", "fold_team"),
 }
 for _path, _names in _SNARK_MUST.items():
@@ -324,8 +365,11 @@ for _path, _names in _SNARK_MUST.items():
 # A row that times a kernel at a second shape reads its launches from the
 # kernel's counter, on the paths that give it that shape.
 ROW_COUNTER = {"mont_mul_rm_fr_full": ("mont_mul_rm_fr",
-                                       ("nizk_prove", "nizk_prove_looped", "nizk_verify"))}
+                                       ("nizk_prove", "nizk_prove_looped", "nizk_verify")),
+               "fixed_base_one_key": ("fixed_base_one", ("snark_groth16_setup",)),
+               "fixed_base_one_key_g2": ("fixed_base_one_g2", ("snark_groth16_setup",))}
 MUST_LAUNCH["mont_mul_rm_fr_full"] = ("nizk_prove_looped",)
+MUST_LAUNCH["fixed_base_one_key"] = MUST_LAUNCH["fixed_base_one_key_g2"] = ("snark_groth16_setup",)
 N_UNIQUE = 1 << 13
 ODD = 37  # extra lanes so no compared batch is a multiple of a block size
 
@@ -1194,7 +1238,7 @@ def nizk_phase_profile(prove) -> str:
 
 
 # ---------------------------------------------------------------------------
-# TestudoSNARK without Groth16: encode, prove, verify
+# TestudoSNARK: setup, encode, prove, verify, with and without Groth16
 # ---------------------------------------------------------------------------
 
 
@@ -1214,9 +1258,9 @@ def _snark_sizes(proof) -> tuple:
 def phase_snark_small(dev):
     """The small instance proved on the card (fused sumchecks, the default)
     and on the CPU with host groups (looped sumchecks: the same bytes, the
-    CPU tests hold the two provers equal) under one seeded blind stream:
-    byte-equal proofs and equal commitments; the card's proof verifies on
-    the card."""
+    CPU tests hold the two provers equal) under one seeded blind stream,
+    without Groth16: byte-equal proofs and equal commitments; the card's
+    proof verifies on the card."""
     nc, nv, ni, seed = SNARK_SMALL
     out = {}
     for where, pf, fused in (("card", cprof.bls12_377(dev), True),
@@ -1239,24 +1283,94 @@ def phase_snark_small(dev):
         f"verified on the card")
 
 
-def phase_snark(dev, log2n: int, profiled: bool = True):
-    """TestudoSNARK without Groth16 on produce_synthetic_r1cs(2^log2n,
-    2^log2n, 10) with 2^log2n nonzero entries a matrix (config #4): sizes,
-    codec round trip, verifier accepts and rejects inst_evals + 1 and a
-    flipped byte of the eval proof, the evaluations against Python ints;
-    setup, encode, prove (cold, then three warm, split by the Timer labels)
-    and verify (cold, warm) timed; with `profiled`, one more warm prove under
-    torch.profiler; the launches of the encode, of one warm prove and of one
-    warm verify (returned by path), each path's kernels of _SNARK_MUST
-    launched."""
+def phase_cubic(dev):
+    """The port's twin of examples/cubic.py (config #1 with Groth16) on the
+    card: setup, prove, verify, the proof read back verified, y + 1
+    rejected (testudo_tpu_torch/examples/cubic.py)."""
+    cubic.run(cprof.bls12_377(dev), random.Random(1), say=say)
+
+
+def _labels(records, labels) -> dict:
+    sp = _split(records)
+    return {label: sp.get(label, 0.0) for label in labels}
+
+
+def groth16_spot_checks(what, gens, inst, inputs, proof, log_m: int):
+    """The Groth16 keys and the five MSMs against the host: 8 lanes of each
+    key batch against the native host's multiples of the generator by the
+    setup's scalars (recomputed from its seed), and the five MSMs' sums over
+    the keys read back in affine against native host MSMs on the scalars
+    of the warm proof's circuit (its variables, h's coefficients)."""
+    if not native.available():
+        raise AssertionError(f"{what}: the Groth16 spot checks need the native host library")
+    pk = gens.gens_gc.pk
+    pf = pk.profile
+    nc, nv = inst.inst.num_cons, inst.inst.num_vars
+    dummy = circuit.build_verifier_circuit(r1csproof.dummy_verifier_config(
+        nc, nv, len(inputs.assignment)))
+    sc = groth16.setup_scalars(dummy)
+    g1, g2 = hc.g1_generator(), hc.g2_generator()
+    affine = {}
+    for name, scal, g2_batch in (("a_query", sc.a, False), ("b_g1_query", sc.b, False),
+                                 ("b_g2_query", sc.b, True), ("h_query", sc.h, False),
+                                 ("l_query", sc.l, False)):
+        backend = pf.g2b if g2_batch else pf.g1b
+        pts = backend.to_affine(getattr(pk, name))
+        affine[name] = pts
+        if len(pts) != len(scal):
+            raise AssertionError(f"{what}: {name} has {len(pts)} points, {len(scal)} scalars")
+        lanes = sorted({0, 1, len(pts) - 1, *np.linspace(0, len(pts) - 1, 5).astype(int)})
+        mul = native.g2_batch_mul if g2_batch else native.g1_batch_mul
+        want = mul([g2 if g2_batch else g1] * len(lanes), [scal[i] for i in lanes])
+        if [pts[i] for i in lanes] != want:
+            raise AssertionError(f"{what}: {name} differs from the host's multiples")
+    if pk.vk.gamma_abc_g1 != native.g1_batch_mul([g1] * len(sc.gamma_abc), sc.gamma_abc):
+        raise AssertionError(f"{what}: gamma_abc differs from the host's multiples")
+    sat, evals = proof.r1cs_sat_proof, proof.inst_evals
+    cs = circuit.build_verifier_circuit(r1csproof.verifier_config(
+        sat, nv, nc, inputs.assignment, evals))
+    z = cs.values
+    h = dense.decode_table(groth16._witness_h(cs, 1 << log_m, pf.device))[: (1 << log_m) - 1]
+    for name, scal, g2_batch in (("a_query", z, False), ("b_g1_query", z, False),
+                                 ("b_g2_query", z, True), ("h_query", h, False),
+                                 ("l_query", z[pk.num_pub:], False)):
+        backend = pf.g2b if g2_batch else pf.g1b
+        host_msm = native.g2_msm if g2_batch else native.g1_msm
+        if backend.msm(getattr(pk, name), scal) != host_msm(affine[name], scal):
+            raise AssertionError(f"{what}: the device MSM over {name} differs from the host's")
+    say(f"  {what} Groth16: 8 lanes of each key batch equal the host's multiples, gamma_abc "
+        f"({len(sc.gamma_abc)}) too; the five MSMs ({len(z)}, {len(z)}, {len(z)} G2, {len(h)}, "
+        f"{len(z) - pk.num_pub} points) equal native host MSMs over the keys in affine")
+    return cs
+
+
+def phase_snark(dev, log2n: int, profiled: bool = True, groth16_part: bool = True,
+                warm: int = 3):
+    """TestudoSNARK on produce_synthetic_r1cs(2^log2n, 2^log2n, 10) with
+    2^log2n nonzero entries a matrix (config #4), with its Groth16 part
+    unless `groth16_part` is False: sizes (testudo.csv's totals; the Groth16
+    proof 192 B), codec round trip, the verifier accepts the proof and its
+    bytes read back and rejects inst_evals[0] + 1, a flipped byte of the eval
+    proof and (with Groth16) C replaced by -C; the evaluations against Python
+    ints; at 2^12 the Groth16 keys and MSMs against the host
+    (`groth16_spot_checks`); setup, encode, prove (cold, then `warm` warm
+    ones under the same blinds, byte-equal) and verify (cold, warm) timed and
+    split by the Timer labels; with `profiled`, one more warm prove under
+    torch.profiler; the launches of the setup, the encode, one warm prove,
+    one `groth16.prove` on the warm proof's circuit and one warm verify
+    (returned by path), each path's kernels of _SNARK_MUST launched."""
     n = 1 << log2n
-    what = f"SNARK 2^{log2n}"
+    what = f"SNARK 2^{log2n}" + ("" if groth16_part else " without Groth16")
     t0 = time.perf_counter()
     inst, vars_, inputs = r1cs.Instance.produce_synthetic_r1cs(n, n, NIZK_INPUTS)
     inst_s = time.perf_counter() - t0
     pf = cprof.bls12_377(dev)
-    gens, setup_ms = timed_once(lambda: snark.TestudoSnarkGens.setup(
-        n, n, NIZK_INPUTS, n, with_groth16=False, profile=pf))
+    build.reset_launches()
+    with timer.record() as rec:
+        gens, setup_ms = timed_once(lambda: snark.TestudoSnarkGens.setup(
+            n, n, NIZK_INPUTS, n, with_groth16=groth16_part, profile=pf))
+    counts_setup = dict(build.LAUNCHES)
+    setup_split = _labels(rec, GROTH16_SETUP_LABELS) if groth16_part else {}
     build.reset_launches()
     with timer.record() as rec:
         (comm, decomm), encode_ms = timed_once(lambda: snark.snark_encode(inst, gens))
@@ -1273,6 +1387,8 @@ def phase_snark(dev, log2n: int, profiled: bool = True):
     def split_of(records) -> dict:
         sp = _split(records)
         out = {short: sp.get(label, 0.0) for label, short in SNARK_LABELS.items()}
+        if groth16_part:
+            out.update(_labels(records, GROTH16_PROVE_LABELS))
         return out
 
     with timer.record() as rec:
@@ -1281,28 +1397,49 @@ def phase_snark(dev, log2n: int, profiled: bool = True):
     blob = proofs.ser_testudo_snark(proof)
     sizes = _snark_sizes(proof)
     rx, ry = proof.r
-    if sizes[2] != sizes[0] + sizes[1] + 96 + (8 + 32 * len(rx)) + (8 + 32 * len(ry)) + 1:
+    g16 = GROTH16_BYTES if groth16_part else 0
+    if sizes[2] != sizes[0] + sizes[1] + 96 + (8 + 32 * len(rx)) + (8 + 32 * len(ry)) + 1 + g16:
         raise AssertionError(f"{what}: the proof's sizes {sizes} break the total's identity")
-    for got, want, part in zip(sizes, SNARK_BYTES[log2n], ("sat", "eval", "total")):
-        if want is not None and got != want:
+    want_sizes = SNARK_BYTES[log2n] if groth16_part else \
+        SNARK_BYTES[log2n][:2] + (SNARK_BYTES_NO_GROTH16[log2n],)
+    for got, want, part in zip(sizes, want_sizes, ("sat", "eval", "total")):
+        if got != want:
             raise AssertionError(f"{what}: {part} proof of {got} B, expected {want}")
+    if groth16_part:
+        vp = proof.r1cs_verifier_proof
+        if vp is None or len(proofs.ser_groth16_proof(vp.circuit_proof)) != GROTH16_BYTES:
+            raise AssertionError(f"{what}: no Groth16 proof of {GROTH16_BYTES} B")
+    elif proof.r1cs_verifier_proof is not None:
+        raise AssertionError(f"{what}: a Groth16 proof without the Groth16 keys")
     back = proofs.parse_testudo_snark(blob)
     if proofs.ser_testudo_snark(back) != blob:
         raise AssertionError(f"{what}: the proof does not re-serialize to its bytes")
-    ok, verify_cold = timed_once(lambda: verify(proof))
+    with timer.record() as rec:
+        ok, verify_cold = timed_once(lambda: verify(proof))
+    verify_cold_split = _labels(rec, GROTH16_VERIFY_LABELS)
     if ok is not True:
         raise AssertionError(f"{what}: the verifier rejected an honest proof")
     if verify(back) is not True:
         raise AssertionError(f"{what}: the verifier rejected the proof read back by the codec")
     e = proof.inst_evals
     bumped = snark.TestudoSnark(proof.r1cs_sat_proof, proof.r1cs_eval_proof,
-                                ((e[0] + 1) % R, e[1], e[2]), proof.r)
+                                ((e[0] + 1) % R, e[1], e[2]), proof.r, proof.r1cs_verifier_proof)
     if verify(bumped) is not False:
         raise AssertionError(f"{what}: the verifier accepted inst_evals[0] + 1")
     flipped = bytearray(blob)
     flipped[sizes[0] + sizes[1] - 32] ^= 1  # the low byte of the eval proof's last scalar
     if verify(proofs.parse_testudo_snark(bytes(flipped))) is not False:
         raise AssertionError(f"{what}: the verifier accepted a flipped byte of the eval proof")
+    rejects = "inst_evals[0] + 1 and a flipped byte of the eval proof"
+    if groth16_part:
+        cp = proof.r1cs_verifier_proof.circuit_proof
+        neg_c = r1csproof.R1CSVerifierProof(**{**vars(proof.r1cs_verifier_proof),
+                                               "circuit_proof": groth16.Proof(cp.a, cp.b,
+                                                                              hc.g1_neg(cp.c))})
+        if verify(snark.TestudoSnark(proof.r1cs_sat_proof, proof.r1cs_eval_proof, e, proof.r,
+                                     neg_c)) is not False:
+            raise AssertionError(f"{what}: the verifier accepted the Groth16 proof with -C")
+        rejects += ", a Groth16 proof with -C"
 
     # the evaluations Spark proves, in Python ints
     t0 = time.perf_counter()
@@ -1314,8 +1451,8 @@ def phase_snark(dev, log2n: int, profiled: bool = True):
         raise AssertionError(f"{what}: inst_evals differ from the host sums at (rx, ry)")
     host_s = time.perf_counter() - t0
 
-    walls, splits = [], []
-    for _ in range(3):
+    walls, splits, counts_prove = [], [], {}
+    for _ in range(warm):
         build.reset_launches()
         with timer.record() as rec:
             p2, ms = timed_once(prove)
@@ -1331,9 +1468,27 @@ def phase_snark(dev, log2n: int, profiled: bool = True):
     verify_parts = _split(rec)
     if ok is not True:
         raise AssertionError(f"{what}: the warm verify rejected")
-    by_path = {"snark_encode": counts_encode, "snark_prove": counts_prove,
-               "snark_verify": counts_verify}
+    by_path = {"snark_encode": counts_encode, "snark_verify": counts_verify}
+    if warm:
+        by_path["snark_prove"] = counts_prove
+    if groth16_part:
+        by_path["snark_groth16_setup"] = counts_setup
+        cs = None
+        if log2n == 12:
+            t0 = time.perf_counter()
+            cs = groth16_spot_checks(what, gens, inst, inputs, proof, gens.gens_gc.pk.domain_log)
+            say(f"  {what} Groth16 spot checks: {time.perf_counter() - t0:.1f} s")
+        if cs is None:
+            cs = circuit.build_verifier_circuit(r1csproof.verifier_config(
+                proof.r1cs_sat_proof, n, n, inputs.assignment, e))
+        build.reset_launches()
+        gp = groth16.prove(gens.gens_gc.pk, cs, random.Random(log2n))
+        by_path["groth16_prove"] = dict(build.LAUNCHES)
+        if not groth16.verify(gens.gens_gc.vk, cs.public_inputs(), gp):
+            raise AssertionError(f"{what}: groth16.prove on the proof's circuit did not verify")
     for path, names in _SNARK_MUST.items():
+        if path not in by_path:
+            continue
         missing = [k for k in names if not by_path[path][k]]
         if missing:
             raise AssertionError(f"{what}: path {path} launched none of {missing}")
@@ -1341,21 +1496,24 @@ def phase_snark(dev, log2n: int, profiled: bool = True):
 
     nz = lambda d: {k: v for k, v in d.items() if v}
     say(f"{what} ({n} constraints, {n} variables, {NIZK_INPUTS} inputs, {n} nonzero entries a "
-        f"matrix): sat {sizes[0]} B, eval {sizes[1]} B, total {sizes[2]} B; codec round trip, "
-        f"verified; inst_evals[0] + 1 and a flipped byte of the eval proof rejected; inst_evals "
+        f"matrix): sat {sizes[0]} B, eval {sizes[1]} B, total {sizes[2]} B"
+        + (f" (Groth16 proof {GROTH16_BYTES} B; circuit of {gens.gens_gc.pk.num_vars} variables, "
+           f"domain 2^{gens.gens_gc.pk.domain_log})" if groth16_part else "")
+        + f"; codec round trip, verified; {rejects} rejected; inst_evals "
         f"equal Python ints ({host_s:.1f} s of host checks); instance built in {inst_s:.1f} s")
-    say(f"  {what} times: setup (cold) {setup_ms / 1e3:.4f} s; encode (cold) {encode_ms / 1e3:.4f} s "
-        f"{json.dumps(encode_split)}; prove cold {prove_cold / 1e3:.4f} s {json.dumps(split_cold)}; "
-        f"verify cold {verify_cold / 1e3:.4f} s, warm {verify_warm / 1e3:.4f} s")
-    say(f"  {what} warm proves: {[round(x, 4) for x in walls]} s, median "
-        f"{statistics.median(walls):.4f} s")
+    say(f"  {what} times: setup (cold) {setup_ms / 1e3:.4f} s {json.dumps(setup_split)}; encode "
+        f"(cold) {encode_ms / 1e3:.4f} s {json.dumps(encode_split)}; prove cold "
+        f"{prove_cold / 1e3:.4f} s {json.dumps(split_cold)}; verify cold {verify_cold / 1e3:.4f} s "
+        f"{json.dumps(verify_cold_split)}, warm {verify_warm / 1e3:.4f} s")
+    if walls:
+        say(f"  {what} warm proves: {[round(x, 4) for x in walls]} s, median "
+            f"{statistics.median(walls):.4f} s")
     for i, sp in enumerate(splits):
         say(f"  {what} warm prove {i} split (s): {json.dumps(sp)}")
     say(f"  {what} verify parts (s): {json.dumps(verify_parts)}")
     say(f"  {what} {prof_line}")
-    say(f"  {what} launches, encode: {json.dumps(nz(counts_encode))}")
-    say(f"  {what} launches, one warm prove: {json.dumps(nz(counts_prove))}")
-    say(f"  {what} launches, one warm verify: {json.dumps(nz(counts_verify))}")
+    for path, counts in by_path.items():
+        say(f"  {what} launches, {path}: {json.dumps(nz(counts))}")
     return by_path
 
 
@@ -1791,7 +1949,9 @@ def fixed_base_inputs(dev, grp, N: int, seed: int):
 def kernels_fixed_base(dev, grp, rep: Report, rounds: int, lat_us: float, quick: bool):
     """The fixed-base kernels of one group: the team kernel (`fixed_base`)
     at the setup's 2,047 lanes (nv = 20) and one thread per lane
-    (`fixed_base_one`) at the fixed-base phase's 2^16.  Each is compared with
+    (`fixed_base_one`) at the fixed-base phase's 2^16 and, as the row
+    `fixed_base_one_key`, at the Groth16 keys' widths (KEY_LANES: the 2^16
+    circuit's h query in G1, its b_g2 query in G2).  Each is compared with
     the plain version (256 `add_mask_plain` calls) at its width + ODD lanes,
     edge scalars first (the 2^16 one on a stride of the lanes: a lane's
     result depends on its own scalar only), and with the other form; each is
@@ -1807,9 +1967,14 @@ def kernels_fixed_base(dev, grp, rep: Report, rounds: int, lat_us: float, quick:
     nm = lambda kernel: counter(grp, kernel)
     kern = lambda kernel: (lambda t, k: Gp.fixed_base_launch(kernel, t, k))
     lat = lambda steps: steps * rounds * lat_us / 1e3
-    for kernel, entry, other, N in (
-            ("fixed_base", "k_fixed_base_team", "fixed_base_one", 63 if quick else 2047),
-            ("fixed_base_one", "k_fixed_base_one", "fixed_base", 256 if quick else 1 << 16)):
+    forms = [("fixed_base", "fixed_base", "k_fixed_base_team", "fixed_base_one",
+              63 if quick else 2047),
+             ("fixed_base_one", "fixed_base_one", "k_fixed_base_one", "fixed_base",
+              256 if quick else 1 << 16)]
+    if not quick:
+        forms.append(("fixed_base_one_key", "fixed_base_one", "k_fixed_base_one", "fixed_base",
+                      KEY_LANES[grp.name]))
+    for row, kernel, entry, other, N in forms:
         table, scal, ks = fixed_base_inputs(dev, grp, N + ODD, 37)
         got = kern(kernel)(table, scal)
         if not torch.equal(kern(other)(table, scal), got):
@@ -1824,17 +1989,17 @@ def kernels_fixed_base(dev, grp, rep: Report, rounds: int, lat_us: float, quick:
         other_ms = time_ms(lambda: kern(other)(t0, s0), 3)
         seq_ms = time_ms(lambda: Gp.fixed_base_steps(t0, s0, Gp.add_mask), 3)
         pop = [bin(k).count("1") for k in k0]
-        rep.add(nm(kernel), got[:, pick].contiguous(), want, ms, plain,
+        rep.add(nm(row), got[:, pick].contiguous(), want, ms, plain,
                 table.numel() * 4 + N * FR.nlimbs * 4 + N * rows * 4, sum(pop) * m_add,
                 f"({rows}, 256) table x ({N}, 16) scalars -> ({rows}, {N}), {sum(pop)} set bits; "
                 f"compared at {N + ODD} lanes" + (f" on {len(pick)} of them" if len(pick) < N + ODD
                                                    else "") + ", plain_ms from there")
-        rep.rows[nm(kernel)].update({
+        rep.rows[nm(row)].update({
             "replaces_also": ["testudo_tpu/tpu/curve.py:429"],
             "latency_bound_ms": lat(max(pop)), "latency_bound_all_steps_ms": lat(16 * FR.nlimbs),
             "latency_us_per_product": lat_us, "launch_sequence_ms": seq_ms,
             f"{other}_ms": other_ms, "ptxas": ptxas_of(entry, Gp.ncomp)})
-        say(f"  {nm(kernel)}: {ms:.4f} ms at {N} lanes ({other} {other_ms:.4f} ms; the 256 add_mask "
+        say(f"  {nm(row)}: {ms:.4f} ms at {N} lanes ({other} {other_ms:.4f} ms; the 256 add_mask "
             f"launches it replaced: {seq_ms:.4f} ms); latency bound {lat(max(pop)):.4f} ms (all "
             f"256 steps {lat(16 * FR.nlimbs):.4f})")
 
@@ -2126,13 +2291,30 @@ def all_kernels_ms(fn, once: str, reps: int = 20) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    calls = sum(once in e.name for e in evs)
-    return sum(e.time_range.elapsed_us() for e in evs) / calls / 1e3 if calls else None
+    for _ in range(8):  # the profiler returns a window without device events now and then
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        calls = sum(once in e.name for e in evs)
+        if calls:
+            return sum(e.time_range.elapsed_us() for e in evs) / calls / 1e3
+    return None
+
+
+def kernel_device_ms(fn, name: str, flush=None) -> float:
+    """Device milliseconds a call of the kernel `name` (torch.profiler,
+    `exp_mont_rm.profiled_ms`, after `flush()` each call if given); where
+    the profiler saw none of its events in any window, CUDA events around
+    back-to-back calls instead (the flushes' own time taken off), said so."""
+    ms = exp_mont_rm.profiled_ms(fn, name, reps=20, flush=flush)
+    if ms is not None:
+        return ms
+    say(f"  torch.profiler saw no {name} event in its windows: CUDA events instead")
+    if flush is None:
+        return time_ms(fn, 20)
+    return max(time_ms(lambda: (flush(), fn()), 20) - time_ms(flush, 20), 0.0)
 
 
 POS_PRODUCTS = 5 * (3 * 8 + 31) + 9 * 39  # a permutation: S-boxes (x^17) and MDS rows
@@ -2176,7 +2358,6 @@ def kernels_sumcheck(dev, rep: Report, lat_fq: float, lat_fr: float, quick: bool
     (absorbing, 0), as the prove runs it."""
     rng = np.random.default_rng(61)
     flush = exp_mont_rm.l2_flusher(dev)
-    prof = lambda fn, name, fl=None: exp_mont_rm.profiled_ms(fn, name, reps=20, flush=fl)
 
     # -- Poseidon
     pos = {}
@@ -2184,7 +2365,7 @@ def kernels_sumcheck(dev, rep: Report, lat_fq: float, lat_fr: float, quick: bool
         st = _random_elements(spec, (ODD, 3), rng, dev)
         got, want = dsponge.permute(spec, st), dsponge.permute_plain(spec, st)
         one = st[5].contiguous()
-        ms = prof(lambda: dsponge.permute(spec, one), "k_poseidon_permute")
+        ms = kernel_device_ms(lambda: dsponge.permute(spec, one), "k_poseidon_permute")
         plain = time_ms(lambda: dsponge.permute_plain(spec, one), 1)
         b_ms, b_by = bound(2 * 3 * spec.nlimbs * 4, POS_PRODUCTS * exp_montmul.madds_per_product(spec))
         pos[spec.name] = (got, want, ms, plain, b_ms, b_by, POS_DEPENDENT * lat / 1e3)
@@ -2223,8 +2404,8 @@ def kernels_sumcheck(dev, rep: Report, lat_fq: float, lat_fr: float, quick: bool
         if (kind, kp, ks, n) in big:
             for rr in (r, None):
                 run = lambda: sk.sumcheck_round(kind, src, rr, kp, ks)
-                cold = prof(run, "k_sumcheck_round", flush)
-                warm = prof(run, "k_sumcheck_round")
+                cold = kernel_device_ms(run, "k_sumcheck_round", flush)
+                warm = kernel_device_ms(run, "k_sumcheck_round")
                 plain = time_ms(lambda: sk.sumcheck_round_plain(kind, src, rr, kp, ks), 1)
                 fold = rr is not None
                 nb = sk.round_blocks(kind, n, fold, dev, kp, ks)
@@ -2284,7 +2465,7 @@ def kernels_sumcheck(dev, rep: Report, lat_fq: float, lat_fr: float, quick: bool
     e = one[0].contiguous()
     state = _random_elements(FR, (3,), rng, dev)
     run = lambda: sk.sumcheck_tail("cubic_tau", part, one, e, state, FR, 0, 0)
-    ms = prof(run, "k_sumcheck_tail")
+    ms = kernel_device_ms(run, "k_sumcheck_tail")
     plain = time_ms(lambda: sk.sumcheck_tail_plain("cubic_tau", part, one, e, state, FR, 0, 0), 1)
     # from (absorbing, 0): absorb d, c, then a permutation, b, a, then the
     # squeeze's permutation; the products of the sums, coefficients, Horner
@@ -2313,8 +2494,7 @@ def main(argv=None) -> int:
     ap.add_argument("--nizk-only", action="store_true",
                     help="build, check and time TestudoNIZK at 2^16 and 2^20, stop")
     ap.add_argument("--snark-only", action="store_true",
-                    help="build, check and time TestudoSNARK without Groth16 at 2^12, 2^16 "
-                         "and 2^20, stop")
+                    help="build, check and time TestudoSNARK at 2^12, 2^16 and 2^20, stop")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the GPU", file=sys.stderr)
@@ -2331,6 +2511,8 @@ def main(argv=None) -> int:
         return 0
     if args.snark_only:
         phase_snark_small(dev)
+        phase_snark(dev, 12, profiled=False, groth16_part=False, warm=0)
+        phase_cubic(dev)
         for log2n in (12, 16, 20):
             phase_snark(dev, log2n)
             say(f"SNARK 2^{log2n} done ({time.time() - t_start:.1f} s)")
@@ -2410,10 +2592,13 @@ def main(argv=None) -> int:
         note(path, snap)
     say(f"NIZK done ({time.time() - t_start:.1f} s)")
 
-    # TestudoSNARK without Groth16: the small instance against the CPU, then
-    # config #4 at 2^12 and at 2^16 (the paths counted at 2^16)
+    # TestudoSNARK: without Groth16 the small instance against the CPU and
+    # config #4 at 2^12 (its 57,905-B anchor; one prove); the cubic twin; then
+    # with Groth16 config #4 at 2^12 and at 2^16 (the paths counted at 2^16)
     t_snark = time.time()
     phase_snark_small(dev)
+    phase_snark(dev, 12, profiled=False, groth16_part=False, warm=0)
+    phase_cubic(dev)
     phase_snark(dev, 12, profiled=False)
     for path, snap in phase_snark(dev, 16).items():
         note(path, snap)

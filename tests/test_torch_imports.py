@@ -63,7 +63,8 @@ def test_new_modules_are_all_there():
                  "poseidon.constants_377", "serialize", "proofs", "native", "utils.ark_rng",
                  "utils.timer", "tools.exp_montmul", "poly.unipoly", "core.sumcheck",
                  "core.r1cs", "core.r1csproof", "core.snark", "core.errors", "core.commitments",
-                 "core.nizk", "core.polycommit", "core.product_tree", "core.spark"):
+                 "core.nizk", "core.polycommit", "core.product_tree", "core.spark",
+                 "core.circuit", "core.ntt", "core.groth16", "examples.cubic"):
         importlib.import_module("testudo_tpu_torch." + name)
 
 
@@ -123,6 +124,8 @@ def test_snark_entry_points_default_to_cuda_and_raise_without_a_card():
     assert commitments.MultiCommitGens.new(1, b"t").profile.device == cuda
     with pytest.raises((RuntimeError, AssertionError)):
         snark.TestudoSnarkGens.setup(4, 4, 1, 4, with_groth16=False)
+    with pytest.raises((RuntimeError, AssertionError)):
+        snark.TestudoSnarkGens.setup(4, 4, 1, 4)  # with the Groth16 keys, on the card
     with pytest.raises((RuntimeError, AssertionError)):
         spark.AddrTimestamps.new(4, 2, [np.array([0, 1])])
     inst, _, _ = r1cs.R1CSInstance.produce_synthetic_r1cs(4, 4, 1)

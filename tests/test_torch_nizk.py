@@ -208,5 +208,10 @@ def test_verifier_rejects_corrupted_proofs(both):
 
 
 def test_groth16_is_not_ported_yet():
-    with pytest.raises(NotImplementedError):
-        snark.TestudoNizkGens.setup(16, 16, 2, with_groth16=True, profile=_profile())
+    """Since the Groth16 half is ported, `with_groth16=True` builds the
+    verifier circuit's keys (`gens_gc`), which the NIZK prover never uses,
+    as in the reference; the sqrt-PST key is the one without them."""
+    gens = snark.TestudoNizkGens.setup(16, 16, 2, with_groth16=True, profile=_profile())
+    assert gens.gens_gc is not None and gens.gens_gc.pk.num_pub == 2 + 2 + 4 + 5 + 5
+    plain = snark.TestudoNizkGens.setup(16, 16, 2, profile=_profile())
+    assert plain.gens_gc is None and plain.gens_r1cs_sat == gens.gens_r1cs_sat

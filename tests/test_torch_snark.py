@@ -9,7 +9,9 @@ entries a matrix.
   - The verifier accepts, and rejects an inst_evals entry + 1, a flipped byte
     of the eval proof (read back through `parse_testudo_snark`) and a wrong
     input; the codec round-trips and refuses trailing bytes and a Groth16
-    proof; `with_groth16=True` raises NotImplementedError.
+    tag without its proof; `with_groth16=True` (the default) builds the
+    Groth16 keys of the verifier circuit (tests/test_torch_snark_groth16.py
+    proves with them).
   - The fused sumcheck provers (the default) and the looped ones give the
     same bytes.
   - Slow-marked: the proof's bytes equal the JAX package's `snark_prove`
@@ -135,7 +137,7 @@ def test_codec_round_trip(setup, proved):
     with pytest.raises(ser.DeserializeError):
         proofs.parse_testudo_snark(blob + b"\x00")
     with pytest.raises(ser.DeserializeError):
-        proofs.parse_testudo_snark(blob[:-1] + b"\x01")  # a Groth16 proof: not ported yet
+        proofs.parse_testudo_snark(blob[:-1] + b"\x01")  # a Groth16 tag without its proof
     with pytest.raises(ser.DeserializeError):
         proofs.parse_testudo_snark(blob[:-1] + b"\x02")
 
@@ -151,8 +153,12 @@ def test_generators_and_groth16(setup):
     # the ops' and the derefs' rows are 16 wide here: one draw serves both
     assert g.gens_ops.gens is g.gens_derefs.gens
     assert (g.gens_ops.num_vars, g.gens_mem.num_vars, g.gens_derefs.num_vars) == (8, 6, 7)
-    with pytest.raises(NotImplementedError):
-        snark.TestudoSnarkGens.setup(NC, NV, NI, NNZ, profile=_profile())
+    assert setup["gens"].gens_gc is None  # with_groth16=False
+    # the reference's default, with_groth16=True, adds the verifier circuit's keys
+    gens = snark.TestudoSnarkGens.setup(NC, NV, NI, NNZ, profile=_profile())
+    # ONE, the initial state, the inputs, rx, ry, eval_vars_at_ry, Ar, Br, Cr, sat state
+    assert gens.gens_gc.pk.num_pub == 2 + NI + 4 + 5 + 5
+    assert gens.gens_r1cs_eval == setup["gens"].gens_r1cs_eval
 
 
 def test_spark_generators_and_commitment_carry_across(setup):

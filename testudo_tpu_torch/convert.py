@@ -18,6 +18,9 @@ reference's `fields.host` module and classes by the caller, since nothing
 here may import them.  R1CS instances carry across by their matrices'
 entries (host arrays and ints), R1CS proofs by their components, so that
 both packages prove one instance and each verifies the other's proof.
+Groth16's keys carry across by their host points and their batches (the
+reference's limb pytrees, the port's batches on either backend), its proofs
+and the SNARK's verifier proof by their components.
 """
 from __future__ import annotations
 
@@ -287,8 +290,8 @@ def r1cs_proof_to_reference(proof, towers, proof_cls, sumcheck_cls, unipoly_cls,
 # takes the profile of the port's side (the reference's carries none).
 
 _SPARK_CLASSES = (
-    "TestudoSnark", "R1CSEvalProof", "SparseMatPolyEvalProof", "DerefsCommitment",
-    "PolyCommitment", "ProductLayerProof", "ProductCircuitEvalProofBatched",
+    "TestudoSnark", "R1CSVerifierProof", "Proof", "R1CSEvalProof", "SparseMatPolyEvalProof",
+    "DerefsCommitment", "PolyCommitment", "ProductLayerProof", "ProductCircuitEvalProofBatched",
     "LayerProofBatched", "SumcheckInstanceProof", "HashLayerProof", "PolyEvalProof",
     "DotProductProofLog", "BulletReductionProof", "DerefsEvalProof",
     "SparseMatPolyCommitment", "ComputationCommitment", "R1CSCommitmentGens",
@@ -307,12 +310,12 @@ def _classes(modules) -> dict:
 
 
 def _port_modules():
-    from .core import commitments, mipp, nizk, polycommit, product_tree, r1csproof, snark
-    from .core import spark, sumcheck
+    from .core import commitments, groth16, mipp, nizk, polycommit, product_tree, r1csproof
+    from .core import snark, spark, sumcheck
     from .poly import unipoly
 
     return (snark, spark, polycommit, nizk, product_tree, sumcheck, commitments, r1csproof,
-            mipp, unipoly)
+            mipp, unipoly, groth16)
 
 
 def _carry(obj, cls: dict, towers, profile):
@@ -330,6 +333,11 @@ def _carry(obj, cls: dict, towers, profile):
     if name == "R1CSProof":
         return _r1cs_proof(obj, towers, cls["R1CSProof"], cls["SumcheckInstanceProof"],
                            cls["UniPoly"], cls["MippProof"])
+    if name == "R1CSVerifierProof":
+        return _verifier_proof(obj, towers, cls["R1CSVerifierProof"], cls["Proof"],
+                               cls["MippProof"])
+    if name == "Proof":
+        return _groth16_proof(obj, towers, cls["Proof"])
     if name == "UniPoly":
         return cls["UniPoly"]([int(c) for c in obj.coeffs])
     if name == "MultiCommitGens":
@@ -346,16 +354,15 @@ def _carry(obj, cls: dict, towers, profile):
 
 
 def snark_proof_from_reference(proof):
-    """The reference's `TestudoSnark` (without its Groth16 proof) in the
-    port's classes."""
-    if getattr(proof, "r1cs_verifier_proof", None) is not None:
-        raise NotImplementedError("the Groth16 verifier proof is not ported yet")
+    """The reference's `TestudoSnark`, with its Groth16 verifier proof where
+    it has one, in the port's classes."""
     return _carry(proof, _classes(_port_modules()), hf, None)
 
 
 def snark_proof_to_reference(proof, towers, *modules):
     """The port's `TestudoSnark` in the reference's classes, found in
-    `modules`; `towers` is its `fields.host` module."""
+    `modules` (its core.groth16 among them for a proof with its Groth16
+    part); `towers` is its `fields.host` module."""
     return _carry(proof, _classes(modules), towers, None)
 
 
@@ -376,3 +383,105 @@ def spark_gens_from_reference(gens, profile):
 
 def spark_gens_to_reference(gens, towers, *modules):
     return _carry(gens, _classes(modules), towers, None)
+
+
+# -- Groth16 ---------------------------------------------------------------------
+
+
+def _groth16_proof(proof, towers, proof_cls):
+    return proof_cls(_point_from(proof.a, towers), _point_from(proof.b, towers),
+                     _point_from(proof.c, towers))
+
+
+def groth16_proof_from_reference(proof):
+    """The reference's `groth16.Proof` (host affine A, B, C) as the port's."""
+    from .core import groth16
+
+    return _groth16_proof(proof, hf, groth16.Proof)
+
+
+def groth16_proof_to_reference(proof, towers, proof_cls):
+    return _groth16_proof(proof, towers, proof_cls)
+
+
+def _verifier_proof(vp, towers, vp_cls, proof_cls, mipp_cls):
+    return vp_cls(
+        comm_U=_point_from(vp.comm_U, towers),
+        circuit_proof=_groth16_proof(vp.circuit_proof, towers, proof_cls),
+        initial_state=int(vp.initial_state),
+        transcript_sat_state=int(vp.transcript_sat_state),
+        eval_vars_at_ry=int(vp.eval_vars_at_ry),
+        proof_eval_vars_at_ry=[_point_from(p, towers) for p in vp.proof_eval_vars_at_ry],
+        t=_tower_from(vp.t, towers),
+        mipp_proof=_mipp_proof(vp.mipp_proof, towers, mipp_cls),
+    )
+
+
+def _key_batch_from_reference(batch, backend):
+    """A key's batch, the reference's limb pytree (or None), on `backend`:
+    the device backend takes the limbs as they are, the host backend their
+    affine points."""
+    from .device import curve as tc
+
+    if batch is None:
+        return None
+    device = getattr(backend, "device", None)
+    if device is not None:
+        return points_from_reference(batch, device=device)
+    pts = points_from_reference(batch, device=torch.device("cpu"))
+    to_affine = tc.g2_to_affine_host if _is_fq2(pts[0]) else tc.g1_to_affine_host
+    return backend.from_affine(to_affine(pts))
+
+
+def _key_batch_to_reference(batch, backend, g2: bool):
+    """A key's batch on `backend` (or None) as numpy limbs in the reference's
+    nesting: the device backend's projective limbs as they are, the host
+    backend's affine points lifted (Z = 1; the identity (0, 1, 0))."""
+    from .device import curve as tc
+
+    if batch is None:
+        return None
+    if getattr(backend, "device", None) is None:
+        lift = tc.g2_from_affine_host if g2 else tc.g1_from_affine_host
+        batch = lift(backend.to_affine(batch), device=torch.device("cpu"))
+    return points_to_reference(batch)
+
+
+_PK_BATCHES = {"a_query": False, "b_g1_query": False, "b_g2_query": True, "h_query": False,
+               "l_query": False}
+_PK_HOST = ("alpha_g1", "beta_g1", "beta_g2", "delta_g1", "delta_g2")
+_VK_HOST = ("alpha_g1", "beta_g2", "gamma_g2", "delta_g2")
+
+
+def _vk(vk, towers, vk_cls, **extra):
+    return vk_cls(**{n: _point_from(getattr(vk, n), towers) for n in _VK_HOST},
+                  gamma_abc_g1=[_point_from(p, towers) for p in vk.gamma_abc_g1], **extra)
+
+
+def groth16_keys_from_reference(pk, vk, profile):
+    """The reference's Groth16 (`ProvingKey`, `VerifyingKey`) as the port's
+    over `profile`; the proving key's batches go to the profile's backends."""
+    from .core import groth16
+
+    pvk = _vk(vk, hf, groth16.VerifyingKey, profile=profile)
+    batches = {n: _key_batch_from_reference(getattr(pk, n), profile.g2b if g2 else profile.g1b)
+               for n, g2 in _PK_BATCHES.items()}
+    ppk = groth16.ProvingKey(
+        num_pub=int(pk.num_pub), num_vars=int(pk.num_vars), domain_log=int(pk.domain_log),
+        **{n: _point_from(getattr(pk, n), hf) for n in _PK_HOST}, **batches, vk=pvk,
+        profile=profile)
+    return ppk, pvk
+
+
+def groth16_keys_to_reference(pk, vk, towers, groth16_module):
+    """The port's Groth16 keys in the reference's classes (`groth16_module`
+    is its core.groth16): host points in its towers, batches as numpy limb
+    pytrees."""
+    pf = pk.profile
+    rvk = _vk(vk, towers, groth16_module.VerifyingKey)
+    batches = {n: _key_batch_to_reference(getattr(pk, n), pf.g2b if g2 else pf.g1b, g2)
+               for n, g2 in _PK_BATCHES.items()}
+    rpk = groth16_module.ProvingKey(
+        num_pub=pk.num_pub, num_vars=pk.num_vars, domain_log=pk.domain_log,
+        **{n: _point_from(getattr(pk, n), towers) for n in _PK_HOST}, **batches, vk=rvk)
+    return rpk, rvk

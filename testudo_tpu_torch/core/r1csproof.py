@@ -1,9 +1,8 @@
 """Spartan R1CS satisfiability proof (two-phase sumcheck + sqrt-PST).
 
 Counterpart of testudo_tpu/core/r1csproof.py (itself of Testudo's
-src/r1csproof.rs), without the Groth16 half (`CircuitGens`,
-`prove_verifier`, `verifier_proof_verify`).  The prover flow mirrors
-R1CSProof::prove (r1csproof.rs:237-370):
+src/r1csproof.rs).  The prover flow mirrors R1CSProof::prove
+(r1csproof.rs:237-370):
 
   commit witness (sqrt-PST)  -> absorb T           (:255-257)
   initial_state challenge + transcript re-key      (:261-262)
@@ -27,6 +26,15 @@ The prover's tables live on the device of the generators' curve profile;
 both sumcheck phases take the fused provers unless `prove(..., fused=False)`
 asks for the looped ones (core/sumcheck.py); the `Timer` labels (`polycommit (sqrt-PST)`, `prove_sc_phase_one`,
 `prove_sc_phase_two`, `polyeval (sqrt-PST open)`) split a prove.
+
+The Groth16 half (r1csproof.rs:67-152, 374-487): `CircuitGens` holds the
+Groth16 keys of the verifier circuit (core/circuit.py) for an instance's
+shape; `prove_verifier` proves that circuit on an honest R1CS proof's
+values (`R1CSVerifierProof`), and `verifier_proof_verify` checks the
+Groth16 proof, then the sqrt-PST opening, which the Rust snapshot comments
+out and the JAX package keeps.  Timer labels: `groth16::circuit build`
+(the circuit and its satisfiability check), `snark_verify::groth16`,
+`snark_verify::sqrt-PST check`.
 """
 from __future__ import annotations
 
@@ -37,7 +45,8 @@ from ..device import field as tf
 from ..fields.host import Fq12
 from ..poly import dense
 from ..utils.timer import Timer
-from . import pst, sqrt_pst, sumcheck
+from . import groth16, pst, sqrt_pst, sumcheck
+from .circuit import VerifierConfig, build_verifier_circuit
 from .mipp import MippProof
 from .r1cs import R1CSInstance
 
@@ -256,3 +265,161 @@ def verify_native(
         proof.mipp_proof,
         proof.t,
     )
+
+
+# ---------------------------------------------------------------------------
+# Groth16-compressed verification (CircuitGens / prove_verifier /
+# R1CSVerifierProof: r1csproof.rs:67-152, 374-487)
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class CircuitGens:
+    """Groth16 keys for the Spartan verifier circuit, from a dummy circuit
+    of the right shape (CircuitGens::setup, r1csproof.rs:80-151: the
+    constraint matrices depend only on dimensions, not on values)."""
+
+    pk: groth16.ProvingKey
+    vk: groth16.VerifyingKey
+
+    @staticmethod
+    def setup(num_cons: int, num_vars: int, num_inputs: int, profile=None) -> "CircuitGens":
+        """Keys on `profile` (default: BLS12-377 on the CUDA device)."""
+        tb = Timer("groth16::circuit build")
+        cs = build_verifier_circuit(dummy_verifier_config(num_cons, num_vars, num_inputs))
+        tb.stop()
+        pk, vk = groth16.setup(cs, profile=profile)
+        return CircuitGens(pk, vk)
+
+
+def dummy_verifier_config(num_cons: int, num_vars: int, num_inputs: int) -> VerifierConfig:
+    """All-ones values in the shape of an instance's proof: the circuit
+    CircuitGens keys (r1csproof.rs:80-151)."""
+    nx = num_cons.bit_length() - 1
+    ny = (2 * num_vars).bit_length() - 1
+    return VerifierConfig(
+        num_vars=num_vars,
+        num_cons=num_cons,
+        inputs=[1] * num_inputs,
+        evals=(1, 1, 1),
+        prev_challenge=1,
+        claims_phase2=(1, 1, 1, 1),
+        eval_vars_at_ry=1,
+        polys_sc1=[[1, 1, 1, 1] for _ in range(nx)],
+        polys_sc2=[[1, 1, 1] for _ in range(ny)],
+        rx=[1] * nx,
+        ry=[1] * ny,
+        transcript_sat_state=1,
+    )
+
+
+def verifier_config(proof: R1CSProof, num_vars: int, num_cons: int, inputs: List[int],
+                    evals: Tuple[int, int, int]) -> VerifierConfig:
+    """The circuit's values for an R1CS proof (r1csproof.rs:400-422)."""
+    return VerifierConfig(
+        num_vars=num_vars,
+        num_cons=num_cons,
+        inputs=list(inputs),
+        evals=tuple(evals),
+        prev_challenge=proof.initial_state,
+        claims_phase2=proof.claims_phase2,
+        eval_vars_at_ry=proof.eval_vars_at_ry,
+        polys_sc1=[p.coeffs for p in proof.sc_proof_phase1.polys],
+        polys_sc2=[p.coeffs for p in proof.sc_proof_phase2.polys],
+        rx=proof.rx,
+        ry=proof.ry,
+        transcript_sat_state=proof.transcript_sat_state,
+    )
+
+
+@dataclass
+class R1CSVerifierProof:
+    """r1csproof.rs:55-65."""
+
+    comm_U: object
+    circuit_proof: groth16.Proof
+    initial_state: int
+    transcript_sat_state: int
+    eval_vars_at_ry: int
+    proof_eval_vars_at_ry: List
+    t: Fq12
+    mipp_proof: MippProof
+
+
+def prove_verifier(
+    proof: R1CSProof,
+    num_vars: int,
+    num_cons: int,
+    inputs: List[int],
+    evals: Tuple[int, int, int],
+    transcript,
+    circuit_gens: CircuitGens,
+    rng=None,
+) -> R1CSVerifierProof:
+    """Groth16-prove the sumcheck verifier circuit (r1csproof.rs:374-434).
+    `transcript` stands where `prove` took it up (re-keyed at the SNARK's
+    challenge): it re-derives the initial state, which must be the proof's.
+    `rng`: Groth16's r and s (default `secrets.SystemRandom()`)."""
+    pf = circuit_gens.pk.profile
+    transcript.append_bytes(pf.ser_gt(proof.t))
+    initial_state = transcript.challenge_scalar(pf.R)
+    if initial_state != proof.initial_state:
+        raise ValueError("the transcript re-derives another initial state than the proof's")
+    transcript.new_from_state(initial_state)
+
+    config = verifier_config(proof, num_vars, num_cons, inputs, evals)
+    tb = Timer("groth16::circuit build")
+    cs = build_verifier_circuit(config)
+    satisfied = cs.is_satisfied()
+    tb.stop()
+    if not satisfied:
+        raise ValueError("the verifier circuit is not satisfied by the proof's values")
+    circuit_proof = groth16.prove(circuit_gens.pk, cs, rng)
+    return R1CSVerifierProof(
+        comm_U=proof.comm_U,
+        circuit_proof=circuit_proof,
+        initial_state=proof.initial_state,
+        transcript_sat_state=proof.transcript_sat_state,
+        eval_vars_at_ry=proof.eval_vars_at_ry,
+        proof_eval_vars_at_ry=proof.proof_eval_vars_at_ry,
+        t=proof.t,
+        mipp_proof=proof.mipp_proof,
+    )
+
+
+def verifier_proof_verify(
+    vproof: R1CSVerifierProof,
+    r: Tuple[List[int], List[int]],
+    inputs: List[int],
+    evals: Tuple[int, int, int],
+    transcript,
+    circuit_gens: CircuitGens,
+    gens: R1CSGens,
+) -> bool:
+    """R1CSVerifierProof::verify with the PST + MIPP opening check enabled
+    (r1csproof.rs:443-487; the snapshot comments the opening check out and
+    returns Ok(true), which is not reproduced)."""
+    rx, ry = r
+    Ar, Br, Cr = evals
+    pubs = [vproof.initial_state, *inputs, *rx, *ry,
+            vproof.eval_vars_at_ry, Ar, Br, Cr, vproof.transcript_sat_state]
+    tg = Timer("snark_verify::groth16")
+    ok = groth16.verify(circuit_gens.vk, pubs, vproof.circuit_proof)
+    tg.stop()
+    if not ok:
+        return False
+
+    transcript.new_from_state(vproof.transcript_sat_state)
+    tp = Timer("snark_verify::sqrt-PST check")
+    ok = sqrt_pst.verify(
+        transcript,
+        gens.vk,
+        vproof.comm_U,
+        ry[1:],
+        vproof.eval_vars_at_ry,
+        vproof.proof_eval_vars_at_ry,
+        vproof.mipp_proof,
+        vproof.t,
+    )
+    tp.stop()
+    return ok

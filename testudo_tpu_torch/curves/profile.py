@@ -58,12 +58,16 @@ class GroupBackend:
 
 
 class HostGroupBackend(GroupBackend):
-    """Pure-host backend over a host curve module's primitive ops."""
+    """Pure-host backend over a host curve module's primitive ops.
+    `batch_mul(points, scalars)`, where given, multiplies many points at
+    once (the native library's threaded batch) and returns what `mul`
+    returns point by point."""
 
-    def __init__(self, add, mul, msm, order: int):
+    def __init__(self, add, mul, msm, order: int, batch_mul=None):
         self._add = add
         self._mul = mul
         self._msm = msm
+        self._batch_mul = batch_mul
         self.order = order
 
     def from_affine(self, pts):
@@ -79,6 +83,8 @@ class HostGroupBackend(GroupBackend):
         return repr_[lo:hi]
 
     def msm(self, repr_, scalars):
+        if isinstance(scalars, torch.Tensor):
+            scalars = FR.from_limbs(scalars)
         return self._msm(repr_, [int(s) for s in scalars])
 
     def multi_msm(self, basis_repr, scal_rows):
@@ -91,7 +97,10 @@ class HostGroupBackend(GroupBackend):
         ]
 
     def fixed_base_mul(self, base_affine, scalars):
-        return [self._mul(base_affine, int(s) % self.order) for s in scalars]
+        scalars = [int(s) % self.order for s in scalars]
+        if self._batch_mul is not None:
+            return self._batch_mul([base_affine] * len(scalars), scalars)
+        return [self._mul(base_affine, s) for s in scalars]
 
 
 @dataclass
@@ -164,6 +173,8 @@ class _Dev377Backend(GroupBackend):
         return msm._map_coords(lambda c: c[lo:hi], repr_)
 
     def _canon(self, scalars) -> torch.Tensor:
+        if isinstance(scalars, torch.Tensor):
+            return scalars.to(self.device)
         return torch.as_tensor(
             FR.to_limbs([int(s) % FR.modulus for s in scalars]), device=self.device
         )
@@ -212,6 +223,16 @@ def _host_msm_g1_377(points, scalars):
     return hc.g1_msm(list(points), [int(s) for s in scalars])
 
 
+def _host_batch_mul_377(g1: bool):
+    """The native library's batch multiply for one group, or None when the
+    library is not loaded (the backend then multiplies point by point)."""
+    from .. import native
+
+    if not native.available():
+        return None
+    return native.g1_batch_mul if g1 else native.g2_batch_mul
+
+
 def _host_msm_g2_377(points, scalars):
     from .. import native
     from . import host_curve as hc
@@ -231,8 +252,10 @@ def _bls12_377(device: torch.device, host_groups: bool) -> CurveProfile:
     from . import pairing as pr
 
     if host_groups:
-        g1b = HostGroupBackend(hc.g1_add, hc.g1_mul, _host_msm_g1_377, R377)
-        g2b = HostGroupBackend(hc.g2_add, hc.g2_mul, _host_msm_g2_377, R377)
+        g1b = HostGroupBackend(hc.g1_add, hc.g1_mul, _host_msm_g1_377, R377,
+                               _host_batch_mul_377(True))
+        g2b = HostGroupBackend(hc.g2_add, hc.g2_mul, _host_msm_g2_377, R377,
+                               _host_batch_mul_377(False))
     else:
         g1b = _Dev377Backend("g1", device)
         g2b = _Dev377Backend("g2", device)

@@ -4,10 +4,11 @@ Counterpart of testudo_tpu/proofs.py, with the writers and readers of the
 objects this package produces so far: the PST opening, the MIPP proof, the
 round polynomials, the sumcheck proof, the R1CS satisfiability proof of
 TestudoNIZK (`parse_r1cs_proof`), Spark's evaluation proof with its
-row-wise Pedersen commitments and dot-product arguments, and TestudoSNARK
-without its Groth16 proof (`parse_testudo_snark`; the Option tag of the
-verifier proof is written as 0, and a reader that meets 1 raises, as the
-Groth16 half is not ported yet).  The layouts are
+row-wise Pedersen commitments and dot-product arguments, the Groth16 proof
+(A, C compressed G1, B compressed G2: 192 B), and TestudoSNARK
+(`parse_testudo_snark`; the Groth16-compressed verifier proof is an arkworks
+Option: a 1-byte tag, then the Groth16 proof alone, as the rest of the
+verifier proof is the R1CS proof's).  The layouts are
 those of ark-serialize 0.4 in compressed mode (serialize.py), so the byte
 counts are the proof sizes Testudo reports.
 """
@@ -16,6 +17,7 @@ from __future__ import annotations
 from typing import List
 
 from . import serialize as ser
+from .core import groth16 as groth16_mod
 from .core import mipp as mipp_mod
 from .core import nizk as nizk_mod
 from .core import polycommit as pc_mod
@@ -70,6 +72,10 @@ def ser_r1cs_proof(p: rp.R1CSProof) -> bytes:
     out += ser.fq12_to_bytes(p.t)
     out += ser_mipp(p.mipp_proof)
     return bytes(out)
+
+
+def ser_groth16_proof(p: groth16_mod.Proof) -> bytes:
+    return ser.g1_to_bytes(p.a, True) + ser.g2_to_bytes(p.b, True) + ser.g1_to_bytes(p.c, True)
 
 
 def _ser_g1c(pt) -> bytes:
@@ -129,9 +135,8 @@ def ser_spark_proof(p: spark_mod.SparseMatPolyEvalProof) -> bytes:
 
 def ser_testudo_snark(p: snark_mod.TestudoSnark) -> bytes:
     """The R1CS proof, Spark's proof, the three evaluations, (rx, ry) and the
-    Option of the Groth16 verifier proof (arkworks: a 1-byte tag, here 0)."""
-    if p.r1cs_verifier_proof is not None:
-        raise NotImplementedError("the Groth16 verifier proof is not ported yet (ROADMAP A.3(ii))")
+    Option of the Groth16 verifier proof (arkworks: a 1-byte tag, then the
+    Groth16 proof)."""
     out = bytearray()
     out += ser_r1cs_proof(p.r1cs_sat_proof)
     out += ser_spark_proof(p.r1cs_eval_proof.proof)
@@ -139,7 +144,11 @@ def ser_testudo_snark(p: snark_mod.TestudoSnark) -> bytes:
         out += ser.fr_to_bytes(e)
     out += ser.vec_to_bytes(p.r[0], ser.fr_to_bytes)
     out += ser.vec_to_bytes(p.r[1], ser.fr_to_bytes)
-    out += b"\x00"
+    if p.r1cs_verifier_proof is not None:
+        out += b"\x01"
+        out += ser_groth16_proof(p.r1cs_verifier_proof.circuit_proof)
+    else:
+        out += b"\x00"
     return bytes(out)
 
 
@@ -199,6 +208,10 @@ def parse_r1cs_proof(data: bytes) -> rp.R1CSProof:
     out = de_r1cs_proof(r)
     r.finish()
     return out
+
+
+def de_groth16_proof(r: ser.Reader) -> groth16_mod.Proof:
+    return groth16_mod.Proof(ser.read_g1(r, True), ser.read_g2(r, True), ser.read_g1(r, True))
 
 
 def _read_g1c(r: ser.Reader):
@@ -270,11 +283,21 @@ def de_testudo_snark(r: ser.Reader) -> snark_mod.TestudoSnark:
     r0 = _read_frs(r)
     r1 = _read_frs(r)
     tag = r.take(1)[0]
+    verifier_proof = None
     if tag == 1:
-        raise ser.DeserializeError("a Groth16 verifier proof: not ported yet (ROADMAP A.3(ii))")
-    if tag != 0:
+        verifier_proof = rp.R1CSVerifierProof(
+            comm_U=sat.comm_U,
+            circuit_proof=de_groth16_proof(r),
+            initial_state=sat.initial_state,
+            transcript_sat_state=sat.transcript_sat_state,
+            eval_vars_at_ry=sat.eval_vars_at_ry,
+            proof_eval_vars_at_ry=sat.proof_eval_vars_at_ry,
+            t=sat.t,
+            mipp_proof=sat.mipp_proof,
+        )
+    elif tag != 0:
         raise ser.DeserializeError(f"bad Option tag {tag}")
-    return snark_mod.TestudoSnark(sat, eval_proof, inst_evals, (r0, r1))
+    return snark_mod.TestudoSnark(sat, eval_proof, inst_evals, (r0, r1), verifier_proof)
 
 
 def parse_testudo_snark(data: bytes) -> snark_mod.TestudoSnark:

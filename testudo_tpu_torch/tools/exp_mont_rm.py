@@ -132,7 +132,7 @@ def l2_flusher(device):
     return lambda: buf.sum()
 
 
-def profiled_ms(fn, match: str, reps: int = REPS, tries: int = 3, flush=None):
+def profiled_ms(fn, match: str, reps: int = REPS, tries: int = 8, flush=None):
     """Mean device milliseconds of the kernels named `match` over `reps`
     calls of fn under torch.profiler, each call after `flush()` if given;
     None when the profiler sees none of them in `tries` windows (it has
