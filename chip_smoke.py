@@ -19,7 +19,7 @@ testudo_tpu_torch/csrc/, then
      Montgomery kernel) against the fused add kernels;
   4. drives the sqrt-PST polynomial commitment end to end (`pst.setup`,
      `Polynomial.from_evaluations`, `eval`, `commit`, `open` with MIPP,
-     `sqrt_pst.verify`) at nv = 10, 14 and, at full width, nv = 20 (a
+     `sqrt_pst.verify`) at nv = 10 and, at full width, nv = 20 (a
      2^20-entry table): the verifier accepts, rejects the value + 1, `eval`
      equals a host evaluation in Python ints, T equals the multi-pairing of
      the affine column commitments, spot columns equal host MSMs, the proof
@@ -38,44 +38,62 @@ testudo_tpu_torch/csrc/, then
      proof that round-trips through the codec and verifies, the verifier
      rejects eval_vars_at_ry + 1 and a wrong input, and eval_vars_at_ry,
      the phase-2 claims and the verifier's (A, B, C)~(rx, ry) equal Python-int
-     evaluations; setup, prove (cold, then three warm, split by the Timer
-     labels commit / phase one / phase two / open) and verify (cold, warm)
-     are timed, three warm looped proves beside them (byte-equal), the
-     Poseidon permutations left on the host timed, each prover's CUDA kernels
-     counted under torch.profiler, by phase too (the fused prove's with the
+     evaluations; setup, prove (cold, then one warm, three with --nizk-only,
+     split by the Timer labels commit / phase one / phase two / open) and
+     verify (cold, warm) are timed, as many warm looped proves beside them
+     (byte-equal), and the launches of one warm fused prove, one looped
+     prove and one verify counted (paths nizk_prove, nizk_prove_looped,
+     nizk_verify: the fused sumcheck's three kernels must run in the first
+     and not in the second); with --nizk-only also the Poseidon
+     permutations left on the host timed, each prover's CUDA kernels counted
+     under torch.profiler, by phase too (the fused prove's with the
      row-major product's device time and launches by size class), and the
-     launches of one warm fused prove, one looped prove and one verify
-     counted (paths nizk_prove, nizk_prove_looped, nizk_verify: the fused
-     sumcheck's three kernels must run in the first and not in the second),
-     and the round kernel's launches by shape in one warm fused prove with
-     their summed device time;
+     round kernel's launches by shape in one warm fused prove with their
+     summed device time;
   5b. drives TestudoSNARK (core/snark.py: `TestudoSnarkGens.setup`,
      `snark_encode`, `snark_prove`, `snark_verify`; Spark in core/spark.py
      over the product trees, the row-wise Pedersen commitment and the
      dot-product argument; the Groth16-compressed verifier in
      core/groth16.py, core/circuit.py, core/ntt.py): without Groth16, a 16 x
      16 x 3 instance proved on the card and on the CPU with host groups under
-     one seeded blind stream, byte-equal with equal commitments, and config
-     #4 (`produce_synthetic_r1cs(n, n, 10)`, n nonzero entries a matrix, as
-     benches/testudo.py builds it) at 2^12 to its 57,905 B; the port's twin
-     of examples/cubic.py (config #1 with Groth16: setup, prove, verify, y + 1
-     rejected); then config #4 with Groth16 (the default) at 2^12 and 2^16:
+     one seeded blind stream, byte-equal with equal commitments (with
+     --snark-only also config #4, `produce_synthetic_r1cs(n, n, 10)` with n
+     nonzero entries a matrix as benches/testudo.py builds it, at 2^12 to
+     its 57,905 B); the port's twin of examples/cubic.py (config #1 with
+     Groth16: setup, prove, verify, y + 1 rejected); then config #4 with
+     Groth16 (the default) at 2^16 (2^12 and 2^20 with --snark-only):
      sat, eval and total bytes (testudo.csv's 13,192 + 43,800 B at 2^12,
      58,097 B in all; 100,881 B at 2^16; the Groth16 proof 192 B; the total's
      identity), codec round trip, verify, inst_evals + 1, a flipped byte of
      the eval proof and the Groth16 proof with -C rejected, the evaluations
-     against Python ints; at 2^12 8 lanes of each key batch against the
-     host's multiples of the setup's scalars and the five MSMs against native
-     host MSMs over the keys in affine; setup (split: circuit build, lagrange,
-     keys G1 / G2), encode, prove (cold and three warm, byte-equal, split by
+     against Python ints; at 2^12 (--snark-only) 8 lanes of each key batch
+     against the host's multiples of the setup's scalars and the five MSMs
+     against native host MSMs over the keys in affine; setup (split: circuit build, lagrange,
+     keys G1 / G2), encode, prove (cold and one warm, three with
+     --snark-only, byte-equal, split by
      the Timer labels: sat proof, evaluate A,B,C, derefs commit, product
      layers, hash layer, prove_verifier and Groth16's circuit build, row
      evals, witness_h and five MSMs) and verify (cold, warm; Groth16, the
-     sqrt-PST check, Spark) timed; at 2^16 one warm prove's CUDA kernels and
-     device time under torch.profiler and the launches of the setup, the
+     sqrt-PST check, Spark) timed; with --snark-only each size's warm prove
+     under torch.profiler (CUDA kernels, device time); the launches of the setup, the
      encode, one warm prove, one `groth16.prove` and one warm verify (paths
      snark_groth16_setup, snark_encode, snark_prove, groth16_prove,
      snark_verify);
+  5c. drives BW6-761 and the one-level recursion (device/curve_generic.py,
+     msm.msm_fp, core/circuit_verifier.py, core/groth16_bw6.py): `msm_fp` on
+     G1 and G2 at 983,040 points (2^13 bases k_i G tiled, random scalars
+     below r; exact: one host multiplication of G by sum k_i s_i), cold and
+     warm, and one 50-point MSM of the small path against a host MSM; the toy
+     Fq circuit of tests/test_groth16_bw6.py proved over BW6 on the card, its
+     public input + 1 rejected; the wrap of tests/test_groth16_bw6.py:50 at
+     nv = 16: a random 2^16 table committed and opened on the card with the
+     Fq transcript, the port's verifier accepting, the TestudoCommVerifier
+     built (983,727 constraints, 983,426 variables, no public input, domain
+     2^20: held to BW6_SHAPES) and satisfied, Groth16 over BW6 set up (8
+     lanes of each key batch and gamma_abc against the host's multiples of
+     the setup's scalars), proved and verified, -C and another A rejected;
+     times split by the Timer labels, the launches of the setup and of the
+     prove counted (paths bw6_setup, bw6_prove);
   6. runs the chained-product harness (tools/exp_montmul.py), which
      measures the card's Montgomery products per second;
   7. calls every kernel's wrapper at the shapes the main paths gave it and
@@ -116,13 +134,19 @@ testudo_tpu_torch/csrc/, then
      with and without the fold (and the fold as launches of its own beside
      it), the round tail on both sponges at the round's partial count, each
      against its plain version, timed beside `bound_ms` and
-     `latency_bound_ms`;
+     `latency_bound_ms`; the 761-bit row-major product at the BW6 group's
+     shapes (a complete add's six stacked products over 2^20 lanes, the b3
+     pair times a shared element, the weighted sum's 384 lanes, 2^16 + ODD
+     with 0, 1, q - 1, R mod q and r mixed in), its device time at 2^20
+     (torch.profiler, L2 flushed, and warm) beside `bound_ms` and the latency
+     of one dependent 761-bit product at one warp;
   8. checks a small MSM against the host oracle;
   9. prints one JSON line {"kernels": [...]} (each row's `launches` is the
      sum of `launches_by_path`, the kernel's count on each driven path: msm,
      fixed_base, field, setup, commit, open, verify, nizk_prove,
      nizk_prove_looped, nizk_verify, snark_groth16_setup, snark_encode,
-     snark_prove, groth16_prove, snark_verify, harness; the run fails if a
+     snark_prove, groth16_prove, snark_verify, bw6_setup, bw6_prove,
+     harness; the run fails if a
      kernel was not launched on a path it belongs to) and, last,
      {"ok": true, "device": {...}}.
 
@@ -136,8 +160,10 @@ within one shell command); `--nizk-only` stops after the NIZK phase at 2^16
 and at 2^20 (a 21,192 B sat proof; the 2^20 instance takes most of a minute
 of host Python to build), for the same use; `--snark-only` stops after the
 SNARK phase, with Groth16 at 2^12, 2^16 and 2^20 (config #4 at 2^20: 21,192 +
-180,504 B, 203,313 B in all; each size profiled); the default run is the full
-check.
+180,504 B, 203,313 B in all; each size profiled); `--bw6-only` compares and
+times the 761-bit product, runs the BW6 MSMs and toy circuit and the wrap at
+nv = 16 and at nv = 10 (650,138 constraints), and stops; the default run is
+the full check.
 """
 from __future__ import annotations
 
@@ -156,12 +182,15 @@ import numpy as np
 import torch
 
 from testudo_tpu_torch import native, proofs
-from testudo_tpu_torch.core import circuit, groth16, pst, r1cs, r1csproof, snark, sqrt_pst
+from testudo_tpu_torch.core import (circuit, circuit_verifier, groth16, groth16_bw6, pst, r1cs,
+                                   r1csproof, snark, sqrt_pst)
+from testudo_tpu_torch.curves import bw6_761 as bw
 from testudo_tpu_torch.curves import host_curve as hc
 from testudo_tpu_torch.curves import pairing as pr
 from testudo_tpu_torch.curves import profile as cprof
 from testudo_tpu_torch.device import build, msm
 from testudo_tpu_torch.device import curve as tc
+from testudo_tpu_torch.device import curve_generic as cg
 from testudo_tpu_torch.device import field as tf
 from testudo_tpu_torch.device import packed_field
 from testudo_tpu_torch.device import sponge as dsponge
@@ -169,6 +198,7 @@ from testudo_tpu_torch.device import sumcheck_kernels as sk
 from testudo_tpu_torch.device.field import FQ, FR
 from testudo_tpu_torch.device.packed_curve import G1P, G2P
 from testudo_tpu_torch.examples import cubic
+from testudo_tpu_torch.fields.bls12_377 import P as R_BW6  # BW6-761's scalar field
 from testudo_tpu_torch.fields.bls12_377 import R
 from testudo_tpu_torch.poly import dense
 from testudo_tpu_torch.poseidon import sponge
@@ -197,6 +227,9 @@ _REPLACES = {
     "mont_mul_rm_fq": "testudo_tpu/tpu/kernels.py:34",
     "mont_mul_rm_fr": "testudo_tpu/tpu/kernels.py:34",
     "mont_mul_rm_fr_full": "testudo_tpu/tpu/kernels.py:34",
+    # the 761-bit field: every product of tpu/curve_generic.py's FpGroup
+    # (tpu/field.py:292-295 sends batches of 512 or more to the Pallas call)
+    "mont_mul_rm_bw6fq": "testudo_tpu/tpu/pallas_field.py:226",
     "mont_chain": "tools/exp_montmul_block.py:114",
     "mont_chain_seq": "tools/exp_mulmany_wide.py:60",
     "mont_chain_wide": "tools/exp_mulmany_wide.py:60",
@@ -224,7 +257,7 @@ _REPLACES_ALSO = {
 _CSRC = "testudo_tpu_torch/csrc/"
 _SOURCE = {
     "mont_mul_rm_fq": "mont_mul_rm.cu", "mont_mul_rm_fr": "mont_mul_rm.cu",
-    "mont_mul_rm_fr_full": "mont_mul_rm.cu",
+    "mont_mul_rm_fr_full": "mont_mul_rm.cu", "mont_mul_rm_bw6fq": "mont_mul_rm.cu",
     "mont_chain": "mont_chain.cu", "mont_chain_seq": "mont_chain.cu",
     "mont_chain_wide": "mont_chain.cu",
     "mont_mul": "mont_mul.cu", "add_mask": "ec_ops.cu", "add2": "ec_ops.cu",
@@ -362,6 +395,18 @@ _SNARK_MUST = {
 for _path, _names in _SNARK_MUST.items():
     for _name in _names:
         MUST_LAUNCH[_name] += (_path,)
+# BW6-761 (the one-level wrap at nv = 16): every group operation of the
+# Groth16 setup's six fixed-base batches and of the prove's five msm_fp is
+# complete formulas over the 761-bit product (the prove's NTTs run on the Fq
+# row-major product)
+MUST_LAUNCH["mont_mul_rm_bw6fq"] = ("bw6_setup", "bw6_prove")
+MUST_LAUNCH["mont_mul_rm_fq"] += ("bw6_prove",)
+# the wrap's TestudoCommVerifier at each nv (constraints, variables, domain
+# log): counts of the circuit, the same on any hardware (the JAX package's
+# build_comm_verifier gives the same)
+BW6_SHAPES = {16: (983727, 983426, 20), 10: (650138, 649957, 20)}
+BW6_MSM_LANES = 120 * (1 << 13)  # 983,040: a key's width at nv = 16
+BW6_SMALL = 50  # points of the small-path check
 # A row that times a kernel at a second shape reads its launches from the
 # kernel's counter, on the paths that give it that shape.
 ROW_COUNTER = {"mont_mul_rm_fr_full": ("mont_mul_rm_fr",
@@ -1014,7 +1059,7 @@ def phase_nizk_golden(dev):
             f"(sha256 {fix['sat_proof_sha256'][:12]}...), both final sponge states equal, verified")
 
 
-def phase_nizk(dev, log2n: int):
+def phase_nizk(dev, log2n: int, warm: int = 3, profiled: bool = True):
     """TestudoNIZK on produce_synthetic_r1cs(2^log2n, 2^log2n, 10), as
     benches/testudo.py builds BASELINE config #3: proof size, codec round
     trip, verifier accepts and rejects two corruptions, exact host-int checks
@@ -1080,12 +1125,12 @@ def phase_nizk(dev, log2n: int):
         raise AssertionError(f"{what}: inst.evaluate(rx, ry) on the card differs from the host sum")
     host_s = time.perf_counter() - t0
 
-    # warm: three fused proves, then three looped ones (the last of each
+    # warm: `warm` fused proves, then as many looped ones (the last of each
     # counted), all byte-equal
     walls, splits, counts = {}, {}, {}
     for which, fn in (("fused", prove), ("looped", prove_looped)):
         walls[which], splits[which] = [], []
-        for i in range(3):
+        for i in range(warm):
             build.reset_launches()
             with timer.record() as rec:
                 (p2, _), ms = timed_once(fn)
@@ -1106,34 +1151,33 @@ def phase_nizk(dev, log2n: int):
     if ok is not True:
         raise AssertionError(f"{what}: the warm verify rejected")
 
-    # one more warm prove with the Poseidon permutations timed on the host
-    perm = [0.0, 0]
-    orig = sponge.PoseidonSponge.permute
+    perms, prof_lines, rounds = {}, {}, None
+    if profiled:
+        # one more warm prove with the Poseidon permutations timed on the host
+        perm = [0.0, 0]
+        orig = sponge.PoseidonSponge.permute
 
-    def timed_permute(self):
-        t = time.perf_counter()
-        orig(self)
-        perm[0] += time.perf_counter() - t
-        perm[1] += 1
+        def timed_permute(self):
+            t = time.perf_counter()
+            orig(self)
+            perm[0] += time.perf_counter() - t
+            perm[1] += 1
 
-    perms = {}
-    sponge.PoseidonSponge.permute = timed_permute
-    try:
-        for which, fn in (("fused", prove), ("looped", prove_looped)):
-            perm[:] = [0.0, 0]
-            _, ms = timed_once(fn)
-            perms[which] = (perm[0], perm[1], ms)
-    finally:
-        sponge.PoseidonSponge.permute = orig
-    # and under the profiler: the device's kernels, by count and time, by phase
-    # for both provers; the largest kernels and the row-major product's share
-    # for the fused one (the default)
-    prof_lines = {"fused": nizk_profile(prove) + "\n    " + nizk_phase_profile(prove),
-                  "looped": nizk_phase_profile(prove_looped)}
-    # and the round kernel's launches by shape with their device time
-    rounds = exp_sumcheck_round.prove_round_profile(prove)
-    by_shape = {k: [c["launches"], None if c["device_ms"] is None else round(c["device_ms"], 5)]
-                for k, c in rounds["by_shape"].items()}
+        sponge.PoseidonSponge.permute = timed_permute
+        try:
+            for which, fn in (("fused", prove), ("looped", prove_looped)):
+                perm[:] = [0.0, 0]
+                _, ms = timed_once(fn)
+                perms[which] = (perm[0], perm[1], ms)
+        finally:
+            sponge.PoseidonSponge.permute = orig
+        # and under the profiler: the device's kernels, by count and time, by
+        # phase for both provers; the largest kernels and the row-major
+        # product's share for the fused one (the default)
+        prof_lines = {"fused": nizk_profile(prove) + "\n    " + nizk_phase_profile(prove),
+                      "looped": nizk_phase_profile(prove_looped)}
+        # and the round kernel's launches by shape with their device time
+        rounds = exp_sumcheck_round.prove_round_profile(prove)
 
     nz = lambda d: {k: v for k, v in d.items() if v}
     say(f"{what} ({n} constraints, {n} variables, {NIZK_INPUTS} inputs): sat proof {len(blob)} B, "
@@ -1155,9 +1199,14 @@ def phase_nizk(dev, log2n: int):
             f"{secs:.4f} s (that prove {ms / 1e3:.4f} s)")
     for which, line in prof_lines.items():
         say(f"  {what} {which} {line}")
-    say(f"  {what} k_sumcheck_round in one warm fused prove (torch.profiler): {rounds['launches']} "
-        f"launches, {rounds['device_ms']:.5f} ms of device time; by shape [launches, device ms]: "
-        f"{json.dumps(by_shape)}")
+    if rounds is not None:
+        by_shape = {k: [c["launches"], None if c["device_ms"] is None else round(c["device_ms"], 5)]
+                    for k, c in rounds["by_shape"].items()}
+        say(f"  {what} k_sumcheck_round in one warm fused prove (torch.profiler): "
+            f"{rounds['launches']} launches, {rounds['device_ms']:.5f} ms of device time; by shape "
+            f"[launches, device ms]: {json.dumps(by_shape)}")
+    else:
+        say(f"  {what} not profiled in this run")
     say(f"  {what} launches of the fused sumcheck's kernels in one warm prove: "
         f"{json.dumps({k: counts_prove[k] for k in FUSED_KERNELS})}")
     say(f"  {what} launches, one warm fused prove: {json.dumps(nz(counts_prove))}")
@@ -1515,6 +1564,261 @@ def phase_snark(dev, log2n: int, profiled: bool = True, groth16_part: bool = Tru
     for path, counts in by_path.items():
         say(f"  {what} launches, {path}: {json.dumps(nz(counts))}")
     return by_path
+
+
+# ---------------------------------------------------------------------------
+# BW6-761: the one-level wrap (device/curve_generic.py, msm_fp,
+# core/circuit_verifier.py, core/groth16_bw6.py)
+# ---------------------------------------------------------------------------
+
+
+def bw6_groups():
+    return (("g1", cg.bw6_g1(), bw.g1_generator, bw.g1_add, bw.g1_mul),
+            ("g2", cg.bw6_g2(), bw.g2_generator, bw.g2_add, bw.g2_mul))
+
+
+def phase_bw6_msm(dev):
+    """msm_fp on BW6 G1 and G2 at a key's width: 2^13 bases k_i * G with
+    known 20-bit k_i (one fixed_base_mul), tiled to BW6_MSM_LANES, times
+    random scalars below r (24 limbs); the result is checked exactly as one
+    host multiplication of G by sum k_i s_i mod r.  Cold and warm calls are
+    timed.  Then one MSM of the small path (50 points, G1) against a host MSM."""
+    rng = np.random.default_rng(61)
+    reps = BW6_MSM_LANES // N_UNIQUE
+    ks = [int(k) for k in rng.integers(1, 1 << 20, size=N_UNIQUE)]
+    scal = rng.integers(0, 1 << 16, size=(BW6_MSM_LANES, FQ.nlimbs), dtype=np.int64)
+    scal[:, -1] &= 0x00FF  # 376-bit scalars, all below r
+    sums = scal.reshape(reps, N_UNIQUE, FQ.nlimbs).sum(axis=0)
+    dlog = sum(sum(int(v) << (16 * i) for i, v in enumerate(row)) * k
+               for row, k in zip(sums, ks)) % R_BW6
+    st = torch.as_tensor(scal.astype(np.int32), device=dev)
+    ks_t = torch.as_tensor(FQ.to_limbs(ks), device=dev)
+    out = {}
+    for name, G, gen, add, mul in bw6_groups():
+        (uniq, fb_ms) = timed_once(lambda: cg.fixed_base_mul(G, ks_t, gen(), add))
+        if G.to_affine_host(tuple(c[:2] for c in uniq)) != [mul(gen(), k) for k in ks[:2]]:
+            raise AssertionError(f"BW6 {name}: fixed_base_mul differs from the host")
+        bases = tuple(c.repeat(reps, 1) for c in uniq)
+        want = mul(gen(), dlog)
+        got, cold = timed_once(lambda: msm.msm_fp(G, add, bases, st))
+        got2, warm = timed_once(lambda: msm.msm_fp(G, add, bases, st))
+        if got != want or got2 != want:
+            raise AssertionError(f"BW6 {name}: msm_fp differs from the host at {BW6_MSM_LANES}")
+        small_ms = None
+        if name == "g1":  # one MSM of the small path against a host MSM
+            pts = [mul(gen(), int(k)) for k in rng.integers(1, 1 << 62, size=BW6_SMALL)]
+            ss = [int.from_bytes(rng.bytes(48), "little") % R_BW6 for _ in range(BW6_SMALL)]
+            small, small_ms = timed_once(lambda: msm.msm_fp(
+                G, add, G.from_affine_host(pts, device=dev),
+                torch.as_tensor(FQ.to_limbs(ss), device=dev)))
+            acc = None
+            for p_, s_ in zip(pts, ss):
+                acc = add(acc, mul(p_, s_))
+            if small != acc:
+                raise AssertionError(f"BW6 {name}: the small path of msm_fp differs from the host")
+        out[name] = {"lanes": BW6_MSM_LANES, "cold_s": cold / 1e3, "warm_s": warm / 1e3,
+                     "small_ms": small_ms, "fixed_base_2^13_ms": fb_ms}
+        tail = "" if small_ms is None else (
+            f"; the small path ({BW6_SMALL} points) = host MSM, {small_ms:.1f} ms")
+        say(f"BW6 {name}: msm_fp at {BW6_MSM_LANES} = host (G * sum k_i s_i), cold "
+            f"{cold / 1e3:.3f} s, warm {warm / 1e3:.3f} s{tail}; fixed_base_mul of 2^13 bases "
+            f"{fb_ms:.1f} ms")
+        del bases
+    return out
+
+
+def _toy_fq_circuit(x: int, y: int):
+    """public x and x * y + 3, witness y (tests/test_groth16_bw6.py:16-25)."""
+    cs = circuit.ConstraintSystem(modulus=R_BW6)
+    xv = cs.alloc_input(x)
+    out = cs.alloc_input((x * y + 3) % R_BW6)
+    yv = cs.alloc_witness(y)
+    cs.enforce_equal(cs.mul(xv, yv) + 3, out)
+    return cs
+
+
+def phase_bw6_toy(dev):
+    """The toy Fq circuit proved over BW6 on the card: verify accepts, the
+    public input + 1 is rejected."""
+    rng = random.Random(19)
+    cs = _toy_fq_circuit(rng.randrange(R_BW6), rng.randrange(R_BW6))
+    t0 = time.time()
+    pk, vk = groth16_bw6.setup(cs, device=dev)
+    t1 = time.time()
+    proof = groth16_bw6.prove(pk, cs, rng=random.Random(3))
+    t2 = time.time()
+    pub = cs.public_inputs()
+    bad = [pub[0], (pub[1] + 1) % R_BW6]
+    if not groth16_bw6.verify(vk, pub, proof) or groth16_bw6.verify(vk, bad, proof):
+        raise AssertionError("BW6 toy circuit: verify does not accept the proof or accepts x*y+4")
+    say(f"BW6 toy circuit (3 public, 2 constraints): setup {t1 - t0:.2f} s, prove "
+        f"{t2 - t1:.2f} s, verify accepts, the public input + 1 is rejected")
+
+
+def bw6_key_spot_checks(pk, vk, sc):
+    """8 lanes of each key batch and every gamma_abc point against the host's
+    multiples of the generators by the setup's scalars."""
+    g1, g2 = bw.g1_generator(), bw.g2_generator()
+    G1, G2 = cg.bw6_g1(), cg.bw6_g2()
+    for name, scal, G, gen, mul in (("a_query", sc.a, G1, g1, bw.g1_mul),
+                                    ("b_g1_query", sc.b, G1, g1, bw.g1_mul),
+                                    ("b_g2_query", sc.b, G2, g2, bw.g2_mul),
+                                    ("h_query", sc.h, G1, g1, bw.g1_mul),
+                                    ("l_query", sc.l, G1, g1, bw.g1_mul)):
+        batch = getattr(pk, name)
+        if batch[0].shape[0] != len(scal):
+            raise AssertionError(f"BW6 {name}: {batch[0].shape[0]} lanes for {len(scal)} scalars")
+        lanes = sorted({0, 1, len(scal) - 1, *np.linspace(0, len(scal) - 1, 5).astype(int)})
+        idx = torch.as_tensor(lanes, device=batch[0].device)
+        got = G.to_affine_host(tuple(c.index_select(0, idx) for c in batch))
+        if got != [mul(gen, scal[i]) for i in lanes]:
+            raise AssertionError(f"BW6 {name}: key lanes differ from the host's multiples")
+    if vk.gamma_abc_g1 != [bw.g1_mul(g1, s) for s in sc.gamma_abc]:
+        raise AssertionError("BW6 gamma_abc differs from the host's multiples")
+
+
+def phase_bw6_wrap(dev, nv: int):
+    """The fork's wrap at full width (tests/test_groth16_bw6.py:50-70 at nv):
+    a sqrt-PST commit and open of a random 2^nv table on the card with the Fq
+    transcript, the port's verifier accepts; build_comm_verifier, satisfied,
+    its shape printed and held to BW6_SHAPES; groth16_bw6 setup (the keys
+    spot-checked against the host), prove, verify; -C and another A are
+    rejected.  Timed by Timer labels; the launches of the setup and of the
+    prove are counted (paths bw6_setup, bw6_prove)."""
+    pf = cprof.bls12_377(dev)
+    rng = random.Random(57 + nv)
+    t0 = time.time()
+    ck, vk_pst = pst.setup(nv // 2 + nv % 2, profile=pf)
+    Z = [rng.randrange(R) for _ in range(1 << nv)]
+    point = [rng.randrange(R) for _ in range(nv)]
+    pl = sqrt_pst.Polynomial.from_evaluations(dense.encode_table(Z, device=dev), pf)
+    v = pl.eval(point)
+    comm, T = pl.commit(ck)
+    U, pst_proof, mipp_proof = pl.open(PoseidonTranscript(fq_params()), comm, ck, point, T)
+    if not sqrt_pst.verify(PoseidonTranscript(fq_params()), vk_pst, U, point, v, pst_proof,
+                           mipp_proof, T):
+        raise AssertionError(f"BW6 wrap nv={nv}: the sqrt-PST opening does not verify")
+    t_open = time.time() - t0
+    t0 = time.time()
+    cs = circuit_verifier.build_comm_verifier(vk_pst, U, point, v, pst_proof, mipp_proof, T)
+    t_build = time.time() - t0
+    t0 = time.time()
+    if not cs.is_satisfied():
+        raise AssertionError(f"BW6 wrap nv={nv}: the comm-verifier system is not satisfied")
+    t_sat = time.time() - t0
+    m = groth16_bw6._domain_size(cs)
+    shape = (len(cs.constraints), len(cs.values), m.bit_length() - 1)
+    say(f"BW6 wrap nv={nv}: sqrt-PST commit + open + verify on the card {t_open:.1f} s; "
+        f"TestudoCommVerifier {shape[0]} constraints, {shape[1]} variables, "
+        f"{len(cs.public_inputs())} public inputs, domain 2^{shape[2]}; build {t_build:.1f} s, "
+        f"is_satisfied {t_sat:.1f} s")
+    if shape != BW6_SHAPES[nv] or cs.public_inputs():
+        raise AssertionError(f"BW6 wrap nv={nv}: shape {shape}, expected {BW6_SHAPES[nv]}")
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.time()
+    with timer.record() as rec:
+        tl = timer.Timer("groth16_bw6::lagrange")  # setup's own label, its scalars kept
+        sc = groth16_bw6.setup_scalars(cs)
+        tl.stop()
+        pk, vk = groth16_bw6.setup(cs, device=dev, scalars=sc)
+    torch.cuda.synchronize()
+    t_setup = time.time() - t0
+    counts_setup = dict(build.LAUNCHES)
+    setup_split = _split(rec)
+    bw6_key_spot_checks(pk, vk, sc)
+    del sc
+    build.reset_launches()
+    t0 = time.time()
+    with timer.record() as rec:
+        proof = groth16_bw6.prove(pk, cs, rng=random.Random(nv))
+    torch.cuda.synchronize()
+    t_prove = time.time() - t0
+    counts_prove = dict(build.LAUNCHES)
+    prove_split = _split(rec)
+    t0 = time.time()
+    ok = groth16_bw6.verify(vk, [], proof)
+    t_verify = time.time() - t0
+    neg_c = groth16_bw6.Proof(proof.a, proof.b, bw.g1_neg(proof.c))
+    other_a = groth16_bw6.Proof(bw.g1_add(proof.a, bw.g1_generator()), proof.b, proof.c)
+    if not ok or groth16_bw6.verify(vk, [], neg_c) or groth16_bw6.verify(vk, [], other_a):
+        raise AssertionError(f"BW6 wrap nv={nv}: verify does not accept, or accepts -C / another A")
+    res = {"nv": nv, "constraints": shape[0], "variables": shape[1], "public_inputs": 0,
+           "domain_log": shape[2], "open_s": t_open, "circuit_build_s": t_build,
+           "is_satisfied_s": t_sat, "setup_s": t_setup, "setup_split": setup_split,
+           "prove_s": t_prove, "prove_split": prove_split, "verify_s": t_verify,
+           "launches_setup": {k: n for k, n in counts_setup.items() if n},
+           "launches_prove": {k: n for k, n in counts_prove.items() if n}}
+    say(f"BW6 wrap nv={nv}: setup {t_setup:.1f} s {json.dumps(setup_split)}; key lanes = host "
+        f"multiples; prove {t_prove:.1f} s {json.dumps(prove_split)}; verify {t_verify:.2f} s "
+        f"accepts, -C and another A rejected")
+    say(f"  launches: setup {json.dumps(res['launches_setup'])}, prove "
+        f"{json.dumps(res['launches_prove'])}")
+    say("BW6 wrap " + json.dumps(res))
+    del pk, vk, cs
+    torch.cuda.empty_cache()
+    return {"bw6_setup": counts_setup, "bw6_prove": counts_prove}
+
+
+def kernels_bw6(dev, rep: Report, quick: bool):
+    """The 761-bit row-major product against its plain version at the
+    path's shapes: a complete add's six stacked products over 2^20 lanes
+    (the MSM's bucket slices; the setup's are the key width), the b3 pair
+    with one shared operand, the weighted sum's 384 lanes, and a ragged
+    2^16 + ODD with 0, 1, q - 1, R mod q and r mixed in.  Its time at 2^20
+    elements (torch.profiler, L2 flushed, and warm) beside bound_ms and the
+    latency of one dependent product at one warp (the 48-limb chain)."""
+    S = cg.FQ761
+    q = S.modulus
+    lanes = (1 << 12) if quick else (1 << 20)
+    rng = np.random.default_rng(77)
+
+    def rows(shape):
+        v = rng.integers(0, 1 << 16, size=shape + (S.nlimbs,), dtype=np.int64)
+        v[..., -1] &= 0x00FF  # below q
+        return torch.as_tensor(v.astype(np.int32), device=dev)
+
+    edges = torch.as_tensor(S.to_limbs([0, 1, q - 1, S.r_mod_p, R_BW6]), device=dev)
+    cases = []
+    for shape, shared in (((6, lanes), False), ((2, lanes), True), ((6, 384), False),
+                          (((1 << 16) + ODD,), False)):
+        a, b = rows(shape), rows(shape)
+        flat_a, flat_b = a.view(-1, S.nlimbs), b.view(-1, S.nlimbs)
+        flat_a[:5], flat_b[:5] = edges, edges.flip(0)
+        if shared:
+            b = b.reshape(-1, S.nlimbs)[3].clone()
+        cases.append((shape, shared, a, b))
+    got, want = [], []
+    for shape, shared, a, b in cases:
+        got.append(tf.mont_mul(S, a, b))
+        want.append(tf.mont_mul_plain(S, a, b))
+    n = 1 << 16 if quick else 1 << 20
+    a, b = rows((n,)), rows((n,))
+    flush = exp_mont_rm.l2_flusher(dev)
+    out = torch.empty_like(a)
+    raw = lambda: build.launch("mont_mul_rm", a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                               S.nlimbs, n, 0, counted_as="mont_mul_rm_bw6fq")
+    raw()
+    if not torch.equal(out, tf.mont_mul_plain(S, a, b)):
+        raise AssertionError("mont_mul_rm_bw6fq: the raw launch differs from the plain version")
+    ms = exp_mont_rm.profiled_ms(raw, exp_mont_rm.KERNEL, flush=flush)
+    if ms is None:
+        raise AssertionError("torch.profiler saw no device time of the 761-bit product")
+    l2_ms = exp_mont_rm.profiled_ms(raw, exp_mont_rm.KERNEL)
+    raw_ms = exp_mont_rm.events_ms(raw)
+    plain_ms = time_ms(lambda: tf.mont_mul_plain(S, a, b), 1)
+    lat = exp_montmul.measure_latency(S, dev)["inline"]["us_per_product"]
+    madd = exp_montmul.madds_per_product(S)
+    label = (f"({n}, 48) bw6fq, two full operands; compared at "
+             + ", ".join(f"{tuple(s) + (48,)}{' shared b' if sh else ''}" for s, sh, _, _ in cases))
+    rep.add("mont_mul_rm_bw6fq", got, want, ms, plain_ms, 3 * S.nlimbs * 4 * n, madd * n, label)
+    ptx = [ln for ln in build.build_report()["ptxas"] if "Fq761" in ln]
+    rep.rows["mont_mul_rm_bw6fq"].update({
+        "kernel_l2_ms": l2_ms, "raw_ms": raw_ms, "latency_bound_ms": lat / 1e3,
+        "library_ms": None, "ptxas": ptx})
+    say(f"  761-bit product at 2^{n.bit_length() - 1}: L2-warm {l2_ms:.4f} ms, raw launches "
+        f"{raw_ms:.4f} ms; one dependent product at one warp {lat:.3f} us; "
+        + "; ".join(ptx))
 
 
 def phase_harness(dev):
@@ -2495,6 +2799,9 @@ def main(argv=None) -> int:
                     help="build, check and time TestudoNIZK at 2^16 and 2^20, stop")
     ap.add_argument("--snark-only", action="store_true",
                     help="build, check and time TestudoSNARK at 2^12, 2^16 and 2^20, stop")
+    ap.add_argument("--bw6-only", action="store_true",
+                    help="build, check and time the 761-bit product, msm_fp and the BW6 wrap "
+                         "at nv = 16 and 10, stop")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the GPU", file=sys.stderr)
@@ -2520,6 +2827,16 @@ def main(argv=None) -> int:
         return 0
     g1, g2 = GROUPS["g1"], GROUPS["g2"]
     rep = Report()
+    if args.bw6_only:
+        kernels_bw6(dev, rep, quick=False)
+        phase_bw6_msm(dev)
+        phase_bw6_toy(dev)
+        for nv in (16, 10):
+            phase_bw6_wrap(dev, nv)
+            say(f"BW6 wrap nv={nv} done ({time.time() - t_start:.1f} s)")
+        say(json.dumps({"kernels": list(rep.rows.values())}))
+        say("bw6-only pass done; run without arguments for the full check")
+        return 0
 
     proj, affine, ks = {}, {}, {}
     for grp in (g1, g2):
@@ -2537,6 +2854,7 @@ def main(argv=None) -> int:
         kernels_rowmajor(dev, rep, quick=True)
         kernels_chain(dev, rep, quick=True)
         kernels_sumcheck(dev, rep, lat_us, lat_fr, quick=True)
+        kernels_bw6(dev, rep, quick=True)
         phase_nizk_golden(dev)
         phase_sqrt_pst(dev, 10, full=False)
         for grp in (g1, g2):
@@ -2577,10 +2895,10 @@ def main(argv=None) -> int:
         note("fixed_base", phase_fixed_base(dev, grp))
         phase_small_msms(dev, grp, affine[grp.name], ks[grp.name])
         note("field", phase_field_path(dev, grp, proj[grp.name]))
+    say(f"group layer done ({time.time() - t_start:.1f} s)")
 
-    # the protocol path: sqrt-PST at two small sizes, then at full width
+    # the protocol path: sqrt-PST at a small size, then at full width
     phase_sqrt_pst(dev, 10, full=False)
-    phase_sqrt_pst(dev, 14, full=False)
     pst_counts, canon, basis = phase_sqrt_pst(dev, 20, full=True)
     for path, snap in pst_counts.items():
         note(path, snap)
@@ -2588,39 +2906,61 @@ def main(argv=None) -> int:
 
     # the protocol on top: TestudoNIZK, the golden proof, then config #3 at 2^16
     phase_nizk_golden(dev)
-    for path, snap in phase_nizk(dev, 16).items():
+    # one warm prove of each kind and no profiled proves (three, profiled, with
+    # --nizk-only): the default run's time limit holds the BW6 wrap too
+    for path, snap in phase_nizk(dev, 16, warm=1, profiled=False).items():
         note(path, snap)
     say(f"NIZK done ({time.time() - t_start:.1f} s)")
 
-    # TestudoSNARK: without Groth16 the small instance against the CPU and
-    # config #4 at 2^12 (its 57,905-B anchor; one prove); the cubic twin; then
-    # with Groth16 config #4 at 2^12 and at 2^16 (the paths counted at 2^16)
+    # TestudoSNARK: without Groth16 the small instance against the CPU; the
+    # cubic twin; with Groth16 config #4 at 2^16 (the paths counted there), one
+    # warm prove, not profiled (`--snark-only` adds 2^12 with and without
+    # Groth16, 2^20, three warm proves and the profiles: the default run's time
+    # limit holds the BW6 wrap too)
     t_snark = time.time()
     phase_snark_small(dev)
-    phase_snark(dev, 12, profiled=False, groth16_part=False, warm=0)
     phase_cubic(dev)
-    phase_snark(dev, 12, profiled=False)
-    for path, snap in phase_snark(dev, 16).items():
+    for path, snap in phase_snark(dev, 16, profiled=False, warm=1).items():
         note(path, snap)
     say(f"SNARK done in {time.time() - t_snark:.1f} s ({time.time() - t_start:.1f} s)")
 
+    # BW6-761: msm_fp at a key's width and the small path, the toy Fq
+    # circuit, then the one-level wrap of a 2^16 table's opening (paths
+    # bw6_setup and bw6_prove)
+    t_bw6 = time.time()
+    phase_bw6_msm(dev)
+    phase_bw6_toy(dev)
+    for path, snap in phase_bw6_wrap(dev, 16).items():
+        note(path, snap)
+    say(f"BW6 done in {time.time() - t_bw6:.1f} s ({time.time() - t_start:.1f} s)")
+
     # the measuring harness: the chain kernels' own path
     note("harness", phase_harness(dev))
+    say(f"harness done ({time.time() - t_start:.1f} s)")
 
     # every kernel against its plain version.  G1 buckets: compared and timed
     # at the 2^20 plan.  G2 buckets: compared at the 2^16 plan (the plain
     # version would walk 80,000 lanes through 512 G2 adds at 2^20), timed at
     # the 2^20 plan.
+    def lap(what):
+        say(f"{what} done ({time.time() - t_start:.1f} s)")
+
     kernels_montgomery(dev, rep, quick=False)
     kernels_rowmajor(dev, rep, quick=False)
     kernels_chain(dev, rep, quick=False)
+    lap("kernels: Montgomery, row-major, chain")
     kernels_sumcheck(dev, rep, lat_us, lat_fr, quick=False)
+    lap("kernels: sumcheck")
+    kernels_bw6(dev, rep, quick=False)
+    lap("kernels: 761-bit product")
     kernels_group(dev, g1, rep, proj["g1"], *batches["g1", 20], *batches["g1", 20], lat_us,
                   quick=False)
+    lap("kernels: G1")
     kernels_commit_bucket(dev, rep, canon, basis)
     del canon, basis
     kernels_group(dev, g2, rep, proj["g2"], *batches["g2", 16], *batches["g2", 20], lat_us,
                   quick=False)
+    lap("kernels: commit bucket, G2")
 
     for name, row in rep.rows.items():
         ctr, paths = ROW_COUNTER.get(name, (name, tuple(by_path)))

@@ -19,6 +19,7 @@ import torch
 from testudo_tpu_torch.curves import host_curve as hc
 from testudo_tpu_torch.device import build, packed_field
 from testudo_tpu_torch.device import curve as tc
+from testudo_tpu_torch.device.curve_generic import FQ761
 from testudo_tpu_torch.device.field import FQ, FR
 from testudo_tpu_torch.device.packed_curve import G1P, G2P, longest_first
 from testudo_tpu_torch.fields.bls12_377 import P, R
@@ -44,9 +45,11 @@ def test_constant_tables_match_the_fields_module():
     assert _value(_words("FQ_P")) == P and len(_words("FQ_P")) == 12
     assert _value(_words("FR_P")) == R and len(_words("FR_P")) == 8
     assert _value(_words("FQ_ONE")) == (1 << 384) % P == FQ.r_mod_p
+    assert _value(_words("FQ761_P")) == FQ761.modulus and len(_words("FQ761_P")) == 24
     text = (build.CSRC / "fp.cuh").read_text()
     invs = [int(v, 16) for v in re.findall(r"INV = (0x[0-9a-f]+)u", text)]
-    assert invs == [(-pow(P, -1, 1 << 32)) % (1 << 32), (-pow(R, -1, 1 << 32)) % (1 << 32)]
+    assert invs == [(-pow(q, -1, 1 << 32)) % (1 << 32) for q in (P, R, FQ761.modulus)]
+    assert invs[2] == 0x8FA798DD  # q761 is not 1 mod 2^32: its INV is no all-ones word
 
 
 def test_b3k_table_matches_the_curve_constant():
@@ -224,6 +227,49 @@ def test_device_mont_chain_bodies_equal_plain(host_lib, spec):
     assert rc == 0 and torch.equal(out, packed_field.mont_mul_chain_plain(spec, a[0], b[0], K))
     rc = host_lib.host_mont_chain_group(_ptr(a), _ptr(b), _ptr(out), nl, 2, ctypes.c_long(L), K, 0, 1)
     assert rc == -1  # the seq body is built for groups of six
+
+
+def test_device_row_major_mont_mul_761_equals_plain(host_lib):
+    """The 761-bit field (48 limbs) in csrc/mont_mul_rm.cu: the narrow body
+    (the only form the launcher gives this field) on two full operands and
+    on a shared second operand, a ragged length, edge values; the tiled form
+    is refused."""
+    n = 67
+    nl = ctypes.c_int(FQ761.nlimbs)
+    a = torch.from_numpy(FQ761.to_limbs(_elements(FQ761, n, 76)))
+    b = torch.from_numpy(FQ761.to_limbs(_elements(FQ761, n, 77)[::-1]).copy())
+    one = b[5].clone()
+    out = torch.full_like(a, -1)
+    rc = host_lib.host_mont_mul_rm(_ptr(a), _ptr(b), _ptr(out), nl, ctypes.c_long(n), 0,
+                                   ctypes.c_long(0))
+    want = packed_field.mont_mul_rm_plain(FQ761, a, b)
+    assert rc == 0 and torch.equal(out, want)
+    rinv = pow(FQ761.mont_r, -1, FQ761.modulus)
+    assert FQ761.from_limbs(out) == [x * y * rinv % FQ761.modulus for x, y in
+                                     zip(FQ761.from_limbs(a), FQ761.from_limbs(b))]
+    rc = host_lib.host_mont_mul_rm(_ptr(a), _ptr(one), _ptr(out), nl, ctypes.c_long(n), 1,
+                                   ctypes.c_long(0))
+    assert rc == 0 and torch.equal(out, packed_field.mont_mul_rm_plain(FQ761, a, one))
+    for grid in (1, 2):
+        assert host_lib.host_mont_mul_rm(_ptr(a), _ptr(b), _ptr(out), nl, ctypes.c_long(n), 0,
+                                         ctypes.c_long(grid)) == -2
+
+
+def test_device_mont_chain_761_equals_plain(host_lib):
+    """The 761-bit chain of csrc/mont_chain.cu (its latency harness): both
+    formulations of the product on (48, L); grouped chains are refused."""
+    L, K = 7, 4
+    a = torch.from_numpy(FQ761.to_limbs(_elements(FQ761, L, 78)).T.copy())
+    b = torch.from_numpy(FQ761.to_limbs(_elements(FQ761, L, 79)).T.copy())
+    want = packed_field.mont_mul_chain_plain(FQ761, a, b, K)
+    nl = ctypes.c_int(FQ761.nlimbs)
+    for inline_body in (0, 1):
+        out = torch.full_like(a, -1)
+        rc = host_lib.host_mont_chain_group(_ptr(a), _ptr(b), _ptr(out), nl, 1, ctypes.c_long(L),
+                                            K, 1, inline_body)
+        assert rc == 0 and torch.equal(out, want), inline_body
+    assert host_lib.host_mont_chain_group(_ptr(a), _ptr(b), _ptr(out), nl, 2, ctypes.c_long(L),
+                                          K, 1, 1) == -1
 
 
 def test_device_add2_equals_plain(host_lib, batches):

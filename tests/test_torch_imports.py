@@ -46,7 +46,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     )
     assert out.returncode == 0, out.stderr
     lines = dict(l.split(" ", 1) for l in out.stdout.strip().splitlines())
-    assert int(lines["MODULES"]) >= 54
+    assert int(lines["MODULES"]) >= 64
     assert lines["BAD"] == "[]"
     # the native host library, where one was loaded, is the port's own build
     build_dir = os.path.join(REPO, "testudo_tpu_torch", "_build") + os.sep
@@ -64,7 +64,9 @@ def test_new_modules_are_all_there():
                  "utils.timer", "tools.exp_montmul", "poly.unipoly", "core.sumcheck",
                  "core.r1cs", "core.r1csproof", "core.snark", "core.errors", "core.commitments",
                  "core.nizk", "core.polycommit", "core.product_tree", "core.spark",
-                 "core.circuit", "core.ntt", "core.groth16", "examples.cubic"):
+                 "core.circuit", "core.ntt", "core.groth16", "examples.cubic",
+                 "fields.bw6_761", "curves.bw6_761", "device.curve_generic",
+                 "core.circuit_verifier", "core.groth16_bw6", "tools.exp_bw6"):
         importlib.import_module("testudo_tpu_torch." + name)
 
 
@@ -131,6 +133,38 @@ def test_snark_entry_points_default_to_cuda_and_raise_without_a_card():
     inst, _, _ = r1cs.R1CSInstance.produce_synthetic_r1cs(4, 4, 1)
     with pytest.raises((RuntimeError, AssertionError)):
         spark.multi_sparse_to_dense_rep([inst.A, inst.B, inst.C])
+
+
+def test_bw6_entry_points_default_to_cuda_and_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device works")
+    import inspect
+
+    from testudo_tpu_torch import convert
+    from testudo_tpu_torch.core import groth16_bw6
+    from testudo_tpu_torch.core.circuit import ConstraintSystem
+    from testudo_tpu_torch.curves import bw6_761 as bw
+    from testudo_tpu_torch.device import curve_generic as cg
+    from testudo_tpu_torch.fields.bls12_377 import P
+
+    cuda = torch.device("cuda")
+    G = cg.bw6_g1()
+    for fn in (groth16_bw6.setup, G.from_affine_host, G.identity,
+               convert.bw6_points_from_reference, convert.bw6_groth16_keys_from_reference):
+        assert inspect.signature(fn).parameters["device"].default == cuda, fn
+    with pytest.raises((RuntimeError, AssertionError)):
+        G.from_affine_host([bw.g1_generator()])
+    cs = ConstraintSystem(modulus=P)
+    cs.alloc_witness(3)
+    with pytest.raises((RuntimeError, AssertionError)):
+        groth16_bw6.setup(cs)  # the key batches live on the card
+    # a 48-limb CUDA tensor reaches the kernel or raises: the wrapper asks for
+    # the CUDA runtime before anything else
+    from testudo_tpu_torch.device import packed_field
+
+    with pytest.raises((RuntimeError, AssertionError, TypeError)):
+        packed_field.mont_mul_rm(cg.FQ761, torch.zeros((2, 48), dtype=torch.int32, device=cuda),
+                                 torch.zeros((2, 48), dtype=torch.int32, device=cuda))
 
 
 def test_no_port_source_mentions_the_jax_imports():

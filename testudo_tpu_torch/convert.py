@@ -20,7 +20,9 @@ entries (host arrays and ints), R1CS proofs by their components, so that
 both packages prove one instance and each verifies the other's proof.
 Groth16's keys carry across by their host points and their batches (the
 reference's limb pytrees, the port's batches on either backend), its proofs
-and the SNARK's verifier proof by their components.
+and the SNARK's verifier proof by their components.  So do the keys and
+proofs of the BW6-761 wrap (core/groth16_bw6.py), whose host points are int
+pairs in both packages and whose batches are (N, 48) limb triples.
 """
 from __future__ import annotations
 
@@ -485,3 +487,74 @@ def groth16_keys_to_reference(pk, vk, towers, groth16_module):
         num_pub=pk.num_pub, num_vars=pk.num_vars, domain_log=pk.domain_log,
         **{n: _point_from(getattr(pk, n), towers) for n in _PK_HOST}, **batches, vk=rvk)
     return rpk, rvk
+
+
+# -- BW6-761 (the one-level Groth16 wrap) -------------------------------------------
+
+
+def _bw6_spec():
+    from .device.curve_generic import FQ761
+
+    return FQ761
+
+
+def bw6_points_from_reference(coords, device=torch.device("cuda")):
+    """The JAX package's BW6-761 projective batch, (X, Y, Z) of (N, 48)
+    uint32 limb arrays (G1 and G2 alike: both are over the 761-bit field),
+    -> the port's int32 tensors on `device`."""
+    if len(coords) != 3:
+        raise ValueError("a point batch is an (X, Y, Z) triple")
+    n = _bw6_spec().nlimbs
+    return tuple(torch.as_tensor(_limbs_in(c, n, "BW6 point coordinate"), device=device)
+                 for c in coords)
+
+
+def bw6_points_to_reference(points):
+    """Inverse of bw6_points_from_reference: numpy uint32 arrays."""
+    return tuple(_limbs_out(c) for c in points)
+
+
+def _bw6_point(pt):
+    return None if pt is None else (int(pt[0]), int(pt[1]))
+
+
+_BW6_BATCHES = ("a_query", "b_g1_query", "b_g2_query", "h_query", "l_query")
+
+
+def _bw6_keys(pk, vk, vk_cls, pk_cls, batch):
+    """One package's BW6 Groth16 keys in the other's classes: host points
+    (int pairs in both) copied, batches through `batch` (None stays None)."""
+    out_vk = vk_cls(**{n: _bw6_point(getattr(vk, n)) for n in _VK_HOST},
+                    gamma_abc_g1=[_bw6_point(p) for p in vk.gamma_abc_g1])
+    out_pk = pk_cls(
+        num_pub=int(pk.num_pub), num_vars=int(pk.num_vars), domain_log=int(pk.domain_log),
+        **{n: _bw6_point(getattr(pk, n)) for n in _PK_HOST},
+        **{n: None if getattr(pk, n) is None else batch(getattr(pk, n)) for n in _BW6_BATCHES},
+        vk=out_vk)
+    return out_pk, out_vk
+
+
+def bw6_groth16_keys_from_reference(pk, vk, device=torch.device("cuda")):
+    """The reference's core.groth16_bw6 (`ProvingKey`, `VerifyingKey`) as the
+    port's, the key batches on `device`."""
+    from .core import groth16_bw6
+
+    return _bw6_keys(pk, vk, groth16_bw6.VerifyingKey, groth16_bw6.ProvingKey,
+                     lambda b: bw6_points_from_reference(b, device=device))
+
+
+def bw6_groth16_keys_to_reference(pk, vk, groth16_bw6_module):
+    """The port's BW6 Groth16 keys in the reference's classes
+    (`groth16_bw6_module` is its core.groth16_bw6), batches as numpy uint32."""
+    return _bw6_keys(pk, vk, groth16_bw6_module.VerifyingKey, groth16_bw6_module.ProvingKey,
+                     bw6_points_to_reference)
+
+
+def bw6_groth16_proof_from_reference(proof):
+    from .core import groth16_bw6
+
+    return groth16_bw6.Proof(*(_bw6_point(p) for p in (proof.a, proof.b, proof.c)))
+
+
+def bw6_groth16_proof_to_reference(proof, proof_cls):
+    return proof_cls(*(_bw6_point(p) for p in (proof.a, proof.b, proof.c)))

@@ -85,25 +85,25 @@ def _domain_size(cs: ConstraintSystem) -> int:
     return 1 << max(1, (len(cs.constraints) + cs.num_pub - 1).bit_length())
 
 
-def _batch_inv(vals: List[int]) -> List[int]:
+def _batch_inv(vals: List[int], modulus: int = R) -> List[int]:
     pref = [1] * (len(vals) + 1)
     for i, v in enumerate(vals):
-        pref[i + 1] = pref[i] * v % R
-    total_inv = pow(pref[-1], -1, R)
+        pref[i + 1] = pref[i] * v % modulus
+    total_inv = pow(pref[-1], -1, modulus)
     out = [0] * len(vals)
     for i in range(len(vals) - 1, -1, -1):
-        out[i] = pref[i] * total_inv % R
-        total_inv = total_inv * vals[i] % R
+        out[i] = pref[i] * total_inv % modulus
+        total_inv = total_inv * vals[i] % modulus
     return out
 
 
-def _lagrange_at(tau: int, m: int) -> List[int]:
+def _lagrange_at(tau: int, m: int, modulus: int = R) -> List[int]:
     """L_j(tau) for the size-m domain: (tau^m - 1) / (m (tau - w^j)) * w^j."""
-    w = ntt.root_of_unity(m.bit_length() - 1)
-    zt_minv = (pow(tau, m, R) - 1) * pow(m, -1, R) % R
-    wj = ntt._powers(w, m, R)
-    inv = _batch_inv([(tau - x) % R for x in wj])
-    return [zt_minv * i % R * x % R for i, x in zip(inv, wj)]
+    w = ntt.root_of_unity(m.bit_length() - 1, modulus)
+    zt_minv = (pow(tau, m, modulus) - 1) * pow(m, -1, modulus) % modulus
+    wj = ntt._powers(w, m, modulus)
+    inv = _batch_inv([(tau - x) % modulus for x in wj], modulus)
+    return [zt_minv * i % modulus * x % modulus for i, x in zip(inv, wj)]
 
 
 def _sync(device: torch.device) -> None:
@@ -129,42 +129,46 @@ class SetupScalars:
     gamma_abc: List[int]  # the same / gamma, public variables
 
 
-def setup_scalars(cs: ConstraintSystem, seed: bytes = b"testudo-tpu-groth16") -> SetupScalars:
+def setup_scalars(cs: ConstraintSystem, seed: bytes = b"testudo-tpu-groth16",
+                  nbytes: int = 40) -> SetupScalars:
     """The setup's scalars, seeded as the JAX package seeds them: numpy's
-    default_rng on the first 8 bytes of sha256(seed), 40 bytes mod r each
-    for alpha, beta, gamma, delta and tau (groth16.py:113-122 there)."""
+    default_rng on the first 8 bytes of sha256(seed), `nbytes` bytes mod the
+    circuit's field each for alpha, beta, gamma, delta and tau (40 over Fr,
+    groth16.py:113-122 there; core/groth16_bw6.py draws 56 over Fq)."""
+    mod = cs.modulus
     rng = np.random.default_rng(int.from_bytes(hashlib.sha256(seed).digest()[:8], "little"))
 
     def rand_fr() -> int:
-        return int.from_bytes(rng.bytes(40), "little") % R
+        return int.from_bytes(rng.bytes(nbytes), "little") % mod
 
     alpha, beta, gamma, delta, tau = (rand_fr() for _ in range(5))
     nc, npub, m = len(cs.constraints), cs.num_pub, _domain_size(cs)
     nvars = len(cs.values)
 
-    L = _lagrange_at(tau, m)
+    L = _lagrange_at(tau, m, mod)
     # per-variable A_i(tau), B_i(tau), C_i(tau)
     a_t = [0] * nvars
     b_t = [0] * nvars
     c_t = [0] * nvars
     for lj, (A, B, C) in zip(L, cs.constraints):
         for i, co in A.items():
-            a_t[i] = (a_t[i] + co * lj) % R
+            a_t[i] = (a_t[i] + co * lj) % mod
         for i, co in B.items():
-            b_t[i] = (b_t[i] + co * lj) % R
+            b_t[i] = (b_t[i] + co * lj) % mod
         for i, co in C.items():
-            c_t[i] = (c_t[i] + co * lj) % R
+            c_t[i] = (c_t[i] + co * lj) % mod
     # input consistency rows (LibsnarkReduction): A_i(domain[nc + i]) = 1
     for i in range(npub):
-        a_t[i] = (a_t[i] + L[nc + i]) % R
-    zt = (pow(tau, m, R) - 1) % R
-    dinv = pow(delta, -1, R)
-    ginv = pow(gamma, -1, R)
+        a_t[i] = (a_t[i] + L[nc + i]) % mod
+    zt = (pow(tau, m, mod) - 1) % mod
+    dinv = pow(delta, -1, mod)
+    ginv = pow(gamma, -1, mod)
     return SetupScalars(
         alpha, beta, gamma, delta, tau, a_t, b_t,
-        h=[tp * zt % R * dinv % R for tp in ntt._powers(tau, m - 1, R)],
-        l=[(beta * a_t[i] + alpha * b_t[i] + c_t[i]) % R * dinv % R for i in range(npub, nvars)],
-        gamma_abc=[(beta * a_t[i] + alpha * b_t[i] + c_t[i]) % R * ginv % R
+        h=[tp * zt % mod * dinv % mod for tp in ntt._powers(tau, m - 1, mod)],
+        l=[(beta * a_t[i] + alpha * b_t[i] + c_t[i]) % mod * dinv % mod
+           for i in range(npub, nvars)],
+        gamma_abc=[(beta * a_t[i] + alpha * b_t[i] + c_t[i]) % mod * ginv % mod
                    for i in range(npub)],
     )
 
@@ -227,10 +231,11 @@ def _row_evals(cs: ConstraintSystem, m: int):
     input consistency rows of A, then zeros."""
     z = cs.values
     nc = len(cs.constraints)
+    mod = cs.modulus
     rows = [[0] * m for _ in range(3)]
     for j, cons in enumerate(cs.constraints):
         for out, lc in zip(rows, cons):
-            out[j] = sum(co * z[i] for i, co in lc.items()) % R
+            out[j] = sum(co * z[i] for i, co in lc.items()) % mod
     rows[0][nc: nc + cs.num_pub] = z[: cs.num_pub]
     return rows
 

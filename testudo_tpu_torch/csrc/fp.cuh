@@ -1,5 +1,6 @@
 // Prime-field arithmetic for the Hopper kernels: BLS12-377 Fq (and Fr for
-// the stand-alone Montgomery kernel), one field element per thread.
+// the stand-alone Montgomery kernel, BW6-761's 761-bit Fq for its row-major
+// product and chain), one field element per thread.
 //
 // Replaces the in-kernel field layer of the TPU kernels
 // (testudo_tpu/tpu/pallas_field.py:40-155 `_carry_ripple_rows`,
@@ -56,9 +57,17 @@ FP_TABLE u32 FQ_ONE[12] = {
 FP_TABLE u32 FR_P[8] = {
     0x00000001u, 0x0a118000u, 0xd0000001u, 0x59aa76feu,
     0x5c37b001u, 0x60b44d1eu, 0x9a2ca556u, 0x12ab655eu};
+// BW6-761's base field q (fields/bw6_761.py), 761 bits in 24 words.
+FP_TABLE u32 FQ761_P[24] = {
+    0x0000008bu, 0xf49d0000u, 0x70000082u, 0xe6913e68u, 0xeaf0a437u, 0x160cf8aeu,
+    0x5667a8f8u, 0x98a116c2u, 0x73ebff2eu, 0x71dcd3dcu, 0x12f9fd90u, 0x8689c8edu,
+    0x25b42304u, 0x03cebaffu, 0xe584e919u, 0x707ba638u, 0x8087be41u, 0x528275efu,
+    0x81d14688u, 0xb926186au, 0x04faff3eu, 0xd187c940u, 0xfb83ce0au, 0x0122e824u};
 
 // Field descriptors.  INV = -p^{-1} mod 2^32: the low word of the full-width
-// N' the TPU kernel multiplies by (pallas_field.py:229).
+// N' the TPU kernel multiplies by (pallas_field.py:229).  Both BLS12-377
+// moduli are 1 mod 2^32, so their INV is all ones; q761's is not, and every
+// body here reads F::INV.
 struct FqParams {
   static constexpr int N = 12;
   static constexpr u32 INV = 0xffffffffu;
@@ -68,6 +77,11 @@ struct FrParams {
   static constexpr int N = 8;
   static constexpr u32 INV = 0xffffffffu;
   FP_MEMBER static const u32* mod() { return FR_P; }
+};
+struct Fq761Params {
+  static constexpr int N = 24;
+  static constexpr u32 INV = 0x8fa798ddu;
+  FP_MEMBER static const u32* mod() { return FQ761_P; }
 };
 
 template <class F>
@@ -108,8 +122,8 @@ FP_FN void fp_cond_sub_p(u32* r, const u32* t, u32 hi) {
   for (int i = 0; i < N; i++) r[i] = need ? d[i] : t[i];
 }
 
-// r = a + b mod p.  Both moduli leave spare top bits (377 of 384, 253 of
-// 256), so a + b < 2p never carries out of N words.
+// r = a + b mod p.  Every modulus leaves spare top bits (377 of 384, 253 of
+// 256, 761 of 768), so a + b < 2p never carries out of N words.
 template <class F>
 FP_FN void fp_add(u32* r, const u32* a, const u32* b) {
   constexpr int N = F::N;

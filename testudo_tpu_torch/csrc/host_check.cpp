@@ -300,6 +300,11 @@ int host_mont_mul(const int* a, const int* b, int* out, int nlimbs, long m) {
 // its blocks.
 int host_mont_mul_rm(const int* a, const int* b, int* out, int nlimbs, long n, int shared_b,
                      long grid) {
+  if (nlimbs == 48) {  // BW6-761's Fq: the narrow form only, as the launcher
+    if (grid != 0) return -2;
+    return shared_b ? host_rm<Fq761Params, true>(a, b, out, n, 0)
+                    : host_rm<Fq761Params, false>(a, b, out, n, 0);
+  }
   if (nlimbs == 24)
     return shared_b ? host_rm<FqParams, true>(a, b, out, n, grid)
                     : host_rm<FqParams, false>(a, b, out, n, grid);
@@ -315,11 +320,13 @@ int host_rm_slot(int nlimbs, int r, int k) {
 }
 
 // K chained products on (G, nlimbs, L); wide = 0 needs G = 6.  The plain
-// chain on (nlimbs, L) is G = 1, wide = 1.
+// chain on (nlimbs, L) is G = 1, wide = 1, the only form at 48 limbs.
 int host_mont_chain_group(const int* a, const int* b, int* out, int nlimbs, int G, long L,
                           int K, int wide, int inline_body) {
   if (!wide && G != 6) return -1;
-  if (nlimbs == 24)
+  if (nlimbs == 48 && G == 1 && wide)
+    host_chain<Fq761Params>(a, b, out, G, L, K, wide, inline_body);
+  else if (nlimbs == 24)
     host_chain<FqParams>(a, b, out, G, L, K, wide, inline_body);
   else if (nlimbs == 16)
     host_chain<FrParams>(a, b, out, G, L, K, wide, inline_body);

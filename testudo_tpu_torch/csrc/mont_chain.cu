@@ -61,14 +61,17 @@ static int launch_chain_seq(const int* a, const int* b, int* out, long L, int K,
 }
 
 // K chained products on (nlimbs, L) rows.  inline_body picks the
-// formulation (1: inlined, 0: the shared `fp_mul`).  Returns the CUDA error
-// code of the launch, or -1 for an unknown field.
+// formulation (1: inlined, 0: the shared `fp_mul`).  nlimbs 48 (BW6-761's
+// Fq) is here for one number, the latency of one dependent 761-bit product
+// at one warp.  Returns the CUDA error code of the launch, or -1 for an
+// unknown field.
 extern "C" int testudo_mont_chain(const int* a, const int* b, int* out, int nlimbs, long L,
                                   int K, int inline_body, void* stream) {
   if (L <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (nlimbs == 24) return launch_chain<FqParams>(a, b, out, L, 1, K, inline_body, st);
   if (nlimbs == 16) return launch_chain<FrParams>(a, b, out, L, 1, K, inline_body, st);
+  if (nlimbs == 48) return launch_chain<Fq761Params>(a, b, out, L, 1, K, inline_body, st);
   return -1;
 }
 

@@ -1,19 +1,24 @@
 // Row-major Montgomery product a * b * R^{-1} mod p over `(n, nlimbs)` int32
 // arrays of 16-bit limbs, an element's limbs contiguous (nlimbs = 24: Fq,
-// 16: Fr), canonical in and out.  `b` is `(n, nlimbs)` too, or ONE element
-// that every lane multiplies by (`shared_b`), which is how the protocol
-// scales a whole table by a challenge, by 1 (out of Montgomery form) or by
-// R^2 (into it): nothing is broadcast in memory.
+// 16: Fr, 48: BW6-761's 761-bit Fq), canonical in and out.  `b` is
+// `(n, nlimbs)` too, or ONE element that every lane multiplies by
+// (`shared_b`), which is how the protocol scales a whole table by a
+// challenge, by 1 (out of Montgomery form) or by R^2 (into it): nothing is
+// broadcast in memory.
 //
 // Replaces testudo_tpu/tpu/kernels.py:34 `mont_mul_pallas` (call :51, body
 // `_mont_mul_body`).  The TPU kernel tiles 1024 elements per grid step
 // through VMEM and needs n to be a multiple of the tile; here the ragged
-// edge is masked.
+// edge is masked.  At 48 limbs it replaces
+// testudo_tpu/tpu/pallas_field.py:226 `_mont_mul_call(48, q761)`, which every
+// product of the BW6-761 group (tpu/curve_generic.py) reaches on the TPU.
 //
 // Bound on this card: bytes at every shape (an Fr element moves 3 * 64
 // bytes, or 2 * 64 with a shared b, against 136 multiply-adds; an Fq element
-// 3 * 96 against 300), down to the sumcheck's short tables, where a launch
-// is one round trip to memory and one product's latency.  Two forms, picked
+// 3 * 96 against 300; a 761-bit element 3 * 192 against 1,176: 0.180 ms of
+// bytes at 2^20 elements, 0.074 of operations), down to the sumcheck's short
+// tables, where a launch is one round trip to memory and one product's
+// latency.  Two forms, picked
 // by field, operand and length (`launch_rm`), as measured on the H100:
 //   - tiled (k_mont_mul_rm; past RM_NARROW_MAX elements, Fq or a shared b):
 //     a tile of RM_TPB rows of each operand is one contiguous span, copied
@@ -129,12 +134,18 @@ static int launch_rm(const int* a, const int* b, int* out, long n, cudaStream_t 
   return launch_rm_narrow<F, SHARED>(a, b, out, n, st);
 }
 
-// nlimbs selects the field: 24 -> Fq, 16 -> Fr.  Returns the CUDA error
-// code of the launch, or -1 for an unknown field.
+// nlimbs selects the field: 24 -> Fq, 16 -> Fr, 48 -> BW6-761's Fq.  The
+// 761-bit field takes the narrow form at every length, a shared b too: the
+// tiled form's swizzle (`rm_slot`) is laid out for 4 and 6 chunks a row, and
+// this field's rows have 12.  Returns the CUDA error code of the launch, or
+// -1 for an unknown field.
 extern "C" int testudo_mont_mul_rm(const int* a, const int* b, int* out, int nlimbs,
                                    long n, int shared_b, void* stream) {
   if (n <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
+  if (nlimbs == 48)
+    return shared_b ? launch_rm_narrow<Fq761Params, true>(a, b, out, n, st)
+                    : launch_rm_narrow<Fq761Params, false>(a, b, out, n, st);
   if (nlimbs == 24)
     return shared_b ? launch_rm<FqParams, true>(a, b, out, n, st)
                     : launch_rm<FqParams, false>(a, b, out, n, st);

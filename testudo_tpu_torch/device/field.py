@@ -23,6 +23,7 @@ sequential group operations.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import List
 
@@ -129,6 +130,9 @@ def _shift_up(x: torch.Tensor, d: int) -> torch.Tensor:
     return F.pad(x[..., :-d], (d, 0))
 
 
+_LOOKAHEAD = 56  # positions one int64 carry-lookahead resolves: A + B < 2^57
+
+
 def _resolve(t: torch.Tensor, nout: int, wide: bool) -> torch.Tensor:
     """Relaxed non-negative int64 limbs -> canonical 16-bit limbs of the
     value mod 2^(16 nout).  Limbs are < 2^18, or < 2^47 with `wide`.
@@ -138,7 +142,9 @@ def _resolve(t: torch.Tensor, nout: int, wide: bool) -> torch.Tensor:
     an incoming one (p: limb == 0xFFFF) or absorbs it.  g and p are
     disjoint, so packing them as the bits of two integers A = g|p, B = g
     makes ONE int64 addition run the whole ripple: the carry into position
-    k is bit k of (A + B) ^ p.  nout <= 49 keeps A + B inside int64."""
+    k is bit k of (A + B) ^ p.  One addition covers `_LOOKAHEAD` positions;
+    a longer limb axis (the 761-bit field's 97-limb products) runs one per
+    block of positions, each taking the carry out of the one below."""
     k = t.shape[-1]
     if k < nout:
         t = F.pad(t, (0, nout - k))
@@ -150,15 +156,33 @@ def _resolve(t: torch.Tensor, nout: int, wide: bool) -> torch.Tensor:
         )
     v = (t & MASK) + _shift_up(t >> LIMB_BITS, 1)
     r = v & MASK
-    pos = torch.arange(nout, device=t.device)
-    g = ((v >> LIMB_BITS) << pos).sum(dim=-1)
-    p = ((r == MASK).to(torch.int64) << pos).sum(dim=-1)
-    cin = (((g | p) + g) ^ p)[..., None] >> pos
-    return (r + (cin & 1)) & MASK
+    gen = v >> LIMB_BITS
+    prop = (r == MASK).to(torch.int64)
+    outs, carry = [], None
+    for lo in range(0, nout, _LOOKAHEAD):
+        hi = min(nout, lo + _LOOKAHEAD)
+        pos = torch.arange(hi - lo, device=t.device)
+        g = (gen[..., lo:hi] << pos).sum(dim=-1)
+        p = (prop[..., lo:hi] << pos).sum(dim=-1)
+        s = (g | p) + g
+        if carry is not None:
+            s = s + carry
+        cin = (s ^ p)[..., None] >> pos
+        outs.append((r[..., lo:hi] + (cin & 1)) & MASK)
+        carry = (s >> (hi - lo)) & 1
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-1)
+
+
+@functools.lru_cache(maxsize=256)
+def _const_on(data: bytes, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(np.frombuffer(data, dtype=np.int64).copy(), device=device)
 
 
 def _const(limbs: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(limbs.astype(np.int64), device=like.device)
+    """A constant limb vector as int64 on `like`'s device, copied there once
+    (a copy to the card waits for it: the field ops must not copy per call).
+    Callers never write to it."""
+    return _const_on(limbs.astype(np.int64).tobytes(), like.device)
 
 
 def _check_limbs(spec: FieldSpec, *xs: torch.Tensor) -> None:
@@ -236,6 +260,22 @@ def _mul_cols(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _shear_cols(a[..., :, None] * b[..., None, :])
 
 
+# int64 entries of the column products one plain call holds at once: larger
+# batches are cut into slices (a 761-bit element's matrix is 4,608 entries)
+_PLAIN_ENTRIES = {"cpu": 1 << 23, "cuda": 1 << 28}
+
+
+def _mont_mul_cols(spec: FieldSpec, a64: torch.Tensor, b64: torch.Tensor) -> torch.Tensor:
+    n = spec.nlimbs
+    Tn = _resolve(_mul_cols(a64, b64), 2 * n, True)  # canonical limbs of a*b
+    t_lo = Tn[..., :n]
+    m = _resolve(_mul_cols(t_lo, _const(spec.nprime_limbs, t_lo).expand_as(t_lo)), n, True)
+    U = _mul_cols(m, _const(spec.p_limbs, m).expand_as(m))
+    Sn = _resolve(Tn + F.pad(U, (0, 1)), 2 * n + 1, True)
+    # S is divisible by R: its low half is zero, its high n+1 limbs are < 2p
+    return _cond_sub_p(spec, Sn[..., n:]).to(torch.int32)
+
+
 def mont_mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Montgomery product a*b*R^{-1} mod p in plain tensor ops (non-interleaved:
     T = a*b, m = T*N' mod R, S = T + m*p, result S/R with one conditional
@@ -244,13 +284,14 @@ def mont_mul_plain(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.T
     _check_limbs(spec, a, b)
     n = spec.nlimbs
     a64, b64 = torch.broadcast_tensors(a.to(torch.int64), b.to(torch.int64))
-    Tn = _resolve(_mul_cols(a64, b64), 2 * n, True)  # canonical limbs of a*b
-    t_lo = Tn[..., :n]
-    m = _resolve(_mul_cols(t_lo, _const(spec.nprime_limbs, t_lo).expand_as(t_lo)), n, True)
-    U = _mul_cols(m, _const(spec.p_limbs, m).expand_as(m))
-    Sn = _resolve(Tn + F.pad(U, (0, 1)), 2 * n + 1, True)
-    # S is divisible by R: its low half is zero, its high n+1 limbs are < 2p
-    return _cond_sub_p(spec, Sn[..., n:]).to(torch.int32)
+    rows = max(1, _PLAIN_ENTRIES.get(a64.device.type, 1 << 28) // (2 * n * n))
+    count = a64[..., 0].numel()
+    if count <= rows:
+        return _mont_mul_cols(spec, a64, b64)
+    a2, b2 = a64.reshape(count, n), b64.reshape(count, n)
+    out = torch.cat([_mont_mul_cols(spec, a2[i: i + rows], b2[i: i + rows])
+                     for i in range(0, count, rows)])
+    return out.reshape(a64.shape)
 
 
 def mont_mul(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

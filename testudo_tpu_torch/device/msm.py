@@ -5,8 +5,9 @@ Counterpart of the packed path of testudo_tpu/tpu/msm.py (`msm_g1` :1206,
 stage functions it calls, `msm_segmented` :893, `msm_multi_small` :963,
 `_multi_msm_device` :283 -> `_multi_msm_packed` :1113).  Every stage takes
 the `PackedGroup` as an argument, so G1 and G2 share one pipeline.  The
-legacy XLA Pippenger and `msm_fp` (generic prime-field groups) wait for
-later slices.
+legacy XLA Pippenger is not ported.  At the end of the file, `msm_fp`
+(:1242 there) for the generic prime-field groups of device/curve_generic.py
+(BW6-761), on their batched formulas.
 
 Algorithm (signed c-bit windows by default):
   1. signed digits of every scalar per window; stable sort of the point
@@ -672,3 +673,175 @@ def _multi_msm_device(group_name: str, points, scalars_canon: torch.Tensor, c: i
     if npoints <= _SMALL_N:
         return Gp.unpack(_multi_msm_small(Gp, points, scalars_canon))
     return _multi_msm_packed(Gp, points, scalars_canon, c, on_phase)
+
+
+# ---------------------------------------------------------------------------
+# Generic prime-field groups (BW6-761: device/curve_generic.py)
+# ---------------------------------------------------------------------------
+#
+# Counterpart of `msm_fp` (tpu/msm.py:1242) and the helpers it runs: the
+# window pick (:65), the digits (:76), the bucket sums (:97), the weighted
+# bucket sum (:134) and the small path (:200).  Every group operation is a
+# batched complete formula of `FpGroup`, so on the card the only kernel is
+# the row-major product at 48 limbs.  The bucket sums differ in form: the
+# JAX package steps every (window, bucket) run in lock step up to the
+# longest one, which is as long as the count of ones among the scalars in
+# a bit-heavy witness (a circuit's booleans); here each run is summed by
+# pairwise halving, ceil(log2 run) batched adds, over windows taken a few at
+# a time, the lanes gathered through the sort's order.  Bucket sums are
+# group elements, so the result (host affine) is the JAX package's exactly.
+# The power-of-two and 64-lane paddings (`_pad_pow2`, `_pad_to`) bound the
+# JAX package's jit shapes; nothing is traced here, so nothing is padded.
+
+_FP_ENTRIES = 1 << 22  # nonzero digits the windows of one bucket pass hold
+_FP_LANES = 1 << 20  # most lanes one batched add of the bucket sums takes
+
+
+def _gather(points, rows: torch.Tensor):
+    return tuple(coord.index_select(0, rows) for coord in points)
+
+
+def _segment_sums(G, points, idx: torch.Tensor, counts: torch.Tensor):
+    """Sum of every segment of `idx` (host-ordered runs of `counts`
+    entries; points[idx[j]] is entry j) -> one point a segment, the identity
+    for an empty one.  Each level adds entries 2j and 2j + 1 of every
+    segment in one batched add (sliced at `_FP_LANES`) and keeps an odd last
+    entry as it is."""
+    dev = idx.device
+    nseg = counts.shape[0]
+    lens = counts.to(torch.int64)
+    starts = torch.cumsum(lens, 0) - lens
+    cur, via = points, idx  # level 0 reads the points through idx
+
+    def pick(rows):
+        return _gather(cur, rows if via is None else via.index_select(0, rows))
+
+    while int(lens.max()) > 1:
+        half = (lens + 1) // 2
+        nstarts = torch.cumsum(half, 0) - half
+        seg = torch.repeat_interleave(torch.arange(nseg, device=dev), half)
+        j = torch.arange(seg.shape[0], device=dev) - nstarts[seg]
+        left = starts[seg] + 2 * j
+        pair = (2 * j + 1 < lens[seg]).nonzero().squeeze(1)
+        nxt = pick(left)
+        for lo in range(0, pair.shape[0], _FP_LANES):
+            at = pair[lo: lo + _FP_LANES]
+            rows = left.index_select(0, at)
+            s = G.add(pick(rows), pick(rows + 1))
+            for coord, part in zip(nxt, s):
+                coord.index_copy_(0, at, part)
+        cur, via, lens, starts = nxt, None, half, nstarts
+    out = G.identity((nseg,), device=dev)
+    full = (lens == 1).nonzero().squeeze(1)
+    for coord, part in zip(out, pick(starts.index_select(0, full))):
+        coord.index_copy_(0, full, part)
+    return out
+
+
+def _bucket_sums_fp(G, points, scal: torch.Tensor, c: int):
+    """Bucket sums of every window: coordinates (W, 2^c, n).  The windows go
+    in passes of at most `_FP_ENTRIES` digits; a pass sorts its nonzero
+    digits by (window, digit) and sums the runs (`_segment_sums`).  Digit 0
+    has weight 0: it gets no entry, and bucket 0 is the identity."""
+    N = scal.shape[0]
+    B = 1 << c
+    digits = _digits_from_scalars(scal, c)  # (W, N)
+    W = digits.shape[0]
+    per_pass = max(1, _FP_ENTRIES // max(N, 1))
+    parts = []
+    for w0 in range(0, W, per_pass):
+        d = digits[w0: w0 + per_pass].to(torch.int64)
+        k = d.shape[0]
+        flat = d.reshape(-1)
+        nz = (flat != 0).nonzero().squeeze(1)
+        keys = flat.index_select(0, nz) + torch.div(nz, N, rounding_mode="floor") * B
+        keys, order = torch.sort(keys, stable=True)
+        idx = (nz % N).index_select(0, order)
+        counts = torch.bincount(keys, minlength=k * B)
+        sums = _segment_sums(G, points, idx, counts)
+        parts.append(tuple(coord.reshape(k, B, -1) for coord in sums))
+    return tuple(torch.cat(cs, dim=0) for cs in zip(*parts))
+
+
+def _weighted_bucket_sum_fp(G, buckets, c: int):
+    """sum_j j B_j of every window at once (tpu/msm.py:134): buckets (W,
+    2^c, n) -> (W, n).  Groups of h = 32 buckets run a suffix scan, run_g =
+    sum_{l' >= l} B_{g,l'} and tot_g = sum_l (l + 1) B_{g,l}; then
+    sum_j j B_j = sum_g (g h U_g + tot_g - U_g) with U_g = run_g, the g h U_g
+    terms sharing one double-and-add chain over the bits of g h."""
+    W, nb = buckets[0].shape[:2]
+    dev = buckets[0].device
+    h = min(nb, 32)
+    groups = nb // h
+    bg = tuple(coord.reshape(W, groups, h, -1) for coord in buckets)
+    run = G.identity((W, groups), device=dev)
+    tot = G.identity((W, groups), device=dev)
+    for l in reversed(range(h)):
+        run = G.add(run, tuple(coord[:, :, l] for coord in bg))
+        tot = G.add(tot, run)
+    weights = [g * h for g in range(groups)]
+    acc, addend = G.identity((W, groups), device=dev), run
+    for bit in range(max(1, max((groups - 1) * h, 1).bit_length())):
+        sel = torch.tensor([(wt >> bit) & 1 == 1 for wt in weights], device=dev)
+        acc = G.select(sel, G.add(acc, addend), acc)
+        addend = G.double(addend)
+    res = G.add(G.add(acc, tot), G.neg(run))
+    out = tuple(coord[:, 0] for coord in res)
+    for g in range(1, groups):
+        out = G.add(out, tuple(coord[:, g] for coord in res))
+    return out
+
+
+def _msm_small_fp(G, points, scal: torch.Tensor):
+    """N <= 64 (tpu/msm.py:200): a per-lane double-and-add ladder over the
+    scalars' bits, LSB first, then a tree of pairwise adds.  A step's
+    acc + base and base + base are one batched add over 2N lanes (the
+    complete formula doubles too); the ladder stops after the top bit any
+    lane has."""
+    n = scal.shape[0]
+    dev = scal.device
+    acc = G.identity((n,), device=dev)
+    if n == 0:
+        return tuple(coord[:1] for coord in acc)
+    s64 = scal.to(torch.int64)
+    nz = (s64 != 0).any(dim=0).nonzero()
+    nbits = 0 if nz.numel() == 0 else 16 * int(nz[-1]) + int(s64[:, int(nz[-1])].max()).bit_length()
+    base = points
+    for i in range(nbits):
+        bit = ((s64[:, i // 16] >> (i % 16)) & 1) == 1
+        both = G.add(tuple(torch.cat([a, b]) for a, b in zip(acc, base)),
+                     tuple(torch.cat([b, b]) for b in base))
+        acc = G.select(bit, tuple(coord[:n] for coord in both), acc)
+        base = tuple(coord[n:] for coord in both)
+    while n > 1:
+        half = n // 2
+        s = G.add(tuple(coord[:half] for coord in acc),
+                  tuple(coord[half: 2 * half] for coord in acc))
+        acc = tuple(torch.cat([a, coord[2 * half:]]) for a, coord in zip(s, acc))
+        n = acc[0].shape[0]
+    return acc
+
+
+def msm_fp(G, host_add, points, scalars_canon: torch.Tensor, c: Optional[int] = None):
+    """MSM over a generic `FpGroup`: device projective points x canonical
+    16-bit-limb scalars (any width; BW6-761 takes BLS12-377 Fq scalars, 24
+    limbs) -> the host affine result (None for the identity), on the device
+    the scalars lie on.  At most 64 points take the ladder; more take c-bit
+    windows (default 4 up to 64 points, else 8) whose sums are combined by
+    Horner on the host with `host_add`."""
+    dev = scalars_canon.device
+    points = tuple(coord.to(dev) for coord in points)
+    n = scalars_canon.shape[0]
+    if points[0].shape[0] != n:
+        raise ValueError(f"msm_fp: {points[0].shape[0]} points for {n} scalars")
+    if n <= _SMALL_N:
+        return G.to_affine_host(_msm_small_fp(G, points, scalars_canon))[0]
+    c = c or _pick_window(n)
+    wins = _weighted_bucket_sum_fp(G, _bucket_sums_fp(G, points, scalars_canon, c), c)
+    acc = None
+    for pt in reversed(G.to_affine_host(wins)):
+        if acc is not None:
+            for _ in range(c):
+                acc = host_add(acc, acc)
+        acc = host_add(acc, pt)
+    return acc

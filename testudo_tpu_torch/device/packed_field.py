@@ -10,7 +10,9 @@ measuring harnesses tools/exp_montmul_block.py and tools/exp_mulmany_wide.py
     kernels (csrc/mont_mul.cu).
   - `mont_mul_rm` takes row-major `(..., n)` tensors, an element's limbs
     contiguous, which is the layout of every table of the protocol, and is
-    what `field.mont_mul` launches on CUDA tensors (csrc/mont_mul_rm.cu).
+    what `field.mont_mul` launches on CUDA tensors (csrc/mont_mul_rm.cu):
+    n = 24 (Fq), 16 (Fr) or 48 (BW6-761's 761-bit Fq, every product of the
+    BW6 group of device/curve_generic.py).
     `b` may be a single element: the kernel then reads the one element for
     every lane and nothing is broadcast in memory.
   - `mont_mul_chain` / `mont_mul_chain_group` run K chained products
@@ -82,7 +84,7 @@ def mont_mul_rm(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tens
             f"mont_mul_rm: {spec.name} elements have {n} limbs, got shapes "
             f"{tuple(a.shape)} and {tuple(b.shape)}"
         )
-    if n not in (16, 24):
+    if n not in (16, 24, 48):
         raise ValueError(f"mont_mul_rm: no kernel for {n}-limb fields")
     if not (a.is_cuda or b.is_cuda):
         return mont_mul_rm_plain(spec, a, b)
@@ -131,7 +133,7 @@ def _check_chain(name: str, spec: FieldSpec, at, bt, K: int, dims: int) -> None:
             f"{name}: expected two {lead}{spec.nlimbs}, L) arrays, got "
             f"{tuple(at.shape)} and {tuple(bt.shape)}"
         )
-    if spec.nlimbs not in (16, 24):
+    if spec.nlimbs not in ((16, 24, 48) if dims == 2 else (16, 24)):
         raise ValueError(f"{name}: no kernel for {spec.nlimbs}-limb fields")
     if K < 0:
         raise ValueError(f"{name}: K must not be negative, got {K}")
@@ -139,8 +141,8 @@ def _check_chain(name: str, spec: FieldSpec, at, bt, K: int, dims: int) -> None:
 
 def mont_mul_chain(spec: FieldSpec, at: torch.Tensor, bt: torch.Tensor, K: int,
                    inline_body: bool = True) -> torch.Tensor:
-    """a <- a * b, K times, on `(n, L)` limb rows in one launch.
-    `inline_body` picks the formulation of the product inside the kernel
+    """a <- a * b, K times, on `(n, L)` limb rows in one launch (n = 16, 24
+    or 48: the 761-bit chain measures that field's latency).  `inline_body` picks the formulation of the product inside the kernel
     (the inlined body, or the shared out-of-line `fp_mul` of the group-law
     kernels); both give the same limbs."""
     _check_chain("mont_mul_chain", spec, at, bt, K, 2)
