@@ -94,6 +94,20 @@ testudo_tpu_torch/csrc/, then
      the setup's scalars), proved and verified, -C and another A rejected;
      times split by the Timer labels, the launches of the setup and of the
      prove counted (paths bw6_setup, bw6_prove);
+  5d. drives the R1CS proof over BLS12-381 (curves/profile.py's
+     `bls12_381(dev)`: Fr tables on the card, groups, pairings and Poseidon
+     on the host, the looped sumcheck) at Testudo's own size for this curve,
+     `produce_synthetic_r1cs(1024, 1024, 10)`: `R1CSGens.setup`, `prove`,
+     the verifier's `inst.evaluate` and `verify_native`, which accepts;
+     eval_vars_at_ry + 1 and a wrong input rejected; the evaluation, the
+     phase-2 claims and (A~, B~, C~)(rx, ry) against Python ints mod r381;
+     a PST commit -> open -> check round trip on the setup's key, the value
+     + 1 rejected; setup and prove split by the Timer labels (eq tables,
+     keys, masks; commit, phase one, phase two, open, the rest), one more
+     prove under torch.profiler for the device's busy time in it; the
+     launches of each path counted (bls381_setup, bls381_prove,
+     bls381_verify, bls381_pst), where the row-major product at fr381 must
+     run and no other kernel may;
   6. runs the chained-product harness (tools/exp_montmul.py), which
      measures the card's Montgomery products per second;
   7. calls every kernel's wrapper at the shapes the main paths gave it and
@@ -139,14 +153,21 @@ testudo_tpu_torch/csrc/, then
      pair times a shared element, the weighted sum's 384 lanes, 2^16 + ODD
      with 0, 1, q - 1, R mod q and r mixed in), its device time at 2^20
      (torch.profiler, L2 flushed, and warm) beside `bound_ms` and the latency
-     of one dependent 761-bit product at one warp;
+     of one dependent 761-bit product at one warp; the row-major product at
+     BLS12-381's Fr at 2^20 + ODD with two full operands and times a shared
+     element, at 8,192 + ODD and at the proof's 2^10 and 2^11 tables, with
+     R - 1, r - 1, 0, 1 and R mod r among the operands, against its plain
+     version and on a stride against Python ints, K1 at fr381 beside it, its
+     device time at 2^20 (L2 flushed) beside `bound_ms` and the latency of
+     one dependent product;
   8. checks a small MSM against the host oracle;
   9. prints one JSON line {"kernels": [...]} (each row's `launches` is the
      sum of `launches_by_path`, the kernel's count on each driven path: msm,
      fixed_base, field, setup, commit, open, verify, nizk_prove,
      nizk_prove_looped, nizk_verify, snark_groth16_setup, snark_encode,
      snark_prove, groth16_prove, snark_verify, bw6_setup, bw6_prove,
-     harness; the run fails if a
+     bls381_setup, bls381_prove, bls381_verify, bls381_pst, harness; the
+     run fails if a
      kernel was not launched on a path it belongs to) and, last,
      {"ok": true, "device": {...}}.
 
@@ -162,12 +183,15 @@ of host Python to build), for the same use; `--snark-only` stops after the
 SNARK phase, with Groth16 at 2^12, 2^16 and 2^20 (config #4 at 2^20: 21,192 +
 180,504 B, 203,313 B in all; each size profiled); `--bw6-only` compares and
 times the 761-bit product, runs the BW6 MSMs and toy circuit and the wrap at
-nv = 16 and at nv = 10 (650,138 constraints), and stops; the default run is
-the full check.
+nv = 16 and at nv = 10 (650,138 constraints), and stops; `--bls381-only`
+compares and times the fr381 product and runs the BLS12-381 phase at 2^10,
+2^12 and 2^14 (the last without the profiled prove), and stops; the default
+run is the full check.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import os
@@ -195,14 +219,15 @@ from testudo_tpu_torch.device import field as tf
 from testudo_tpu_torch.device import packed_field
 from testudo_tpu_torch.device import sponge as dsponge
 from testudo_tpu_torch.device import sumcheck_kernels as sk
-from testudo_tpu_torch.device.field import FQ, FR
+from testudo_tpu_torch.device.field import FQ, FR, FR381
 from testudo_tpu_torch.device.packed_curve import G1P, G2P
 from testudo_tpu_torch.examples import cubic
 from testudo_tpu_torch.fields.bls12_377 import P as R_BW6  # BW6-761's scalar field
 from testudo_tpu_torch.fields.bls12_377 import R
 from testudo_tpu_torch.poly import dense
 from testudo_tpu_torch.poseidon import sponge
-from testudo_tpu_torch.poseidon.transcript import PoseidonTranscript, fq_params, fr_params
+from testudo_tpu_torch.poseidon.transcript import (PoseidonTranscript, fq_params, fr_params,
+                                                   fr_params_381)
 from testudo_tpu_torch.tools import exp_mont_rm, exp_montmul, exp_sumcheck_round, time_open
 from testudo_tpu_torch.utils import timer
 
@@ -230,6 +255,9 @@ _REPLACES = {
     # the 761-bit field: every product of tpu/curve_generic.py's FpGroup
     # (tpu/field.py:292-295 sends batches of 512 or more to the Pallas call)
     "mont_mul_rm_bw6fq": "testudo_tpu/tpu/pallas_field.py:226",
+    # BLS12-381's Fr: every product of a 381 Fr table of 512 elements or more
+    # (`_mont_mul_call(16, r381)`, keyed by the modulus)
+    "mont_mul_rm_fr381": "testudo_tpu/tpu/pallas_field.py:226",
     "mont_chain": "tools/exp_montmul_block.py:114",
     "mont_chain_seq": "tools/exp_mulmany_wide.py:60",
     "mont_chain_wide": "tools/exp_mulmany_wide.py:60",
@@ -258,6 +286,7 @@ _CSRC = "testudo_tpu_torch/csrc/"
 _SOURCE = {
     "mont_mul_rm_fq": "mont_mul_rm.cu", "mont_mul_rm_fr": "mont_mul_rm.cu",
     "mont_mul_rm_fr_full": "mont_mul_rm.cu", "mont_mul_rm_bw6fq": "mont_mul_rm.cu",
+    "mont_mul_rm_fr381": "mont_mul_rm.cu",
     "mont_chain": "mont_chain.cu", "mont_chain_seq": "mont_chain.cu",
     "mont_chain_wide": "mont_chain.cu",
     "mont_mul": "mont_mul.cu", "add_mask": "ec_ops.cu", "add2": "ec_ops.cu",
@@ -401,6 +430,15 @@ for _path, _names in _SNARK_MUST.items():
 # row-major product)
 MUST_LAUNCH["mont_mul_rm_bw6fq"] = ("bw6_setup", "bw6_prove")
 MUST_LAUNCH["mont_mul_rm_fq"] += ("bw6_prove",)
+# BLS12-381 (curves/profile.py's bls12_381: Fr tables on the card; groups,
+# pairing and Poseidon on the host, as in the JAX package): the setup's eq
+# tables, the prove's R1CS products, eq tables, looped sumcheck rounds and
+# folds, the verifier's A~, B~, C~(rx, ry) and the PST round trip's
+# quotients and folds are all row-major products at BLS12-381's Fr, and no
+# other kernel may run on these paths
+BLS381_PATHS = ("bls381_setup", "bls381_prove", "bls381_verify", "bls381_pst")
+MUST_LAUNCH["mont_mul_rm_fr381"] = BLS381_PATHS
+BLS381_INPUTS = 10  # Testudo's check_r1cs_proof_bls12_381 (r1csproof.rs:754-801)
 # the wrap's TestudoCommVerifier at each nv (constraints, variables, domain
 # log): counts of the circuit, the same on any hardware (the JAX package's
 # build_comm_verifier gives the same)
@@ -828,11 +866,11 @@ def phase_small_msms(dev, grp, affine_pts, ks):
 # ---------------------------------------------------------------------------
 
 
-def host_evaluate(Z, point) -> int:
+def host_evaluate(Z, point, modulus: int = R) -> int:
     """Multilinear evaluation in Python ints, MSB-first binding."""
     for r in point:
         half = len(Z) // 2
-        Z = [(lo + r * (hi - lo)) % R for lo, hi in zip(Z[:half], Z[half:])]
+        Z = [(lo + r * (hi - lo)) % modulus for lo, hi in zip(Z[:half], Z[half:])]
     return Z[0]
 
 
@@ -997,22 +1035,22 @@ def phase_sqrt_pst(dev, nv: int, full: bool):
 # ---------------------------------------------------------------------------
 
 
-def host_eq(point) -> list:
+def host_eq(point, modulus: int = R) -> list:
     """The MSB-first eq table of `point` in Python ints."""
     evals = [1]
     for r in point:
         nxt = []
         for e in evals:
-            hi = e * r % R
-            nxt += [(e - hi) % R, hi]
+            hi = e * r % modulus
+            nxt += [(e - hi) % modulus, hi]
         evals = nxt
     return evals
 
 
-def host_mat_vec(m, z, nrows: int) -> list:
+def host_mat_vec(m, z, nrows: int, modulus: int = R) -> list:
     out = [0] * nrows
     for r_, c_, v in zip(m.rows.tolist(), m.cols.tolist(), m.vals):
-        out[r_] = (out[r_] + v * z[c_]) % R
+        out[r_] = (out[r_] + v * z[c_]) % modulus
     return out
 
 
@@ -1797,7 +1835,7 @@ def kernels_bw6(dev, rep: Report, quick: bool):
     flush = exp_mont_rm.l2_flusher(dev)
     out = torch.empty_like(a)
     raw = lambda: build.launch("mont_mul_rm", a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                               S.nlimbs, n, 0, counted_as="mont_mul_rm_bw6fq")
+                               packed_field.field_id(S), n, 0, counted_as="mont_mul_rm_bw6fq")
     raw()
     if not torch.equal(out, tf.mont_mul_plain(S, a, b)):
         raise AssertionError("mont_mul_rm_bw6fq: the raw launch differs from the plain version")
@@ -1819,6 +1857,234 @@ def kernels_bw6(dev, rep: Report, quick: bool):
     say(f"  761-bit product at 2^{n.bit_length() - 1}: L2-warm {l2_ms:.4f} ms, raw launches "
         f"{raw_ms:.4f} ms; one dependent product at one warp {lat:.3f} us; "
         + "; ".join(ptx))
+
+
+def _proof_key_381(pf, proof) -> tuple:
+    """An R1CS proof over BLS12-381 as plain values (the GT elements through
+    `ser_gt`), to hold two proofs equal."""
+    m = proof.mipp_proof
+    polys = lambda sc: [(p.coeffs, p.modulus) for p in sc.polys]
+    return (proof.comm_U, polys(proof.sc_proof_phase1), proof.claims_phase2,
+            polys(proof.sc_proof_phase2), proof.eval_vars_at_ry, proof.proof_eval_vars_at_ry,
+            proof.rx, proof.ry, proof.transcript_sat_state, proof.initial_state,
+            pf.ser_gt(proof.t), [tuple(pf.ser_gt(x) for x in pair) for pair in m.comms_t],
+            m.comms_u, m.final_a, m.final_h, m.pst_proof_h)
+
+
+def phase_bls381(dev, log2n: int, profiled: bool = True) -> dict:
+    """The R1CS proof over BLS12-381 (Testudo's check_r1cs_proof_bls12_381,
+    r1csproof.rs:754-801, at produce_synthetic_r1cs(2^log2n, 2^log2n, 10))
+    through `curves.profile.bls12_381(dev)`: the Fr tables on the card, the
+    groups, pairings and Poseidon on the host, the looped sumcheck.
+    `R1CSGens.setup`, `prove`, then the verifier's `inst.evaluate` and
+    `verify_native`, which accepts; eval_vars_at_ry + 1 and a wrong input
+    are rejected; eval_vars_at_ry, the phase-2 claims and (A~, B~, C~)(rx,
+    ry) equal Python ints mod r381.  A PST commit -> open -> check round trip
+    on the setup's key, a wrong value rejected.  Setup and prove split by
+    their Timer labels; with `profiled` one more prove under torch.profiler
+    (the device's busy time in it), equal to the first.  Every path launches
+    the row-major product at fr381 and nothing else; their launches are
+    returned by path."""
+    import random
+
+    pf = cprof.bls12_381(dev)
+    Rm = pf.R
+    n = 1 << log2n
+    what = f"BLS12-381 2^{log2n}"
+    t0 = time.perf_counter()
+    inst, vars_, inputs = r1cs.R1CSInstance.produce_synthetic_r1cs(
+        n, n, BLS381_INPUTS, seed=log2n, spec=pf.fr_spec)
+    build_s = time.perf_counter() - t0
+    counts = {}
+
+    build.reset_launches()
+    with timer.record() as rec:
+        gens, setup_ms = timed_once(lambda: r1csproof.R1CSGens.setup(n, profile=pf))
+    counts["bls381_setup"] = dict(build.LAUNCHES)
+    setup_split = _split(rec)
+    setup_split["rest"] = round(setup_ms / 1e3 - sum(setup_split.values()), 4)
+
+    def prove():
+        return r1csproof.prove(inst, vars_, inputs, gens, PoseidonTranscript(fr_params_381()))
+
+    build.reset_launches()
+    with timer.record() as rec:
+        (proof, rx, ry), prove_ms = timed_once(prove)
+    counts["bls381_prove"] = dict(build.LAUNCHES)
+    prove_split = _nizk_split(rec)
+
+    evals_box = {}
+
+    def verify(p, ins=inputs):
+        evals_box["evals"], evals_box["ms"] = timed_once(lambda: inst.evaluate(rx, ry, dev))
+        return r1csproof.verify_native(p, evals_box["evals"], n, n, ins, gens,
+                                       PoseidonTranscript(fr_params_381()))
+
+    build.reset_launches()
+    ok, verify_ms = timed_once(lambda: verify(proof))
+    counts["bls381_verify"] = dict(build.LAUNCHES)
+    if ok is not True:
+        raise AssertionError(f"{what}: the verifier rejected the proof")
+    eval_ms = evals_box["ms"]
+    bad = dataclasses.replace(proof, eval_vars_at_ry=(proof.eval_vars_at_ry + 1) % Rm)
+    if verify(bad) is not False:
+        raise AssertionError(f"{what}: the verifier accepted eval_vars_at_ry + 1")
+    if verify(proof, [(inputs[0] + 1) % Rm] + inputs[1:]) is not False:
+        raise AssertionError(f"{what}: the verifier accepted a wrong input")
+
+    # exact checks in Python ints mod r381, independent of the verifier
+    if proof.eval_vars_at_ry != host_evaluate(list(vars_), ry[1:], Rm):
+        raise AssertionError(f"{what}: eval_vars_at_ry differs from the witness at ry[1:]")
+    z = inst.z_vector(vars_, inputs)
+    mats = (inst.A, inst.B, inst.C)
+    claims = [host_evaluate(host_mat_vec(m, z, n, Rm), rx, Rm) for m in mats]
+    c2 = proof.claims_phase2
+    if list(c2[:3]) != claims or c2[3] != claims[0] * claims[1] % Rm:
+        raise AssertionError(f"{what}: the phase-2 claims differ from A z, B z, C z at rx")
+    eq_x, eq_y = host_eq(rx, Rm), host_eq(ry, Rm)
+    want = tuple(sum(v * eq_x[r_] * eq_y[c_] for r_, c_, v in
+                     zip(m.rows.tolist(), m.cols.tolist(), m.vals)) % Rm for m in mats)
+    if evals_box["evals"] != want:
+        raise AssertionError(f"{what}: inst.evaluate(rx, ry) on the card differs from the host sum")
+
+    prof_line = "no profiled prove"
+    if profiled:
+        box = {}
+        pp = exp_mont_rm.prove_profile(lambda: box.setdefault("out", prove()))
+        if _proof_key_381(pf, box["out"][0]) != _proof_key_381(pf, proof):
+            raise AssertionError(f"{what}: the profiled prove gave another proof")
+        if pp["kernels"]:
+            classes = "; ".join(f"{k} {c['launches']}" for k, c in pp["by_class"].items())
+            prof_line = (
+                f"profiled prove {pp['wall_ms_profiled'] / 1e3:.3f} s: device busy "
+                f"{pp['device_ms']:.3f} ms ({pp['device_ms'] / pp['wall_ms_profiled']:.3%} of "
+                f"it) over {pp['kernels']} CUDA events, mont_mul_rm {pp['mont_mul_rm_ms']:.3f} ms "
+                f"over {pp['mont_mul_rm_launches']} launches (by size class: {classes}); largest: "
+                + "; ".join(f"{nm[:50]} {ms:.3f} ms x {cnt}" for nm, ms, cnt in pp["largest"]))
+        else:
+            prof_line = "device busy time in a prove: not measured (torch.profiler saw no device events)"
+
+    # PST commit -> open -> check on the setup's key (its nv variables)
+    prng = random.Random(log2n)
+    nv = gens.ck.nv
+    vals = [prng.randrange(Rm) for _ in range(1 << nv)]
+    point = [prng.randrange(Rm) for _ in range(nv)]
+    build.reset_launches()
+
+    def pst_round():
+        table = dense.encode_table(vals, pf.fr_spec, dev)
+        C = pst.commit(gens.ck, table)
+        pis = pst.open_(gens.ck, table, point)
+        return table, C, pis
+
+    (table, C, pis), pst_ms = timed_once(pst_round)
+    v = host_evaluate(vals, point, Rm)
+    if dense.evaluate(table, point, pf.fr_spec) != v:
+        raise AssertionError(f"{what}: the PST table's evaluation differs from the host's")
+    if not pst.check(gens.vk, C, point, v, pis):
+        raise AssertionError(f"{what}: PST check rejected an honest opening")
+    if pst.check(gens.vk, C, point, (v + 1) % Rm, pis):
+        raise AssertionError(f"{what}: PST check accepted the value + 1")
+    counts["bls381_pst"] = dict(build.LAUNCHES)
+
+    for path, snap in counts.items():
+        others = {k: c for k, c in snap.items() if c and k != "mont_mul_rm_fr381"}
+        if others or not snap["mont_mul_rm_fr381"]:
+            raise AssertionError(f"{what}: path {path} launched {others or 'no fr381 product'}")
+    say(f"{what} ({n} constraints, {n} variables, {BLS381_INPUTS} inputs, seed {log2n}; instance "
+        f"built in {build_s:.2f} s): proved with the Fr tables on the card and the groups on the "
+        f"host, verified; eval_vars_at_ry + 1 and a wrong input rejected; eval_vars_at_ry, the "
+        f"phase-2 claims and (A~, B~, C~)(rx, ry) equal Python ints mod r381; PST (nv = {nv}) "
+        f"commit + open {pst_ms / 1e3:.3f} s, checked, value + 1 rejected")
+    say(f"  {what} times (s): setup {setup_ms / 1e3:.3f} {json.dumps(setup_split)}; prove "
+        f"{prove_ms / 1e3:.3f} {json.dumps(prove_split)}; verify {verify_ms / 1e3:.3f} "
+        f"(A~, B~, C~(rx, ry) on the card {eval_ms / 1e3:.4f}, the rest native checks on the host)")
+    say(f"  {what} {prof_line}")
+    say(f"  {what} launches: " + "; ".join(
+        f"{path} {snap['mont_mul_rm_fr381']}" for path, snap in counts.items())
+        + " (mont_mul_rm_fr381; no other kernel)")
+    return counts
+
+
+def kernels_fr381(dev, rep: Report, quick: bool):
+    """The row-major product at BLS12-381's Fr against its plain version
+    (exact): 2^20 + ODD elements (2^12 + ODD with `quick`) with two full
+    operands (the narrow form) and times one shared element (the tiled form
+    past 8,192), 8,192 + ODD times a shared element (narrow), and the proof's
+    2^10 and 2^11 tables; among the first operands R - 1 (below R, above r:
+    what `_fold_wide` hands the product), r - 1, 0, 1 and R mod r, the
+    second operands canonical.  A stride of the products against Python
+    ints; K1 (`mont_mul_rows`) at fr381 on 2^16 + ODD lanes.  Timed (device
+    time, L2 flushed before each launch) at 2^20 with two full operands
+    beside bound_ms, the plain version and the latency of one dependent
+    product at one warp; the shared b and the proof's 2^10 and 2^11 tables
+    beside it."""
+    S = FR381
+    r = S.modulus
+    big = 1 << 12 if quick else 1 << 20
+    rng = np.random.default_rng(381)
+
+    def rows(count):
+        v = rng.integers(0, 1 << 16, size=(count, S.nlimbs), dtype=np.int64)
+        v[:, -1] &= 0x3FFF  # below r: its top limb is 0x73ed
+        return v
+
+    edges_a = np.concatenate([np.full((1, S.nlimbs), 0xFFFF, dtype=np.int64),
+                              S.to_limbs([r - 1, 0, 1, S.r_mod_p]).astype(np.int64)])
+    edges_b = S.to_limbs([S.r_mod_p, r - 1, 1, 0, r - 1]).astype(np.int64)
+    cases = []
+    for count, shared in ((big + ODD, False), (big + ODD, True), ((1 << 13) + ODD, True),
+                          (1 << 10, False), (1 << 11, False)):
+        a, b = rows(count), rows(count)
+        a[:5], b[:5] = edges_a, edges_b
+        at = torch.as_tensor(a.astype(np.int32), device=dev)
+        bt = torch.as_tensor(b.astype(np.int32), device=dev)
+        cases.append((count, shared, at, bt[1].clone() if shared else bt))
+    got = [tf.mont_mul(S, a, b) for _, _, a, b in cases]
+    want = [tf.mont_mul_plain(S, a, b) for _, _, a, b in cases]
+    rinv = pow(S.mont_r, -1, r)
+    for (count, shared, a, b), g in zip(cases, got):
+        idx = list(range(8)) + list(range(8, count, max(1, count // 64)))
+        xs, ys = S.from_limbs(a[idx]), S.from_limbs(b if shared else b[idx])
+        ys = ys * len(idx) if shared else ys
+        if S.from_limbs(g[idx]) != [x * y * rinv % r for x, y in zip(xs, ys)]:
+            raise AssertionError(f"mont_mul_rm_fr381 at {count}: products differ from Python ints")
+    m1 = (1 << 12 if quick else 1 << 16) + ODD
+    a1, b1 = cases[0][2][:m1].T.contiguous(), cases[0][3][:m1].T.contiguous()
+    if max_abs_err(packed_field.mont_mul_rows(S, a1, b1),
+                   packed_field.mont_mul_rows_plain(S, a1, b1)) != 0:
+        raise AssertionError("K1 (mont_mul_rows) at fr381 differs from its plain version")
+
+    flush = exp_mont_rm.l2_flusher(dev)
+    label = f"({big}, 16) fr381, two full operands"
+    m = exp_mont_rm.measure_shape(label, S, big, False, dev, flush=flush)
+    if m["kernel_ms"] is None:
+        raise AssertionError("torch.profiler saw no device time of the fr381 product")
+    a0, b0 = exp_mont_rm.operands(S, big, False, seed=5, device=dev)
+    plain_ms = time_ms(lambda: tf.mont_mul_plain(S, a0, b0), 1)
+    madd = exp_montmul.madds_per_product(S)
+    lat = exp_montmul.measure_latency(S, dev)["inline"]["us_per_product"]
+    compared = ", ".join(f"({c}, 16){' shared b' if sh else ''}" for c, sh, _, _ in cases)
+    rep.add("mont_mul_rm_fr381", got, want, m["kernel_ms"], plain_ms, 3 * S.nlimbs * 4 * big,
+            madd * big, label + f"; compared at {compared}")
+    shapes = [{k: v for k, v in exp_mont_rm.measure_shape(lbl, S, cnt, sh, dev, flush).items()
+               if k in ("shape", "kernel_ms", "kernel_l2_ms", "raw_ms", "call_ms", "bound_ms")}
+              for lbl, cnt, sh in ((f"({big}, 16) fr381, shared b", big, True),
+                                   ("(2^11, 16) fr381", 1 << 11, False),
+                                   ("(2^10, 16) fr381", 1 << 10, False),
+                                   ("(2^10, 16) fr381, shared b", 1 << 10, True))]
+    ptx = [ln for ln in build.build_report()["ptxas"] if "Fr381" in ln]
+    rep.rows["mont_mul_rm_fr381"].update({
+        "kernel_l2_ms": m["kernel_l2_ms"], "raw_ms": m["raw_ms"], "call_ms": m["call_ms"],
+        "latency_bound_ms": lat / 1e3, "library_ms": None, "shapes": shapes, "ptxas": ptx})
+    say(f"  fr381 product at {big}: L2-warm {m['kernel_l2_ms']:.5f} ms, raw launches "
+        f"{m['raw_ms']:.5f} ms, through field.mont_mul {m['call_ms']:.5f} ms; one dependent "
+        f"product at one warp {lat:.4f} us; K1 at fr381 equal to its plain version on {m1} lanes")
+    for row in shapes:
+        say(f"  {row['shape']}: kernel {row['kernel_ms']:.5f} ms, L2-warm {row['kernel_l2_ms']:.5f}, "
+            f"raw {row['raw_ms']:.5f}, call {row['call_ms']:.5f}, bound {row['bound_ms']:.6f}")
+    for ln in ptx:
+        say("  " + ln)
 
 
 def phase_harness(dev):
@@ -2802,6 +3068,9 @@ def main(argv=None) -> int:
     ap.add_argument("--bw6-only", action="store_true",
                     help="build, check and time the 761-bit product, msm_fp and the BW6 wrap "
                          "at nv = 16 and 10, stop")
+    ap.add_argument("--bls381-only", action="store_true",
+                    help="build, check and time the fr381 product and the R1CS proof over "
+                         "BLS12-381 at 2^10, 2^12 and 2^14, stop")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the GPU", file=sys.stderr)
@@ -2837,6 +3106,18 @@ def main(argv=None) -> int:
         say(json.dumps({"kernels": list(rep.rows.values())}))
         say("bw6-only pass done; run without arguments for the full check")
         return 0
+    if args.bls381_only:
+        kernels_fr381(dev, rep, quick=False)
+        row = rep.rows["mont_mul_rm_fr381"]
+        for log2n in (10, 12, 14):
+            counts = phase_bls381(dev, log2n, profiled=log2n < 14)
+            if log2n == 10:
+                row["launches_by_path"] = {p: c["mont_mul_rm_fr381"] for p, c in counts.items()}
+                row["launches"] = sum(row["launches_by_path"].values())
+            say(f"BLS12-381 2^{log2n} done ({time.time() - t_start:.1f} s)")
+        say(json.dumps({"kernels": list(rep.rows.values())}))
+        say("bls381-only pass done; run without arguments for the full check")
+        return 0
 
     proj, affine, ks = {}, {}, {}
     for grp in (g1, g2):
@@ -2855,6 +3136,8 @@ def main(argv=None) -> int:
         kernels_chain(dev, rep, quick=True)
         kernels_sumcheck(dev, rep, lat_us, lat_fr, quick=True)
         kernels_bw6(dev, rep, quick=True)
+        kernels_fr381(dev, rep, quick=True)
+        phase_bls381(dev, 4, profiled=False)
         phase_nizk_golden(dev)
         phase_sqrt_pst(dev, 10, full=False)
         for grp in (g1, g2):
@@ -2934,6 +3217,13 @@ def main(argv=None) -> int:
         note(path, snap)
     say(f"BW6 done in {time.time() - t_bw6:.1f} s ({time.time() - t_start:.1f} s)")
 
+    # BLS12-381: the R1CS proof at Testudo's own size for this curve, 1024
+    # constraints (paths bls381_setup, bls381_prove, bls381_verify, bls381_pst)
+    t_381 = time.time()
+    for path, snap in phase_bls381(dev, 10).items():
+        note(path, snap)
+    say(f"BLS12-381 done in {time.time() - t_381:.1f} s ({time.time() - t_start:.1f} s)")
+
     # the measuring harness: the chain kernels' own path
     note("harness", phase_harness(dev))
     say(f"harness done ({time.time() - t_start:.1f} s)")
@@ -2953,6 +3243,8 @@ def main(argv=None) -> int:
     lap("kernels: sumcheck")
     kernels_bw6(dev, rep, quick=False)
     lap("kernels: 761-bit product")
+    kernels_fr381(dev, rep, quick=False)
+    lap("kernels: fr381 product")
     kernels_group(dev, g1, rep, proj["g1"], *batches["g1", 20], *batches["g1", 20], lat_us,
                   quick=False)
     lap("kernels: G1")

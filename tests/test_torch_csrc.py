@@ -20,7 +20,7 @@ from testudo_tpu_torch.curves import host_curve as hc
 from testudo_tpu_torch.device import build, packed_field
 from testudo_tpu_torch.device import curve as tc
 from testudo_tpu_torch.device.curve_generic import FQ761
-from testudo_tpu_torch.device.field import FQ, FR
+from testudo_tpu_torch.device.field import FQ, FR, FR381
 from testudo_tpu_torch.device.packed_curve import G1P, G2P, longest_first
 from testudo_tpu_torch.fields.bls12_377 import P, R
 
@@ -46,9 +46,11 @@ def test_constant_tables_match_the_fields_module():
     assert _value(_words("FR_P")) == R and len(_words("FR_P")) == 8
     assert _value(_words("FQ_ONE")) == (1 << 384) % P == FQ.r_mod_p
     assert _value(_words("FQ761_P")) == FQ761.modulus and len(_words("FQ761_P")) == 24
+    assert _value(_words("FR381_P")) == FR381.modulus and len(_words("FR381_P")) == 8
     text = (build.CSRC / "fp.cuh").read_text()
     invs = [int(v, 16) for v in re.findall(r"INV = (0x[0-9a-f]+)u", text)]
-    assert invs == [(-pow(q, -1, 1 << 32)) % (1 << 32) for q in (P, R, FQ761.modulus)]
+    assert invs == [(-pow(q, -1, 1 << 32)) % (1 << 32)
+                    for q in (P, R, FQ761.modulus, FR381.modulus)]
     assert invs[2] == 0x8FA798DD  # q761 is not 1 mod 2^32: its INV is no all-ones word
 
 
@@ -165,7 +167,8 @@ def test_device_mont_mul_equals_plain(host_lib, spec):
     at = torch.from_numpy(np.ascontiguousarray(spec.to_limbs(va).T))
     bt = torch.from_numpy(np.ascontiguousarray(spec.to_limbs(vb).T))
     out = torch.empty_like(at)
-    rc = host_lib.host_mont_mul(_ptr(at), _ptr(bt), _ptr(out), ctypes.c_int(spec.nlimbs), ctypes.c_long(m))
+    rc = host_lib.host_mont_mul(_ptr(at), _ptr(bt), _ptr(out), ctypes.c_int(packed_field.field_id(spec)),
+                              ctypes.c_long(m))
     assert rc == 0
     assert torch.equal(out, packed_field.mont_mul_rows_plain(spec, at, bt))
 
@@ -184,7 +187,7 @@ def test_device_row_major_mont_mul_equals_plain(host_lib, spec):
     two full operands and one shared second operand, a ragged length.
     tests/test_torch_mont_mul_rm.py covers the tiling in depth."""
     n = 131
-    nl = ctypes.c_int(spec.nlimbs)
+    nl = ctypes.c_int(packed_field.field_id(spec))  # the field, by modulus
     a = torch.from_numpy(spec.to_limbs(_elements(spec, n, 72)))
     b = torch.from_numpy(spec.to_limbs(_elements(spec, n, 73)[::-1]).copy())
     one = b[17].clone()
@@ -215,7 +218,7 @@ def test_device_mont_chain_bodies_equal_plain(host_lib, spec):
         spec.to_limbs(_elements(spec, G * L, seed))).reshape(G, L, -1).transpose(1, 2).contiguous()
     a, b = rows(74), rows(75)
     want = packed_field.mont_mul_chain_plain(spec, a, b, K)
-    nl = ctypes.c_int(spec.nlimbs)
+    nl = ctypes.c_int(packed_field.field_id(spec))  # the field, by modulus
     for wide in (0, 1):
         for inline_body in (0, 1):
             out = torch.full_like(a, -1)
@@ -235,7 +238,7 @@ def test_device_row_major_mont_mul_761_equals_plain(host_lib):
     on a shared second operand, a ragged length, edge values; the tiled form
     is refused."""
     n = 67
-    nl = ctypes.c_int(FQ761.nlimbs)
+    nl = ctypes.c_int(packed_field.field_id(FQ761))
     a = torch.from_numpy(FQ761.to_limbs(_elements(FQ761, n, 76)))
     b = torch.from_numpy(FQ761.to_limbs(_elements(FQ761, n, 77)[::-1]).copy())
     one = b[5].clone()
@@ -262,7 +265,7 @@ def test_device_mont_chain_761_equals_plain(host_lib):
     a = torch.from_numpy(FQ761.to_limbs(_elements(FQ761, L, 78)).T.copy())
     b = torch.from_numpy(FQ761.to_limbs(_elements(FQ761, L, 79)).T.copy())
     want = packed_field.mont_mul_chain_plain(FQ761, a, b, K)
-    nl = ctypes.c_int(FQ761.nlimbs)
+    nl = ctypes.c_int(packed_field.field_id(FQ761))
     for inline_body in (0, 1):
         out = torch.full_like(a, -1)
         rc = host_lib.host_mont_chain_group(_ptr(a), _ptr(b), _ptr(out), nl, 1, ctypes.c_long(L),

@@ -29,7 +29,7 @@ import torch
 from testudo_tpu.tpu import field as jf
 from testudo_tpu.tpu import sponge as jsp
 from testudo_tpu_torch.core import sumcheck as sc
-from testudo_tpu_torch.device import build
+from testudo_tpu_torch.device import build, packed_field
 from testudo_tpu_torch.device import sponge as ds
 from testudo_tpu_torch.device import sumcheck_kernels as sk
 from testudo_tpu_torch.device.field import FQ, FR
@@ -217,7 +217,8 @@ def test_permutation_body_equals_plain(host_lib, field):
     spec, _, modulus = SPECS[field]
     batch = torch.as_tensor(np.stack([spec.encode(s) for s in _states(modulus)]))
     out = torch.full_like(batch, -1)
-    assert host_lib.host_poseidon_permute(_ptr(batch), _ptr(out), spec.nlimbs, len(batch)) == 0
+    fid = packed_field.field_id(spec)  # the kernels' id of the field, by modulus
+    assert host_lib.host_poseidon_permute(_ptr(batch), _ptr(out), fid, len(batch)) == 0
     assert torch.equal(out, ds.permute_plain(spec, batch))
     assert host_lib.host_poseidon_permute(_ptr(batch), _ptr(out), 20, 1) == -1
 
@@ -242,7 +243,8 @@ def test_tail_body_equals_plain(host_lib, field, kind):
         want = sk.sumcheck_tail_plain(kind, partials, coeffs, e, state, spec, mode, index)
         got = [torch.full_like(w, -1) for w in want]
         rc = host_lib.host_sumcheck_tail(_ptr(partials), _ptr(coeffs), _ptr(e), _ptr(state),
-                                         *map(_ptr, got), npts, k, nb, spec.nlimbs, mode, index)
+                                         *map(_ptr, got), npts, k, nb,
+                                         packed_field.field_id(spec), mode, index)
         assert rc == 0
         for g, w in zip(got, want):
             assert torch.equal(g, w), (mode, index)

@@ -66,7 +66,9 @@ def test_new_modules_are_all_there():
                  "core.nizk", "core.polycommit", "core.product_tree", "core.spark",
                  "core.circuit", "core.ntt", "core.groth16", "examples.cubic",
                  "fields.bw6_761", "curves.bw6_761", "device.curve_generic",
-                 "core.circuit_verifier", "core.groth16_bw6", "tools.exp_bw6"):
+                 "core.circuit_verifier", "core.groth16_bw6", "tools.exp_bw6",
+                 "fields.tower", "fields.bls12_381", "curves.bls12_381",
+                 "poseidon.constants_381"):
         importlib.import_module("testudo_tpu_torch." + name)
 
 
@@ -165,6 +167,30 @@ def test_bw6_entry_points_default_to_cuda_and_raise_without_a_card():
     with pytest.raises((RuntimeError, AssertionError, TypeError)):
         packed_field.mont_mul_rm(cg.FQ761, torch.zeros((2, 48), dtype=torch.int32, device=cuda),
                                  torch.zeros((2, 48), dtype=torch.int32, device=cuda))
+
+
+def test_bls381_entry_points_default_to_cuda_and_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device works")
+    import inspect
+
+    from testudo_tpu_torch.core import pst, r1csproof
+    from testudo_tpu_torch.curves import profile as cprof
+    from testudo_tpu_torch.device import packed_field
+    from testudo_tpu_torch.device.field import FR381
+
+    cuda = torch.device("cuda")
+    assert inspect.signature(cprof.bls12_381).parameters["device"].default == cuda
+    prof = cprof.bls12_381()
+    assert prof.device == cuda and prof.fr_spec == FR381
+    with pytest.raises((RuntimeError, AssertionError)):
+        r1csproof.R1CSGens.setup(16, profile=prof)  # the Fr tables live on the card
+    with pytest.raises((RuntimeError, AssertionError)):
+        pst.setup(2, seed=b"381", profile=prof)
+    # a 16-limb CUDA tensor of BLS12-381's Fr reaches its kernel or raises
+    with pytest.raises((RuntimeError, AssertionError, TypeError)):
+        packed_field.mont_mul_rm(FR381, torch.zeros((2, 16), dtype=torch.int32, device=cuda),
+                                 torch.zeros((2, 16), dtype=torch.int32, device=cuda))
 
 
 def test_no_port_source_mentions_the_jax_imports():

@@ -72,7 +72,8 @@ def _operands(spec, n, seed):
 
 def _run(lib, spec, a, b, shared, grid):
     out = torch.full_like(a, -1)
-    rc = lib.host_mont_mul_rm(_ptr(a), _ptr(b), _ptr(out), spec.nlimbs, a.shape[0], int(shared),
+    rc = lib.host_mont_mul_rm(_ptr(a), _ptr(b), _ptr(out), packed_field.field_id(spec),
+                              a.shape[0], int(shared),
                               grid)
     assert rc == 0, rc
     return out
@@ -119,10 +120,11 @@ def test_non_canonical_operand_is_reduced(host_lib, name):
 def test_bad_arguments_are_refused(host_lib):
     a, b = _operands(FR, 3 * TILE, seed=5)
     out = torch.empty_like(a)
+    fr = packed_field.field_id(FR)
     assert host_lib.host_mont_mul_rm(_ptr(a), _ptr(b), _ptr(out), 20, 3 * TILE, 0, 1) == -1
-    assert host_lib.host_mont_mul_rm(_ptr(a), _ptr(b), _ptr(out), 16, 3 * TILE, 0, 4) == -2
-    assert host_lib.host_mont_mul_rm(_ptr(a), _ptr(b), _ptr(out), 16, 3 * TILE, 0, -1) == -2
-    assert host_lib.host_mont_mul_rm(_ptr(a), _ptr(b), _ptr(out), 16, 0, 0, 1) == 0
+    assert host_lib.host_mont_mul_rm(_ptr(a), _ptr(b), _ptr(out), fr, 3 * TILE, 0, 4) == -2
+    assert host_lib.host_mont_mul_rm(_ptr(a), _ptr(b), _ptr(out), fr, 3 * TILE, 0, -1) == -2
+    assert host_lib.host_mont_mul_rm(_ptr(a), _ptr(b), _ptr(out), fr, 0, 0, 1) == 0
 
 
 @pytest.mark.parametrize("name", ["fq", "fr"])
@@ -133,7 +135,8 @@ def test_swizzle_spreads_a_quarter_warp_over_the_banks(host_lib, name):
     wavefront."""
     spec = SPECS[name][0]
     ch = spec.nlimbs // 4  # 16-byte chunks a row
-    slots = np.array([[host_lib.host_rm_slot(spec.nlimbs, r, k) for k in range(ch)]
+    fid = packed_field.field_id(spec)
+    slots = np.array([[host_lib.host_rm_slot(fid, r, k) for k in range(ch)]
                       for r in range(TILE)])
     assert all(set(slots[r]) == set(range(ch * r, ch * r + ch)) for r in range(TILE))
     for r0 in range(0, TILE, 8):

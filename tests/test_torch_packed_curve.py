@@ -249,8 +249,8 @@ def test_cpu_path_launches_no_kernel():
     ec = {"add2", "add_mask", "step", "scan2", "scan2b", "ladder", "ladder_team", "ladder_wide",
           "bucket", "bucket_mixed", "wsum", "chain_team", "fold_team", "fixed_base",
           "fixed_base_one"}
-    field = {"mont_mul", "mont_mul_rm_fq", "mont_mul_rm_fr", "mont_mul_rm_bw6fq", "mont_chain",
-             "mont_chain_seq", "mont_chain_wide"}
+    field = {"mont_mul", "mont_mul_rm_fq", "mont_mul_rm_fr", "mont_mul_rm_bw6fq",
+             "mont_mul_rm_fr381", "mont_chain", "mont_chain_seq", "mont_chain_wide"}
     sumcheck = {"poseidon_permute", "sumcheck_round", "sumcheck_tail"}
     assert set(build.LAUNCHES) == field | sumcheck | ec | {k + "_g2" for k in ec}
 

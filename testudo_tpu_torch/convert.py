@@ -12,6 +12,10 @@ keeps the reference's nesting, every coordinate a (c0, c1) pair.
 Host objects (affine points over `Fq2`, `Fq12` pairing values, PST keys, a
 MIPP proof) are carried across by their components: each package has its own
 tower classes, so an object of one never compares equal to the other's.
+The keys, MIPP proofs and R1CS proofs convert over either BLS12 curve: the
+port's tower classes are those of the profile's curve (fields/host.py for
+BLS12-377, curves/bls12_381.py for BLS12-381), and a round polynomial keeps
+its modulus.
 The `*_from_reference` functions read the reference's objects by attribute
 and build the port's; the `*_to_reference` functions are handed the
 reference's `fields.host` module and classes by the caller, since nothing
@@ -152,11 +156,23 @@ def fq12_to_reference(x: hf.Fq12, towers):
     return _tower_from(x, towers)
 
 
-def _group_batch_from_reference(batch, backend):
+def towers_of(profile):
+    """The port's module of tower classes (Fq2, Fq6, Fq12) for `profile`'s
+    curve; BLS12-377's when `profile` is None."""
+    if profile is None or profile.name == "bls12_377":
+        return hf
+    if profile.name == "bls12_381":
+        from .curves import bls12_381
+
+        return bls12_381
+    raise ValueError(f"no tower classes for the curve {profile.name!r}")
+
+
+def _group_batch_from_reference(batch, backend, towers=hf):
     """One level of a key: a list of the reference's host affine points, or
     its limb pytree (as numpy), -> the repr of the port's `backend`."""
     if isinstance(batch, list):
-        return backend.from_affine([host_point_from_reference(p) for p in batch])
+        return backend.from_affine([_point_from(p, towers) for p in batch])
     device = getattr(backend, "device", None)
     if device is None:
         raise TypeError("a limb pytree converts only for the port's device backend")
@@ -166,15 +182,17 @@ def _group_batch_from_reference(batch, backend):
 def committer_key_from_reference(ck, profile):
     """The reference's `CommitterKey` (read by attribute: nv, powers_of_g,
     powers_of_h, g, h; the powers either host point lists or limb pytrees
-    already turned into numpy) -> the port's key over `profile`."""
+    already turned into numpy) -> the port's key over `profile` (either
+    BLS12 curve)."""
     from .core import pst
 
+    towers = towers_of(profile)
     return pst.CommitterKey(
         ck.nv,
-        [_group_batch_from_reference(lvl, profile.g1b) for lvl in ck.powers_of_g],
-        [_group_batch_from_reference(lvl, profile.g2b) for lvl in ck.powers_of_h],
-        host_point_from_reference(ck.g),
-        host_point_from_reference(ck.h),
+        [_group_batch_from_reference(lvl, profile.g1b, towers) for lvl in ck.powers_of_g],
+        [_group_batch_from_reference(lvl, profile.g2b, towers) for lvl in ck.powers_of_h],
+        _point_from(ck.g, towers),
+        _point_from(ck.h, towers),
         profile,
     )
 
@@ -182,12 +200,13 @@ def committer_key_from_reference(ck, profile):
 def verifier_key_from_reference(vk, profile):
     from .core import pst
 
+    towers = towers_of(profile)
     return pst.VerifierKey(
         vk.nv,
-        host_point_from_reference(vk.g),
-        host_point_from_reference(vk.h),
-        [host_point_from_reference(p) for p in vk.g_mask],
-        [host_point_from_reference(p) for p in vk.h_mask],
+        _point_from(vk.g, towers),
+        _point_from(vk.h, towers),
+        [_point_from(p, towers) for p in vk.g_mask],
+        [_point_from(p, towers) for p in vk.h_mask],
         profile,
     )
 
@@ -203,10 +222,12 @@ def _mipp_proof(proof, towers, proof_cls):
     )
 
 
-def mipp_proof_from_reference(proof):
+def mipp_proof_from_reference(proof, profile=None):
+    """The reference's `MippProof` in the port's classes of `profile`'s curve
+    (default BLS12-377)."""
     from .core import mipp
 
-    return _mipp_proof(proof, hf, mipp.MippProof)
+    return _mipp_proof(proof, towers_of(profile), mipp.MippProof)
 
 
 def mipp_proof_to_reference(proof, towers, proof_cls):
@@ -218,10 +239,20 @@ def mipp_proof_to_reference(proof, towers, proof_cls):
 # -- R1CS instances and proofs --------------------------------------------------
 
 
+def scalar_spec(modulus: int):
+    """The port's scalar field spec of that modulus (either BLS12 curve's Fr)."""
+    from .device.field import FR381
+
+    for spec in (FR, FR381):
+        if spec.modulus == modulus:
+            return spec
+    raise ValueError(f"no scalar field of modulus {modulus:#x}")
+
+
 def r1cs_instance_from_reference(inst):
     """The reference's `R1CSInstance` (num_cons, num_vars, num_inputs and
-    each matrix's rows / cols arrays and vals ints), or its `Instance`
-    (the same under `.inst`, with its digest), as the port's."""
+    each matrix's rows / cols arrays, vals ints and scalar field), or its
+    `Instance` (the same under `.inst`, with its digest), as the port's."""
     from .core import r1cs
 
     if hasattr(inst, "inst"):
@@ -234,7 +265,8 @@ def r1cs_instance_from_reference(inst):
     def mat(m):
         return r1cs.SparseMatPolynomial(
             int(m.num_vars_x), int(m.num_vars_y), np.asarray(m.rows, dtype=np.int32),
-            np.asarray(m.cols, dtype=np.int32), [int(v) for v in m.vals])
+            np.asarray(m.cols, dtype=np.int32), [int(v) for v in m.vals],
+            spec=scalar_spec(int(m.spec.modulus)))
 
     return r1cs.R1CSInstance(int(inst.num_cons), int(inst.num_vars), int(inst.num_inputs),
                              mat(inst.A), mat(inst.B), mat(inst.C))
@@ -244,7 +276,8 @@ def _r1cs_proof(proof, towers, proof_cls, sumcheck_cls, unipoly_cls, mipp_cls):
     point = lambda p: _point_from(p, towers)
 
     def sc(s):
-        return sumcheck_cls([unipoly_cls([int(c) for c in p.coeffs]) for p in s.polys])
+        return sumcheck_cls([unipoly_cls([int(c) for c in p.coeffs], int(p.modulus))
+                             for p in s.polys])
 
     return proof_cls(
         point(proof.comm_U),
@@ -262,13 +295,14 @@ def _r1cs_proof(proof, towers, proof_cls, sumcheck_cls, unipoly_cls, mipp_cls):
     )
 
 
-def r1cs_proof_from_reference(proof):
-    """The reference's `R1CSProof` in the port's classes."""
+def r1cs_proof_from_reference(proof, profile=None):
+    """The reference's `R1CSProof` in the port's classes of `profile`'s
+    curve (default BLS12-377)."""
     from .core import mipp, r1csproof, sumcheck
     from .poly.unipoly import UniPoly
 
-    return _r1cs_proof(proof, hf, r1csproof.R1CSProof, sumcheck.SumcheckInstanceProof,
-                       UniPoly, mipp.MippProof)
+    return _r1cs_proof(proof, towers_of(profile), r1csproof.R1CSProof,
+                       sumcheck.SumcheckInstanceProof, UniPoly, mipp.MippProof)
 
 
 def r1cs_proof_to_reference(proof, towers, proof_cls, sumcheck_cls, unipoly_cls, mipp_cls):

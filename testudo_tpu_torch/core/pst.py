@@ -163,8 +163,11 @@ def setup(
     sizes = [t.shape[0] for t in tables]
     scalars = spec.decode(torch.cat(tables, dim=0))
     teq.stop()
+    # host backends compute the keys here; device backends only enqueue them
+    tkeys = Timer("pst::setup keys")
     all_g = profile.g1b.fixed_base_mul(g, scalars)
     all_h = profile.g2b.fixed_base_mul(h, scalars)
+    tkeys.stop()
     powers_of_g, powers_of_h = [], []
     off = 0
     for s in sizes:

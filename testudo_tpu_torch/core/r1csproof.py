@@ -23,8 +23,11 @@ commented out, r1csproof.rs:465-485; the JAX package does not reproduce
 that, nor does this one).
 
 The prover's tables live on the device of the generators' curve profile;
-both sumcheck phases take the fused provers unless `prove(..., fused=False)`
-asks for the looped ones (core/sumcheck.py); the `Timer` labels (`polycommit (sqrt-PST)`, `prove_sc_phase_one`,
+both sumcheck phases take the provers the profile names
+(`CurveProfile.fused_sumcheck`: fused over BLS12-377, looped over
+BLS12-381, as the JAX package), unless `prove(..., fused=...)` asks for
+the other kind (core/sumcheck.py); the transcript is re-keyed with the
+profile's scalar modulus; the `Timer` labels (`polycommit (sqrt-PST)`, `prove_sc_phase_one`,
 `prove_sc_phase_two`, `polyeval (sqrt-PST open)`) split a prove.
 
 The Groth16 half (r1csproof.rs:67-152, 374-487): `CircuitGens` holds the
@@ -39,7 +42,7 @@ out and the JAX package keeps.  Timer labels: `groth16::circuit build`
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 from ..device import field as tf
 from ..fields.host import Fq12
@@ -88,16 +91,18 @@ def prove(
     inputs: List[int],
     gens: R1CSGens,
     transcript,
-    fused: bool = True,
+    fused: Optional[bool] = None,
 ) -> Tuple[R1CSProof, List[int], List[int]]:
-    """R1CSProof::prove; `fused` picks the sumcheck provers (fused, the
-    default, or looped: the same proof)."""
+    """R1CSProof::prove; `fused` picks the sumcheck provers (fused or
+    looped: the same proof; None, the default, takes the profile's)."""
     if len(inputs) >= len(vars_):
         raise ValueError(f"{len(inputs)} inputs need more than {len(vars_)} variables")
     profile = gens.ck.profile
     spec = profile.fr_spec
     R = profile.R  # noqa: N806 — scalar modulus of the active curve
     dev = profile.device
+    if fused is None:
+        fused = profile.fused_sumcheck
 
     tm = Timer("r1csproof::prove")
     t_c = Timer("polycommit (sqrt-PST)")
@@ -108,7 +113,7 @@ def prove(
     transcript.append_bytes(profile.ser_gt(t))
 
     initial_state = transcript.challenge_scalar(R)
-    transcript.new_from_state(initial_state)
+    transcript.new_from_state(initial_state, R)
     transcript.append_scalar_vector(inputs, R)
 
     z = inst.z_vector(vars_, inputs)
@@ -150,7 +155,7 @@ def prove(
     t_p2.stop()
 
     transcript_sat_state = transcript.challenge_scalar(R)
-    transcript.new_from_state(transcript_sat_state)
+    transcript.new_from_state(transcript_sat_state, R)
 
     t_o = Timer("polyeval (sqrt-PST open)")
     comm_U, pst_proof, mipp_proof = pl.open(transcript, comm_dev, gens.ck, ry[1:], t)
@@ -210,7 +215,7 @@ def verify_native(
     initial_state = transcript.challenge_scalar(R)
     if initial_state != proof.initial_state:
         return False
-    transcript.new_from_state(initial_state)
+    transcript.new_from_state(initial_state, R)
     transcript.append_scalar_vector(inputs, R)
 
     num_rounds_x = num_cons.bit_length() - 1

@@ -18,6 +18,11 @@ csrc/sumcheck_tail.cu); the sponge's mode machine is replayed in Python
 plain versions (device/sumcheck_kernels.py, which also holds the
 reference's `_unipoly_coeffs_dev` and `_horner_dev`; device/sponge.py).
 
+The fused provers exist over BLS12-377's Fr only (the sponge's kernels hold
+that curve's Poseidon constants; the round kernel is built for its Fr): a
+prover asked to fuse over another field raises.  BLS12-381's R1CS proof
+takes the looped provers, as its profile says (curves/profile.py).
+
 The looped provers (`fused=False`, and `num_rounds = 0`) compute each
 round's evaluations on the device, pull them to the host in one copy,
 absorb the coefficients into the host transcript, squeeze one challenge,
@@ -262,6 +267,17 @@ def _batched_claims(finals: List[int], k_par: int, k_seq: int):
 # -- provers ----------------------------------------------------------------
 
 
+def _fuse(fused: bool, num_rounds: int, spec) -> bool:
+    """Whether a prover fuses: asked to, with rounds to prove; raises when
+    asked to over a field the fused kernels are not built for."""
+    if not fused or num_rounds == 0:
+        return False
+    if spec != FR:
+        raise ValueError(f"the fused sumcheck runs over BLS12-377's Fr only, not {spec.name}: "
+                         "pass fused=False")
+    return True
+
+
 def prove_cubic_with_additive_term(
     claim: int,
     num_rounds: int,
@@ -274,9 +290,9 @@ def prove_cubic_with_additive_term(
     fused: bool = True,
 ) -> Tuple[SumcheckInstanceProof, List[int], List[int]]:
     """Phase-1 Spartan sumcheck over tau * (A*B - C) (sumcheck.rs:67-148).
-    Returns (proof, r, [tau, A, B, C] bound at r).  Fused where the
-    reference fuses: `fused`, rounds to prove and Fr tables."""
-    if fused and num_rounds > 0 and spec == FR:
+    Returns (proof, r, [tau, A, B, C] bound at r).  Fused when `fused` and
+    there are rounds to prove (BLS12-377's Fr tables only)."""
+    if _fuse(fused, num_rounds, spec):
         return _prove_fused("cubic_tau", claim, num_rounds, (tau, A, B, C), transcript)
     return _prove_looped(_round_evals_cubic_tau_s, claim, num_rounds, (tau, A, B, C),
                          transcript, spec)
@@ -292,7 +308,7 @@ def prove_quad(
     fused: bool = True,
 ) -> Tuple[SumcheckInstanceProof, List[int], List[int]]:
     """Phase-2 Spartan sumcheck over A*B (sumcheck.rs:387-443)."""
-    if fused and num_rounds > 0 and spec == FR:
+    if _fuse(fused, num_rounds, spec):
         return _prove_fused("quad", claim, num_rounds, (A, B), transcript)
     return _prove_looped(_round_evals_quad_s, claim, num_rounds, (A, B), transcript, spec)
 

@@ -1,6 +1,7 @@
 // Prime-field arithmetic for the Hopper kernels: BLS12-377 Fq (and Fr for
 // the stand-alone Montgomery kernel, BW6-761's 761-bit Fq for its row-major
-// product and chain), one field element per thread.
+// product and chain, BLS12-381's Fr for its row-major product, K1 and
+// chain), one field element per thread.
 //
 // Replaces the in-kernel field layer of the TPU kernels
 // (testudo_tpu/tpu/pallas_field.py:40-155 `_carry_ripple_rows`,
@@ -64,10 +65,19 @@ FP_TABLE u32 FQ761_P[24] = {
     0x25b42304u, 0x03cebaffu, 0xe584e919u, 0x707ba638u, 0x8087be41u, 0x528275efu,
     0x81d14688u, 0xb926186au, 0x04faff3eu, 0xd187c940u, 0xfb83ce0au, 0x0122e824u};
 
+// BLS12-381's scalar field r (fields/bls12_381.py), 255 bits in 8 words.
+// R / r is about 2.2 (7.6 for BLS12-377's Fr): less room for the non-canonical
+// operands below R that `_fold_wide` hands the product, which the CIOS body
+// takes all the same (its running sum keeps a top word: `t_top`).
+FP_TABLE u32 FR381_P[8] = {
+    0x00000001u, 0xffffffffu, 0xfffe5bfeu, 0x53bda402u,
+    0x09a1d805u, 0x3339d808u, 0x299d7d48u, 0x73eda753u};
+
 // Field descriptors.  INV = -p^{-1} mod 2^32: the low word of the full-width
 // N' the TPU kernel multiplies by (pallas_field.py:229).  Both BLS12-377
-// moduli are 1 mod 2^32, so their INV is all ones; q761's is not, and every
-// body here reads F::INV.
+// moduli and BLS12-381's r are 1 mod 2^32, so their INV is all ones
+// (tests/test_torch_bls12_381_kernel.py computes every INV from its table);
+// q761's is not, and every body here reads F::INV.
 struct FqParams {
   static constexpr int N = 12;
   static constexpr u32 INV = 0xffffffffu;
@@ -82,6 +92,23 @@ struct Fq761Params {
   static constexpr int N = 24;
   static constexpr u32 INV = 0x8fa798ddu;
   FP_MEMBER static const u32* mod() { return FQ761_P; }
+};
+struct Fr381Params {
+  static constexpr int N = 8;
+  static constexpr u32 INV = 0xffffffffu;
+  FP_MEMBER static const u32* mod() { return FR381_P; }
+};
+
+// The field a Montgomery launcher (mont_mul.cu, mont_mul_rm.cu,
+// mont_chain.cu) and its host body (host_check.cpp) runs in, named by the
+// caller: device/packed_field.py derives it from the modulus, never from the
+// limb count (BLS12-377's Fr and BLS12-381's Fr both have 16 limbs).  No id
+// is a limb count, so a caller that passes one is refused.
+enum FieldId {
+  FIELD_FR = 1,      // BLS12-377 Fr, 16 limbs
+  FIELD_FQ = 2,      // BLS12-377 Fq, 24 limbs
+  FIELD_FQ761 = 3,   // BW6-761 Fq, 48 limbs
+  FIELD_FR381 = 4,   // BLS12-381 Fr, 16 limbs
 };
 
 template <class F>
@@ -123,7 +150,7 @@ FP_FN void fp_cond_sub_p(u32* r, const u32* t, u32 hi) {
 }
 
 // r = a + b mod p.  Every modulus leaves spare top bits (377 of 384, 253 of
-// 256, 761 of 768), so a + b < 2p never carries out of N words.
+// 256, 761 of 768, 255 of 256), so a + b < 2p never carries out of N words.
 template <class F>
 FP_FN void fp_add(u32* r, const u32* a, const u32* b) {
   constexpr int N = F::N;

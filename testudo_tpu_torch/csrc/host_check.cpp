@@ -282,53 +282,64 @@ static void host_tail(const int* partials, const int* inst_coeffs, const int* e_
 
 extern "C" {
 
-int host_mont_mul(const int* a, const int* b, int* out, int nlimbs, long m) {
+int host_mont_mul(const int* a, const int* b, int* out, int field, long m) {
+  if (field != FIELD_FQ && field != FIELD_FR && field != FIELD_FR381) return -1;
   for (long lane = 0; lane < m; lane++) {
-    if (nlimbs == 24)
+    if (field == FIELD_FQ)
       lane_mont_mul<FqParams>(a, b, out, m, lane);
-    else if (nlimbs == 16)
+    else if (field == FIELD_FR)
       lane_mont_mul<FrParams>(a, b, out, m, lane);
     else
-      return -1;
+      lane_mont_mul<Fr381Params>(a, b, out, m, lane);
   }
   return 0;
 }
 
-// Row-major product of (n, nlimbs) arrays, b one element when shared_b: the
-// tiled form on `grid` blocks (1 .. the tiles) that walk the tiles as
-// k_mont_mul_rm does, or with grid 0 the narrow form's body on every lane of
-// its blocks.
-int host_mont_mul_rm(const int* a, const int* b, int* out, int nlimbs, long n, int shared_b,
+// Row-major product of (n, nlimbs) arrays of the field `field` (a FieldId),
+// b one element when shared_b: the tiled form on `grid` blocks (1 .. the
+// tiles) that walk the tiles as k_mont_mul_rm does, or with grid 0 the
+// narrow form's body on every lane of its blocks.
+int host_mont_mul_rm(const int* a, const int* b, int* out, int field, long n, int shared_b,
                      long grid) {
-  if (nlimbs == 48) {  // BW6-761's Fq: the narrow form only, as the launcher
-    if (grid != 0) return -2;
-    return shared_b ? host_rm<Fq761Params, true>(a, b, out, n, 0)
-                    : host_rm<Fq761Params, false>(a, b, out, n, 0);
+  switch (field) {
+    case FIELD_FQ761:  // the narrow form only, as the launcher
+      if (grid != 0) return -2;
+      return shared_b ? host_rm<Fq761Params, true>(a, b, out, n, 0)
+                      : host_rm<Fq761Params, false>(a, b, out, n, 0);
+    case FIELD_FQ:
+      return shared_b ? host_rm<FqParams, true>(a, b, out, n, grid)
+                      : host_rm<FqParams, false>(a, b, out, n, grid);
+    case FIELD_FR:
+      return shared_b ? host_rm<FrParams, true>(a, b, out, n, grid)
+                      : host_rm<FrParams, false>(a, b, out, n, grid);
+    case FIELD_FR381:
+      return shared_b ? host_rm<Fr381Params, true>(a, b, out, n, grid)
+                      : host_rm<Fr381Params, false>(a, b, out, n, grid);
+    default:
+      return -1;
   }
-  if (nlimbs == 24)
-    return shared_b ? host_rm<FqParams, true>(a, b, out, n, grid)
-                    : host_rm<FqParams, false>(a, b, out, n, grid);
-  if (nlimbs == 16)
-    return shared_b ? host_rm<FrParams, true>(a, b, out, n, grid)
-                    : host_rm<FrParams, false>(a, b, out, n, grid);
-  return -1;
 }
 
-// Slot of chunk k of row r in a staged tile of the row-major kernel.
-int host_rm_slot(int nlimbs, int r, int k) {
-  return nlimbs == 24 ? rm_slot<FqParams>(r, k) : rm_slot<FrParams>(r, k);
+// Slot of chunk k of row r in a staged tile of the row-major kernel (the
+// layout follows the row's width: Fq's 6 chunks, or 4 for either Fr).
+int host_rm_slot(int field, int r, int k) {
+  return field == FIELD_FQ ? rm_slot<FqParams>(r, k) : rm_slot<FrParams>(r, k);
 }
 
 // K chained products on (G, nlimbs, L); wide = 0 needs G = 6.  The plain
-// chain on (nlimbs, L) is G = 1, wide = 1, the only form at 48 limbs.
-int host_mont_chain_group(const int* a, const int* b, int* out, int nlimbs, int G, long L,
+// chain on (nlimbs, L) is G = 1, wide = 1, the only form of BW6-761's Fq and
+// BLS12-381's Fr.
+int host_mont_chain_group(const int* a, const int* b, int* out, int field, int G, long L,
                           int K, int wide, int inline_body) {
   if (!wide && G != 6) return -1;
-  if (nlimbs == 48 && G == 1 && wide)
+  const bool single = G == 1 && wide;
+  if (field == FIELD_FQ761 && single)
     host_chain<Fq761Params>(a, b, out, G, L, K, wide, inline_body);
-  else if (nlimbs == 24)
+  else if (field == FIELD_FR381 && single)
+    host_chain<Fr381Params>(a, b, out, G, L, K, wide, inline_body);
+  else if (field == FIELD_FQ)
     host_chain<FqParams>(a, b, out, G, L, K, wide, inline_body);
-  else if (nlimbs == 16)
+  else if (field == FIELD_FR)
     host_chain<FrParams>(a, b, out, G, L, K, wide, inline_body);
   else
     return -1;
@@ -484,22 +495,23 @@ int host_bucket(const int* table, const int* idx, const int* start, const int* c
   });
 }
 
-// Poseidon permutations of (nstates, 3, nlimbs) states, as poseidon.cu.
-int host_poseidon_permute(const int* in, int* out, int nlimbs, long nstates) {
+// Poseidon permutations of (nstates, 3, nlimbs) states of the field `field`
+// (FIELD_FR or FIELD_FQ), as poseidon.cu.
+int host_poseidon_permute(const int* in, int* out, int field, long nstates) {
+  if (field != FIELD_FR && field != FIELD_FQ) return -1;
+  const int nlimbs = field == FIELD_FR ? 16 : 24;
   for (long st = 0; st < nstates; st++) {
     const long off = st * POS_T * nlimbs;
-    if (nlimbs == 16) {
+    if (field == FIELD_FR) {
       u32 s[POS_T][8];
       for (int e = 0; e < POS_T; e++) fp_load_row<FrParams>(s[e], in + off + e * nlimbs);
       pos_permute_host<FrParams>(s);
       for (int e = 0; e < POS_T; e++) fp_store_row<FrParams>(out + off + e * nlimbs, s[e]);
-    } else if (nlimbs == 24) {
+    } else {
       u32 s[POS_T][12];
       for (int e = 0; e < POS_T; e++) fp_load_row<FqParams>(s[e], in + off + e * nlimbs);
       pos_permute_host<FqParams>(s);
       for (int e = 0; e < POS_T; e++) fp_store_row<FqParams>(out + off + e * nlimbs, s[e]);
-    } else {
-      return -1;
     }
   }
   return 0;
@@ -532,7 +544,7 @@ int host_sumcheck_round(const int* src, int* dst, const int* r, int* partials, i
 // The tail of a round, as sumcheck_tail.cu (its arguments and return codes).
 int host_sumcheck_tail(const int* partials, const int* inst_coeffs, const int* e_in,
                        const int* state_in, int* coeffs_out, int* r_out, int* e_out,
-                       int* state_out, int npts, int k, int nblocks, int sponge_nlimbs, int mode,
+                       int* state_out, int npts, int k, int nblocks, int sponge_field, int mode,
                        int index) {
   if ((npts != 2 && npts != 3) || k < 1 || nblocks < 1 || (mode != 0 && mode != 1) ||
       index < 0 || index > POS_RATE)
@@ -540,9 +552,9 @@ int host_sumcheck_tail(const int* partials, const int* inst_coeffs, const int* e
 #define TAIL(S, P)                                                                         \
   host_tail<S, P>(partials, inst_coeffs, e_in, state_in, coeffs_out, r_out, e_out, state_out, \
                   k, nblocks, mode, index)
-  if (sponge_nlimbs == 16) {
+  if (sponge_field == FIELD_FR) {
     if (npts == 2) TAIL(FrParams, 2); else TAIL(FrParams, 3);
-  } else if (sponge_nlimbs == 24) {
+  } else if (sponge_field == FIELD_FQ) {
     if (npts == 2) TAIL(FqParams, 2); else TAIL(FqParams, 3);
   } else {
     return -1;

@@ -60,36 +60,38 @@ static int launch_chain_seq(const int* a, const int* b, int* out, long L, int K,
   return LAUNCH_STATUS();
 }
 
-// K chained products on (nlimbs, L) rows.  inline_body picks the
-// formulation (1: inlined, 0: the shared `fp_mul`).  nlimbs 48 (BW6-761's
-// Fq) is here for one number, the latency of one dependent 761-bit product
-// at one warp.  Returns the CUDA error code of the launch, or -1 for an
-// unknown field.
-extern "C" int testudo_mont_chain(const int* a, const int* b, int* out, int nlimbs, long L,
+// K chained products on (nlimbs, L) rows of the field `field` (a FieldId,
+// fp.cuh).  inline_body picks the formulation (1: inlined, 0: the shared
+// `fp_mul`).  BW6-761's Fq and BLS12-381's Fr are here for one number each,
+// the latency of one dependent product at one warp.  Returns the CUDA error
+// code of the launch, or -1 for an unknown field.
+extern "C" int testudo_mont_chain(const int* a, const int* b, int* out, int field, long L,
                                   int K, int inline_body, void* stream) {
+  if (field < FIELD_FR || field > FIELD_FR381) return -1;
   if (L <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (nlimbs == 24) return launch_chain<FqParams>(a, b, out, L, 1, K, inline_body, st);
-  if (nlimbs == 16) return launch_chain<FrParams>(a, b, out, L, 1, K, inline_body, st);
-  if (nlimbs == 48) return launch_chain<Fq761Params>(a, b, out, L, 1, K, inline_body, st);
-  return -1;
+  if (field == FIELD_FQ) return launch_chain<FqParams>(a, b, out, L, 1, K, inline_body, st);
+  if (field == FIELD_FR) return launch_chain<FrParams>(a, b, out, L, 1, K, inline_body, st);
+  if (field == FIELD_FQ761)
+    return launch_chain<Fq761Params>(a, b, out, L, 1, K, inline_body, st);
+  return launch_chain<Fr381Params>(a, b, out, L, 1, K, inline_body, st);
 }
 
-// The same on (G, nlimbs, L).  wide = 1: G * L lanes, one chain each;
-// wide = 0: L lanes, each thread runs its G chains step by step (G must be
-// 6, the size of the two product groups of the complete addition).  -1 for
-// an unknown field or group size.
-extern "C" int testudo_mont_chain_group(const int* a, const int* b, int* out, int nlimbs,
+// The same on (G, nlimbs, L), BLS12-377's Fq or Fr.  wide = 1: G * L lanes,
+// one chain each; wide = 0: L lanes, each thread runs its G chains step by
+// step (G must be 6, the size of the two product groups of the complete
+// addition).  -1 for another field or group size.
+extern "C" int testudo_mont_chain_group(const int* a, const int* b, int* out, int field,
                                         int G, long L, int K, int wide, int inline_body,
                                         void* stream) {
+  if (field != FIELD_FQ && field != FIELD_FR) return -1;
   if (L <= 0 || G <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (nlimbs != 24 && nlimbs != 16) return -1;
   if (wide) {
-    if (nlimbs == 24) return launch_chain<FqParams>(a, b, out, L, G, K, inline_body, st);
+    if (field == FIELD_FQ) return launch_chain<FqParams>(a, b, out, L, G, K, inline_body, st);
     return launch_chain<FrParams>(a, b, out, L, G, K, inline_body, st);
   }
   if (G != CHAIN_G) return -1;
-  if (nlimbs == 24) return launch_chain_seq<FqParams>(a, b, out, L, K, inline_body, st);
+  if (field == FIELD_FQ) return launch_chain_seq<FqParams>(a, b, out, L, K, inline_body, st);
   return launch_chain_seq<FrParams>(a, b, out, L, K, inline_body, st);
 }

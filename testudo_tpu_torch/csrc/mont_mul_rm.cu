@@ -1,6 +1,7 @@
 // Row-major Montgomery product a * b * R^{-1} mod p over `(n, nlimbs)` int32
 // arrays of 16-bit limbs, an element's limbs contiguous (nlimbs = 24: Fq,
-// 16: Fr, 48: BW6-761's 761-bit Fq), canonical in and out.  `b` is
+// 16: Fr, 48: BW6-761's 761-bit Fq, 16: BLS12-381's Fr; the caller names the
+// field by its `FieldId`, fp.cuh), canonical in and out.  `b` is
 // `(n, nlimbs)` too, or ONE element that every lane multiplies by
 // (`shared_b`), which is how the protocol scales a whole table by a
 // challenge, by 1 (out of Montgomery form) or by R^2 (into it): nothing is
@@ -11,7 +12,10 @@
 // through VMEM and needs n to be a multiple of the tile; here the ragged
 // edge is masked.  At 48 limbs it replaces
 // testudo_tpu/tpu/pallas_field.py:226 `_mont_mul_call(48, q761)`, which every
-// product of the BW6-761 group (tpu/curve_generic.py) reaches on the TPU.
+// product of the BW6-761 group (tpu/curve_generic.py) reaches on the TPU.  At
+// BLS12-381's Fr it replaces `_mont_mul_call(16, r381)`, which every product
+// of a 381 table of 512 elements or more reaches there (tpu/field.py:292-295;
+// the call is keyed by the modulus, so the TPU builds a kernel of its own).
 //
 // Bound on this card: bytes at every shape (an Fr element moves 3 * 64
 // bytes, or 2 * 64 with a shared b, against 136 multiply-adds; an Fq element
@@ -134,23 +138,29 @@ static int launch_rm(const int* a, const int* b, int* out, long n, cudaStream_t 
   return launch_rm_narrow<F, SHARED>(a, b, out, n, st);
 }
 
-// nlimbs selects the field: 24 -> Fq, 16 -> Fr, 48 -> BW6-761's Fq.  The
-// 761-bit field takes the narrow form at every length, a shared b too: the
-// tiled form's swizzle (`rm_slot`) is laid out for 4 and 6 chunks a row, and
-// this field's rows have 12.  Returns the CUDA error code of the launch, or
-// -1 for an unknown field.
-extern "C" int testudo_mont_mul_rm(const int* a, const int* b, int* out, int nlimbs,
+// `field` (a FieldId) selects the field.  BLS12-381's Fr takes the forms
+// BLS12-377's Fr takes (the same 64-byte rows: narrow, and tiled past
+// RM_NARROW_MAX with a shared b).  The 761-bit field takes the narrow form at
+// every length, a shared b too: the tiled form's swizzle (`rm_slot`) is laid
+// out for 4 and 6 chunks a row, and this field's rows have 12.  Returns the
+// CUDA error code of the launch, or -1 for an unknown field.
+extern "C" int testudo_mont_mul_rm(const int* a, const int* b, int* out, int field,
                                    long n, int shared_b, void* stream) {
+  if (field < FIELD_FR || field > FIELD_FR381) return -1;
   if (n <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (nlimbs == 48)
-    return shared_b ? launch_rm_narrow<Fq761Params, true>(a, b, out, n, st)
-                    : launch_rm_narrow<Fq761Params, false>(a, b, out, n, st);
-  if (nlimbs == 24)
-    return shared_b ? launch_rm<FqParams, true>(a, b, out, n, st)
-                    : launch_rm<FqParams, false>(a, b, out, n, st);
-  if (nlimbs == 16)
-    return shared_b ? launch_rm<FrParams, true>(a, b, out, n, st)
-                    : launch_rm<FrParams, false>(a, b, out, n, st);
-  return -1;
+  switch (field) {
+    case FIELD_FQ761:
+      return shared_b ? launch_rm_narrow<Fq761Params, true>(a, b, out, n, st)
+                      : launch_rm_narrow<Fq761Params, false>(a, b, out, n, st);
+    case FIELD_FQ:
+      return shared_b ? launch_rm<FqParams, true>(a, b, out, n, st)
+                      : launch_rm<FqParams, false>(a, b, out, n, st);
+    case FIELD_FR:
+      return shared_b ? launch_rm<FrParams, true>(a, b, out, n, st)
+                      : launch_rm<FrParams, false>(a, b, out, n, st);
+    default:  // FIELD_FR381
+      return shared_b ? launch_rm<Fr381Params, true>(a, b, out, n, st)
+                      : launch_rm<Fr381Params, false>(a, b, out, n, st);
+  }
 }

@@ -25,18 +25,18 @@ __global__ void __launch_bounds__(32) k_poseidon_permute(const int* in, int* out
   if (lane < POS_T) fp_store_row<F>(out + (first + lane) * 2 * F::N, x);
 }
 
-// nlimbs selects the field: 24 -> Fq, 16 -> Fr.  `in` and `out` may be the
-// same array.  Returns the CUDA error code of the launch, or -1 for an
-// unknown field.
-extern "C" int testudo_poseidon_permute(const int* in, int* out, int nlimbs, long nstates,
+// `field` (a FieldId, fp.cuh) selects the field: FIELD_FQ or FIELD_FR, the
+// two fields whose constants poseidon.cuh holds.  `in` and `out` may be the
+// same array.  Returns the CUDA error code of the launch, or -1 for any other
+// field.
+extern "C" int testudo_poseidon_permute(const int* in, int* out, int field, long nstates,
                                         void* stream) {
+  if (field != FIELD_FQ && field != FIELD_FR) return -1;
   if (nstates <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (nlimbs == 24)
+  if (field == FIELD_FQ)
     k_poseidon_permute<FqParams><<<(unsigned)nstates, 32, 0, st>>>(in, out);
-  else if (nlimbs == 16)
-    k_poseidon_permute<FrParams><<<(unsigned)nstates, 32, 0, st>>>(in, out);
   else
-    return -1;
+    k_poseidon_permute<FrParams><<<(unsigned)nstates, 32, 0, st>>>(in, out);
   return LAUNCH_STATUS();
 }

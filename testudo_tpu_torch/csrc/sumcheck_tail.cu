@@ -74,23 +74,24 @@ static int launch_tail(const int* partials, const int* inst_coeffs, const int* e
 }
 
 // partials: (k, nblocks, npts, 16); inst_coeffs: (k, 16); e_in, r_out, e_out:
-// one Fr row; coeffs_out: (npts + 1, 16); state_in / state_out: (3,
-// sponge_nlimbs), the sponge's field by its limbs (16: Fr, 24: Fq);
+// one Fr row; coeffs_out: (npts + 1, 16); state_in / state_out: (3, nlimbs)
+// of the sponge's field, `sponge_field` (a FieldId, fp.cuh: FIELD_FR or
+// FIELD_FQ);
 // (mode, index) the sponge's before the round's first absorb.  Returns the
 // CUDA error code of the launch, -1 for an unknown field, -3 for arguments it
 // does not take.
 extern "C" int testudo_sumcheck_tail(const int* partials, const int* inst_coeffs, const int* e_in,
                                      const int* state_in, int* coeffs_out, int* r_out, int* e_out,
                                      int* state_out, int npts, int k, int nblocks,
-                                     int sponge_nlimbs, int mode, int index, void* stream) {
+                                     int sponge_field, int mode, int index, void* stream) {
   if ((npts != 2 && npts != 3) || k < 1 || nblocks < 1 || (mode != 0 && mode != 1) ||
       index < 0 || index > POS_RATE)
     return -3;
   cudaStream_t st = (cudaStream_t)stream;
-  if (sponge_nlimbs == 16)
+  if (sponge_field == FIELD_FR)
     return launch_tail<FrParams>(partials, inst_coeffs, e_in, state_in, coeffs_out, r_out, e_out,
                                  state_out, npts, k, nblocks, mode, index, st);
-  if (sponge_nlimbs == 24)
+  if (sponge_field == FIELD_FQ)
     return launch_tail<FqParams>(partials, inst_coeffs, e_in, state_in, coeffs_out, r_out, e_out,
                                  state_out, npts, k, nblocks, mode, index, st);
   return -1;

@@ -3,14 +3,24 @@
 Counterpart of testudo_tpu/curves/profile.py.  A `CurveProfile` bundles the
 scalar-field spec, the host group operations, the pairing, the Poseidon
 parameters, the transcript encodings and two batch group backends; the
-protocol modules (core/pst.py, core/mipp.py, core/sqrt_pst.py) reach every
-group operation through it.  This slice carries BLS12-377 only.
+protocol modules (core/pst.py, core/mipp.py, core/sqrt_pst.py,
+core/r1csproof.py) reach every group operation through it.  Two curves:
+BLS12-377 (`bls12_377`) and BLS12-381 (`bls12_381`).
 
 Backends: `_Dev377Backend` holds G1/G2 batches as limb tensors on one torch
 device and drives the packed CUDA kernels (device/msm.py, device/curve.py);
 `HostGroupBackend` holds lists of host affine points and is what the tests
 compare against.  The caller picks the backend by argument
 (`bls12_377(device=..., host_groups=...)`); there is no environment switch.
+BLS12-381 keeps its groups on the host, as the JAX package does (the role
+ark-blst plays for Testudo): its G1/G2 backends are `HostGroupBackend`s over
+curves/bls12_381.py, and only its Fr tables live on `device`, where every
+product of theirs runs the row-major kernel at BLS12-381's Fr.
+
+`fused_sumcheck` says whether the profile's R1CS proof runs the fused
+sumcheck provers (device Poseidon and round kernels, which exist for
+BLS12-377's Fr only): True for BLS12-377, False for BLS12-381, whose proof
+runs the looped provers as the JAX package's does (curves/profile.py:367).
 """
 from __future__ import annotations
 
@@ -83,6 +93,8 @@ class HostGroupBackend(GroupBackend):
         return repr_[lo:hi]
 
     def msm(self, repr_, scalars):
+        """`scalars`: ints, or canonical 16-limb scalars as a tensor (either
+        Fr: the limbs are read as integers)."""
         if isinstance(scalars, torch.Tensor):
             scalars = FR.from_limbs(scalars)
         return self._msm(repr_, [int(s) for s in scalars])
@@ -133,6 +145,8 @@ class CurveProfile:
     g2b: GroupBackend = None
     # where Fr tables live (the device backends' device; the tests ask for the CPU)
     device: torch.device = torch.device("cuda")
+    # the R1CS proof's sumcheck provers: fused (True) or looped
+    fused_sumcheck: bool = True
 
 
 # ---------------------------------------------------------------------------
@@ -293,3 +307,100 @@ def bls12_377(device=torch.device("cuda"), host_groups: bool = False) -> CurvePr
     device group backends for host ones (every curve operation through the
     native library or pure Python; the Fr tables stay on `device`)."""
     return _bls12_377(torch.device(device), bool(host_groups))
+
+
+# ---------------------------------------------------------------------------
+# BLS12-381: host group backends (the ark-blst role), Fr tables on `device`
+# ---------------------------------------------------------------------------
+
+FQ381_BYTES = 48
+
+
+def _fq381_to_bytes(x: int) -> bytes:
+    from ..fields.bls12_381 import P as P381
+
+    return (x % P381).to_bytes(FQ381_BYTES, "little")
+
+
+def _fq2_381_to_bytes(x) -> bytes:
+    return _fq381_to_bytes(x.c0) + _fq381_to_bytes(x.c1)
+
+
+def ser_g1_381_uncompressed(pt) -> bytes:
+    """x || y, 48 little-endian bytes each; the identity is zeros with the
+    infinity flag (bit 6) in the last byte (ark-serialize's SWFlags)."""
+    from .. import serialize as ser
+
+    if pt is None:
+        b = bytearray(2 * FQ381_BYTES)
+        b[-1] |= ser.FLAG_INFINITY
+        return bytes(b)
+    return _fq381_to_bytes(pt[0]) + _fq381_to_bytes(pt[1])
+
+
+def ser_g2_381_uncompressed(pt) -> bytes:
+    """x.c0 || x.c1 || y.c0 || y.c1 (48 bytes each), the identity flagged as
+    in G1."""
+    from .. import serialize as ser
+
+    if pt is None:
+        b = bytearray(4 * FQ381_BYTES)
+        b[-1] |= ser.FLAG_INFINITY
+        return bytes(b)
+    return _fq2_381_to_bytes(pt[0]) + _fq2_381_to_bytes(pt[1])
+
+
+def ser_gt_381(x) -> bytes:
+    """An Fq12 element as its twelve Fq coefficients in tower order (c0 then
+    c1 of Fq12; c0, c1, c2 of each Fq6; c0, c1 of each Fq2), 576 bytes."""
+    return b"".join(_fq2_381_to_bytes(c2) for c6 in (x.c0, x.c1)
+                    for c2 in (c6.c0, c6.c1, c6.c2))
+
+
+@lru_cache(maxsize=None)
+def _bls12_381(device: torch.device) -> CurveProfile:
+    from ..device.field import FR381
+    from ..fields import bls12_381 as f381
+    from ..poseidon.transcript import fr_params_381
+    from . import bls12_381 as c381
+
+    def gt_pow(x, e: int):
+        return x.pow(e % f381.R)
+
+    return CurveProfile(
+        name="bls12_381",
+        R=f381.R,
+        P=f381.P,
+        fr_spec=FR381,
+        # Testudo ships Poseidon parameters over BLS12-381's Fr only
+        # (poseidon_params_bls12381, parameters.rs:341-2587), and its 381 test
+        # path uses them for both transcripts, as the JAX package does
+        fr_params=fr_params_381,
+        fq_params=fr_params_381,
+        g1_add=c381.g1_add,
+        g1_neg=c381.g1_neg,
+        g1_mul=c381.g1_mul,
+        g1_generator=c381.g1_generator,
+        g2_add=c381.g2_add,
+        g2_neg=c381.g2_neg,
+        g2_mul=c381.g2_mul,
+        g2_generator=c381.g2_generator,
+        pairing=c381.pairing,
+        multi_pairing=c381.multi_pairing,
+        fq12_one=c381.Fq12.one,
+        gt_pow=gt_pow,
+        ser_g1_uncompressed=ser_g1_381_uncompressed,
+        ser_g2_uncompressed=ser_g2_381_uncompressed,
+        ser_gt=ser_gt_381,
+        g1b=HostGroupBackend(c381.g1_add, c381.g1_mul, c381.g1_msm, f381.R),
+        g2b=HostGroupBackend(c381.g2_add, c381.g2_mul, c381.g2_msm, f381.R),
+        device=device,
+        fused_sumcheck=False,
+    )
+
+
+def bls12_381(device=torch.device("cuda")) -> CurveProfile:
+    """The BLS12-381 profile whose Fr tables live on `device` (one profile
+    per device, cached); its groups, pairing and Poseidon are host Python
+    (curves/bls12_381.py), as in the JAX package (curves/profile.py:297-369)."""
+    return _bls12_381(torch.device(device))

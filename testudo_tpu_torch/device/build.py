@@ -88,7 +88,7 @@ EC_KERNELS = ("add2", "add_mask", "step", "scan2", "scan2b", "ladder", "ladder_t
               "ladder_wide", "bucket", "bucket_mixed", "wsum", "chain_team", "fold_team",
               "fixed_base", "fixed_base_one")
 FIELD_KERNELS = ("mont_mul", "mont_mul_rm_fq", "mont_mul_rm_fr", "mont_mul_rm_bw6fq",
-                 "mont_chain", "mont_chain_seq", "mont_chain_wide")
+                 "mont_mul_rm_fr381", "mont_chain", "mont_chain_seq", "mont_chain_wide")
 SUMCHECK_KERNELS = ("poseidon_permute", "sumcheck_round", "sumcheck_tail")
 LAUNCHES = {name: 0 for name in (
     *FIELD_KERNELS, *SUMCHECK_KERNELS, *EC_KERNELS, *(k + "_g2" for k in EC_KERNELS))}

@@ -1,6 +1,6 @@
 """Vectorised big-field arithmetic on limb tensors (PyTorch).
 
-Counterpart of testudo_tpu/tpu/field.py: `FieldSpec`, `FR`, `FQ`, `add`,
+Counterpart of testudo_tpu/tpu/field.py: `FieldSpec`, `FR`, `FQ`, `FR381`, `add`,
 `sub`, `neg`, `mont_mul`, `mont_sqr`, `pow_fixed`, `inv`, `reduce_sum`,
 `_fold_wide`, `select`, `const_array`, `is_zero`.
 
@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ..fields.bls12_377 import P, R
+from ..fields.bls12_381 import R as R381
 
 LIMB_BITS = 16
 MASK = (1 << LIMB_BITS) - 1
@@ -118,6 +119,9 @@ def _to_numpy(arr) -> np.ndarray:
 
 FR = FieldSpec(R, 16, "fr")
 FQ = FieldSpec(P, 24, "fq")
+# BLS12-381's scalar field, the Fr tables of curves/profile.py's bls12_381
+# (the JAX package's FieldSpec(r381, 16, "fr381"), curves/profile.py:304)
+FR381 = FieldSpec(R381, 16, "fr381")
 
 
 # ---------------------------------------------------------------------------

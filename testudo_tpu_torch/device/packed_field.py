@@ -11,14 +11,21 @@ measuring harnesses tools/exp_montmul_block.py and tools/exp_mulmany_wide.py
   - `mont_mul_rm` takes row-major `(..., n)` tensors, an element's limbs
     contiguous, which is the layout of every table of the protocol, and is
     what `field.mont_mul` launches on CUDA tensors (csrc/mont_mul_rm.cu):
-    n = 24 (Fq), 16 (Fr) or 48 (BW6-761's 761-bit Fq, every product of the
-    BW6 group of device/curve_generic.py).
+    n = 24 (Fq), 16 (Fr), 48 (BW6-761's 761-bit Fq, every product of the
+    BW6 group of device/curve_generic.py) or 16 (BLS12-381's Fr, every
+    product of a table of the 381 profile).
     `b` may be a single element: the kernel then reads the one element for
     every lane and nothing is broadcast in memory.
   - `mont_mul_chain` / `mont_mul_chain_group` run K chained products
     `a <- a * b` in one launch on `(n, L)` rows, and on G independent pairs
     `(G, n, L)` (csrc/mont_chain.cu); tools/exp_montmul.py derives the
     card's time per product from them.
+
+The kernels are told which field to compute in by a field id
+(`field_id`, csrc/fp.cuh `FieldId`) that the wrapper derives from the spec's
+modulus, never from its limb count: BLS12-377's Fr and BLS12-381's Fr both
+have 16 limbs.  A spec whose modulus has no kernel is refused on every
+device, the CPU too.
 
 On CUDA tensors a wrapper launches its hand-written kernel or raises; on CPU
 tensors it runs the plain PyTorch version defined beside it.  There is no
@@ -27,10 +34,41 @@ edge.
 """
 from __future__ import annotations
 
+from typing import Optional, Sequence
+
 import torch
 
+from ..fields import bls12_377 as f377
+from ..fields import bls12_381 as f381
+from ..fields import bw6_761 as f761
 from . import build
 from .field import FieldSpec, mont_mul_plain
+
+# The fields the kernels are built for, by modulus: (field id of csrc/fp.cuh,
+# limbs, the name its launches are counted under).
+KERNEL_FIELDS = {
+    f377.R: (1, 16, "fr"),
+    f377.P: (2, 24, "fq"),
+    f761.Q: (3, 48, "bw6fq"),
+    f381.R: (4, 16, "fr381"),
+}
+K1_FIELDS = ("fr", "fq", "fr381")  # the fields csrc/mont_mul.cu is built for
+
+
+def field_id(spec: FieldSpec, kernel: str = "mont_mul_rm",
+             fields: Optional[Sequence[str]] = None) -> int:
+    """The kernels' id of `spec`'s field, chosen by its modulus; raises
+    ValueError for a modulus (or a limb count) that no kernel of `kernel` is
+    built for.  `fields` narrows the accepted fields by name."""
+    entry = KERNEL_FIELDS.get(spec.modulus)
+    if entry is None or entry[1] != spec.nlimbs or (fields is not None and entry[2] not in fields):
+        raise ValueError(f"{kernel}: no kernel for the {spec.nlimbs}-limb field {spec.name!r} "
+                         f"of modulus {spec.modulus:#x}")
+    return entry[0]
+
+
+def _counter(spec: FieldSpec) -> str:
+    return "mont_mul_rm_" + KERNEL_FIELDS[spec.modulus][2]
 
 
 def mont_mul_rows_plain(spec: FieldSpec, at: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
@@ -44,8 +82,7 @@ def _check_rows(spec: FieldSpec, at: torch.Tensor, bt: torch.Tensor) -> None:
             f"mont_mul_rows: expected two ({spec.nlimbs}, m) arrays, got "
             f"{tuple(at.shape)} and {tuple(bt.shape)}"
         )
-    if spec.nlimbs not in (16, 24):
-        raise ValueError(f"mont_mul_rows: no kernel for {spec.nlimbs}-limb fields")
+    field_id(spec, "mont_mul_rows", K1_FIELDS)
 
 
 def mont_mul_rows(spec: FieldSpec, at: torch.Tensor, bt: torch.Tensor) -> torch.Tensor:
@@ -58,7 +95,7 @@ def mont_mul_rows(spec: FieldSpec, at: torch.Tensor, bt: torch.Tensor) -> torch.
     with torch.cuda.device(at.device):
         build.launch(
             "mont_mul", at.data_ptr(), bt.data_ptr(), out.data_ptr(),
-            spec.nlimbs, at.shape[1],
+            field_id(spec), at.shape[1],
         )
     return out
 
@@ -84,8 +121,7 @@ def mont_mul_rm(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tens
             f"mont_mul_rm: {spec.name} elements have {n} limbs, got shapes "
             f"{tuple(a.shape)} and {tuple(b.shape)}"
         )
-    if n not in (16, 24, 48):
-        raise ValueError(f"mont_mul_rm: no kernel for {n}-limb fields")
+    fid = field_id(spec)
     if not (a.is_cuda or b.is_cuda):
         return mont_mul_rm_plain(spec, a, b)
     if a.shape == b.shape:
@@ -104,12 +140,13 @@ def mont_mul_rm(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor) -> torch.Tens
     if a.data_ptr() % 16 or b.data_ptr() % 16:
         raise ValueError("mont_mul_rm: operands must be 16-byte aligned")
     out = torch.empty_like(a)
-    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), n, a.numel() // n, int(shared))
+    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), fid, a.numel() // n, int(shared))
+    counted = _counter(spec)
     if dev == torch.cuda.current_device():
-        build.launch("mont_mul_rm", *args, counted_as="mont_mul_rm_" + spec.name)
+        build.launch("mont_mul_rm", *args, counted_as=counted)
     else:
         with torch.cuda.device(dev):
-            build.launch("mont_mul_rm", *args, counted_as="mont_mul_rm_" + spec.name)
+            build.launch("mont_mul_rm", *args, counted_as=counted)
     return out
 
 
@@ -133,16 +170,16 @@ def _check_chain(name: str, spec: FieldSpec, at, bt, K: int, dims: int) -> None:
             f"{name}: expected two {lead}{spec.nlimbs}, L) arrays, got "
             f"{tuple(at.shape)} and {tuple(bt.shape)}"
         )
-    if spec.nlimbs not in ((16, 24, 48) if dims == 2 else (16, 24)):
-        raise ValueError(f"{name}: no kernel for {spec.nlimbs}-limb fields")
+    field_id(spec, name, None if dims == 2 else ("fr", "fq"))
     if K < 0:
         raise ValueError(f"{name}: K must not be negative, got {K}")
 
 
 def mont_mul_chain(spec: FieldSpec, at: torch.Tensor, bt: torch.Tensor, K: int,
                    inline_body: bool = True) -> torch.Tensor:
-    """a <- a * b, K times, on `(n, L)` limb rows in one launch (n = 16, 24
-    or 48: the 761-bit chain measures that field's latency).  `inline_body` picks the formulation of the product inside the kernel
+    """a <- a * b, K times, on `(n, L)` limb rows in one launch, in any field
+    of KERNEL_FIELDS (the 761-bit and the BLS12-381 Fr chains measure those
+    fields' latency).  `inline_body` picks the formulation of the product inside the kernel
     (the inlined body, or the shared out-of-line `fp_mul` of the group-law
     kernels); both give the same limbs."""
     _check_chain("mont_mul_chain", spec, at, bt, K, 2)
@@ -152,7 +189,7 @@ def mont_mul_chain(spec: FieldSpec, at: torch.Tensor, bt: torch.Tensor, K: int,
     out = torch.empty_like(at)
     with torch.cuda.device(at.device):
         build.launch(
-            "mont_chain", at.data_ptr(), bt.data_ptr(), out.data_ptr(), spec.nlimbs,
+            "mont_chain", at.data_ptr(), bt.data_ptr(), out.data_ptr(), field_id(spec),
             at.shape[1], K, int(inline_body),
         )
     return out
@@ -175,7 +212,7 @@ def mont_mul_chain_group(spec: FieldSpec, a: torch.Tensor, b: torch.Tensor, K: i
     out = torch.empty_like(a)
     with torch.cuda.device(a.device):
         build.launch(
-            "mont_chain_group", a.data_ptr(), b.data_ptr(), out.data_ptr(), spec.nlimbs,
+            "mont_chain_group", a.data_ptr(), b.data_ptr(), out.data_ptr(), field_id(spec),
             G, L, K, int(variant == "wide"), int(inline_body),
             counted_as="mont_chain_" + variant,
         )

@@ -34,7 +34,7 @@ import torch.nn.functional as F
 
 from ..fields.bls12_377 import P, R
 from ..poseidon import constants_377 as C
-from . import build
+from . import build, packed_field
 from . import field as tf
 from .field import FQ, FR, LIMB_BITS, FieldSpec
 
@@ -42,6 +42,11 @@ _ABSORBING = 0
 _SQUEEZING = 1
 _T = C.RATE + C.CAPACITY
 ROUNDS = C.FULL_ROUNDS + C.PARTIAL_ROUNDS
+
+
+# the fields whose Poseidon constants the kernels hold (BLS12-377's Fr and
+# Fq, csrc/poseidon.cuh): names of packed_field.KERNEL_FIELDS
+SPONGE_FIELDS = ("fr", "fq")
 
 
 def _spec_of(modulus: int) -> FieldSpec:
@@ -103,6 +108,7 @@ def permute(spec: FieldSpec, state: torch.Tensor) -> torch.Tensor:
     (tpu/sponge.py:57): one launch of the Poseidon kernel for all of them on
     a CUDA tensor, `permute_plain` on a CPU tensor."""
     _check_state(spec, state)
+    fid = packed_field.field_id(spec, "poseidon_permute", SPONGE_FIELDS)
     if not state.is_cuda:
         return permute_plain(spec, state)
     state = state.contiguous()
@@ -110,7 +116,7 @@ def permute(spec: FieldSpec, state: torch.Tensor) -> torch.Tensor:
     build.require_aligned("poseidon_permute", 16, state=state)
     out = torch.empty_like(state)
     with torch.cuda.device(state.device):
-        build.launch("poseidon_permute", state.data_ptr(), out.data_ptr(), spec.nlimbs,
+        build.launch("poseidon_permute", state.data_ptr(), out.data_ptr(), fid,
                      state.numel() // (_T * spec.nlimbs))
     return out
 

@@ -39,7 +39,7 @@ from typing import List, Sequence, Tuple
 
 import torch
 
-from . import build
+from . import build, packed_field
 from . import field as tf
 from . import sponge as dsponge
 from .field import FR, FieldSpec
@@ -233,6 +233,7 @@ def sumcheck_tail(kind: str, partials: torch.Tensor, inst_coeffs: torch.Tensor, 
     nlimbs)` with its (mode, index) before the round's first absorb:
     (coefficients `(points + 1, 16)`, challenge r, next claim, new state)."""
     _check_tail(kind, partials, inst_coeffs, e, state, sponge, mode, index)
+    fid = packed_field.field_id(sponge, "sumcheck_tail", dsponge.SPONGE_FIELDS)
     if not partials.is_cuda:
         return sumcheck_tail_plain(kind, partials, inst_coeffs, e, state, sponge, mode, index)
     ins = [t.contiguous() for t in (partials, inst_coeffs, e, state)]
@@ -249,5 +250,5 @@ def sumcheck_tail(kind: str, partials: torch.Tensor, inst_coeffs: torch.Tensor, 
     with torch.cuda.device(dev):
         build.launch("sumcheck_tail", *(t.data_ptr() for t in ins), coeffs.data_ptr(),
                      r.data_ptr(), e_out.data_ptr(), state_out.data_ptr(), POINTS[kind], k, nb,
-                     sponge.nlimbs, mode, index)
+                     fid, mode, index)
     return coeffs, r, e_out, state_out

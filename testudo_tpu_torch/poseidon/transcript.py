@@ -14,15 +14,19 @@ poseidon_transcript.rs) including its encoding quirks:
   - `new_from_state(c)` = fresh sponge + append_scalar(c) (:50-54);
   - `new_from_state2(c)` = fresh sponge + generic append(c) (:57-62).
 
-Counterpart of testudo_tpu/poseidon/transcript.py with the BLS12-377
-parameters only (host code, pure Python ints).
+Counterpart of testudo_tpu/poseidon/transcript.py (host code, pure Python
+ints): the BLS12-377 parameters over Fr and Fq, BLS12-381's rate-1 instance
+over its Fr (`fr_params_381`) and the per-curve dispatch
+(`params_for_curve`).  The sponge is generic over `PoseidonParams` (rate,
+width, alpha); nothing here assumes rate 2.  A scalar's serialized width
+follows its modulus (32 bytes up to 256 bits, else 48).
 """
 from __future__ import annotations
 
 from functools import lru_cache
 from typing import List, Sequence
 
-from ..fields.bls12_377 import P, R, FR_BYTES, FQ_BYTES
+from ..fields.bls12_377 import P, R
 from ..fields.host import Fq12
 from .. import serialize as ser
 from .sponge import PoseidonParams, PoseidonSponge
@@ -43,6 +47,42 @@ def fq_params() -> PoseidonParams:
     return PoseidonParams(P)
 
 
+@lru_cache(maxsize=None)
+def fr_params_381() -> PoseidonParams:
+    """poseidon_params_bls12381() (parameters.rs:341-2585): the rate-1
+    t=2 M=128 alpha=5 instance over BLS12-381 Fr (also the ark-blst
+    scalar-field params, :2603-2624)."""
+    from . import constants_381 as C381
+    from ..fields.bls12_381 import R as R381
+
+    return PoseidonParams(
+        R381,
+        ark=C381.ARK,
+        mds=C381.MDS,
+        full_rounds=C381.FULL_ROUNDS,
+        partial_rounds=C381.PARTIAL_ROUNDS,
+        alpha=C381.ALPHA,
+        rate=C381.RATE,
+        capacity=C381.CAPACITY,
+    )
+
+
+def params_for_curve(curve: str) -> PoseidonParams:
+    """Per-curve scalar-field Poseidon dispatch: the counterpart of
+    Testudo's `PoseidonConfiguration` trait (parameters.rs:2588-2634)."""
+    if curve in ("bls12-377", "bls12_377"):
+        return fr_params()
+    if curve in ("bls12-381", "bls12_381", "blst"):
+        return fr_params_381()
+    raise ValueError(f"unknown curve: {curve}")
+
+
+def _scalar_bytes(modulus: int) -> int:
+    """Bytes of a serialized field element: arkworks writes whole 64-bit
+    words (Fr of either BLS12 curve: 32; their Fq: 48)."""
+    return (modulus.bit_length() + 63) // 64 * 8
+
+
 class PoseidonTranscript:
     """A transcript over the field given by `params.modulus`."""
 
@@ -55,8 +95,10 @@ class PoseidonTranscript:
     def new_from_state(self, challenge: int, field_modulus: int = None) -> None:
         """Fresh sponge re-keyed via append_scalar (reference :50-54).
 
-        The challenge is an Fr scalar in all call sites; for an Fq sponge the
-        cross-field absorb applies."""
+        The challenge is an Fr scalar in all call sites; `field_modulus`
+        names its field (default: BLS12-377's Fr).  Native and cross-field
+        absorbs take the same value (the challenge mod the sponge's
+        modulus), so the default changes no transcript of another curve."""
         self.sponge = PoseidonSponge(self.params)
         self.append_scalar(challenge, field_modulus or R)
 
@@ -80,7 +122,7 @@ class PoseidonTranscript:
 
     def append_serialized_scalar(self, value: int, field_modulus: int) -> None:
         """Generic append of one scalar: uncompressed LE bytes absorbed."""
-        nbytes = FR_BYTES if field_modulus == R else FQ_BYTES
+        nbytes = _scalar_bytes(field_modulus)
         self.sponge.absorb_bytes((value % field_modulus).to_bytes(nbytes, "little"))
 
     def append_g1_uncompressed(self, pt) -> None:

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ..curves import bw6_761 as bw
-from ..device import build
+from ..device import build, packed_field
 from ..device import curve_generic as cg
 from ..device import field as tf
 from ..device import msm
@@ -88,7 +88,7 @@ def run(device=torch.device("cuda"), say=print) -> dict:
         a, b = _elements(n, rng, dev), _elements(n, rng, dev)
         res = torch.empty_like(a)
         raw = lambda: build.launch("mont_mul_rm", a.data_ptr(), b.data_ptr(), res.data_ptr(),
-                                   48, n, 0, counted_as="mont_mul_rm_bw6fq")
+                                   packed_field.field_id(S), n, 0, counted_as="mont_mul_rm_bw6fq")
         raw()
         if not torch.equal(res, tf.mont_mul_plain(S, a, b)):
             raise AssertionError(f"761-bit product differs from its plain version at {n}")

@@ -68,7 +68,7 @@ import time
 import numpy as np
 import torch
 
-from testudo_tpu_torch.device import build
+from testudo_tpu_torch.device import build, packed_field
 from testudo_tpu_torch.device import field as tf
 from testudo_tpu_torch.device.field import FQ, FR, FieldSpec
 from testudo_tpu_torch.tools import exp_montmul
@@ -170,8 +170,9 @@ def measure_shape(label: str, spec: FieldSpec, n: int, shared: bool, device, flu
     a, b = operands(spec, n, shared, seed=n % 1000 + 3, device=device)
     out = torch.empty_like(a)
     nl = spec.nlimbs
-    counted = "mont_mul_rm_" + spec.name
-    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), nl, n, int(shared))
+    counted = packed_field._counter(spec)
+    args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), packed_field.field_id(spec), n,
+            int(shared))
     raw = lambda: build.launch("mont_mul_rm", *args, counted_as=counted)
     raw()
     if not torch.equal(out, tf.mont_mul_plain(spec, a, b)):
@@ -219,7 +220,7 @@ def host_costs(device, calls: int = 2000) -> dict:
     out = torch.empty_like(a)
     fn = getattr(build.library(), build._SIGNATURES["mont_mul_rm"][0])
     stream = torch.cuda.current_stream().cuda_stream
-    ptrs = (a.data_ptr(), b.data_ptr(), out.data_ptr(), FR.nlimbs)
+    ptrs = (a.data_ptr(), b.data_ptr(), out.data_ptr(), packed_field.field_id(FR))
     parts = {
         "current_stream": lambda: torch.cuda.current_stream().cuda_stream,
         "ctypes_no_launch": lambda: fn(*ptrs, 0, 0, stream),
@@ -308,12 +309,14 @@ static int exp_narrow(const int* a, const int* b, int* out, long n, cudaStream_t
     default: return -1;                                                       \
   }
 
-extern "C" int exp_rm(int form, const int* a, const int* b, int* out, int nlimbs, long n,
+// field: FIELD_FQ or FIELD_FR (fp.cuh), as the library's launcher takes it
+extern "C" int exp_rm(int form, const int* a, const int* b, int* out, int field, long n,
                       int shared_b, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (nlimbs == 24) {
+  if (field == FIELD_FQ) {
     if (shared_b) EXP_RM(FqParams, true) else EXP_RM(FqParams, false)
   }
+  if (field != FIELD_FR) return -1;
   if (shared_b) EXP_RM(FrParams, true) else EXP_RM(FrParams, false)
 }
 """
@@ -321,8 +324,9 @@ extern "C" int exp_rm(int form, const int* a, const int* b, int* out, int nlimbs
 
 @functools.cache
 def forms_library():
-    """The --forms build: `exp_rm(form, a, b, out, nlimbs, n, shared_b,
-    stream)` launches form `form` (a FORMS value) of the kernel."""
+    """The --forms build: `exp_rm(form, a, b, out, field, n, shared_b,
+    stream)` launches form `form` (a FORMS value) of the kernel; `field` is
+    the field id of packed_field.field_id (Fr or Fq)."""
     import ctypes
 
     lib = ctypes.CDLL(str(build.build_tool("exp_mont_rm", _FORMS_CODE)))
@@ -346,7 +350,7 @@ def run_forms(device, rounds: int = 3, say=print) -> dict:
             for name, form in FORMS.items():
                 out = torch.empty_like(a)
                 call = lambda: lib.exp_rm(form, a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                          spec.nlimbs, n, int(shared),
+                                          packed_field.field_id(spec), n, int(shared),
                                           torch.cuda.current_stream().cuda_stream)
                 if call() != 0 or not torch.equal(out, want):
                     raise AssertionError(f"mont_mul_rm form {name!r} at {label} failed or differs")
@@ -355,6 +359,9 @@ def run_forms(device, rounds: int = 3, say=print) -> dict:
         say(f"forms {label:26s}: " + "; ".join(
             f"{k} " + ", ".join(f"{v:.5f}" for v in row[k]) for k in FORMS) + " ms")
     return {"forms": rows}
+
+
+FIELD_NAMES = {fid: name for fid, _, name in packed_field.KERNEL_FIELDS.values()}
 
 
 def size_class(n: int) -> str:
@@ -374,8 +381,8 @@ def prove_profile(prove, form: int | None = None) -> dict:
     lib = None if form is None else forms_library()
 
     def recording(name, *args, counted_as=None):
-        if name == "mont_mul_rm":  # (a, b, out, nlimbs, n, shared_b)
-            sizes.append(("fq" if args[3] == 24 else "fr", size_class(args[4]), bool(args[5])))
+        if name == "mont_mul_rm":  # (a, b, out, field, n, shared_b)
+            sizes.append((FIELD_NAMES[args[3]], size_class(args[4]), bool(args[5])))
             if lib is not None:
                 rc = lib.exp_rm(form, *args, torch.cuda.current_stream().cuda_stream)
                 if rc != 0:
