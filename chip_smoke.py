@@ -50,6 +50,19 @@ testudo_tpu_torch/csrc/, then
      row-major product's device time and launches by size class), and the
      round kernel's launches by shape in one warm fused prove with their
      summed device time;
+  5a. drives the sharded paths (parallel/mesh.py) on a mesh of 4 shards
+     (the card listed 4 times on a one-card machine, printed on a line of
+     its own): `msm_g1` and `msm_g2` (affine=True) at 2^20, equal to the
+     unsharded results and the host values; the sqrt-PST commit at nv =
+     20, its column commitments limb-equal and T byte-equal to the
+     unsharded commit's; the golden NIZK instance, byte-equal to the
+     fixture with both sumchecks; TestudoNIZK at 2^16 with the fused and
+     the looped sumcheck, byte-equal to the unsharded proofs with equal
+     sponge states, verified, eval_vars_at_ry + 1 rejected; each sharded
+     wall beside the unsharded one, in turns; the launches of one warm
+     sharded call of each (paths mesh_msm, mesh_commit, mesh_nizk,
+     mesh_nizk_looped); then the fused 2^16 prove on 8 shards (three
+     remnant rounds), byte-equal;
   5b. drives TestudoSNARK (core/snark.py: `TestudoSnarkGens.setup`,
      `snark_encode`, `snark_prove`, `snark_verify`; Spark in core/spark.py
      over the product trees, the row-wise Pedersen commitment and the
@@ -164,7 +177,8 @@ testudo_tpu_torch/csrc/, then
   9. prints one JSON line {"kernels": [...]} (each row's `launches` is the
      sum of `launches_by_path`, the kernel's count on each driven path: msm,
      fixed_base, field, setup, commit, open, verify, nizk_prove,
-     nizk_prove_looped, nizk_verify, snark_groth16_setup, snark_encode,
+     nizk_prove_looped, nizk_verify, mesh_msm, mesh_commit, mesh_nizk,
+     mesh_nizk_looped, snark_groth16_setup, snark_encode,
      snark_prove, groth16_prove, snark_verify, bw6_setup, bw6_prove,
      bls381_setup, bls381_prove, bls381_verify, bls381_pst, harness; the
      run fails if a
@@ -185,8 +199,11 @@ SNARK phase, with Groth16 at 2^12, 2^16 and 2^20 (config #4 at 2^20: 21,192 +
 times the 761-bit product, runs the BW6 MSMs and toy circuit and the wrap at
 nv = 16 and at nv = 10 (650,138 constraints), and stops; `--bls381-only`
 compares and times the fr381 product and runs the BLS12-381 phase at 2^10,
-2^12 and 2^14 (the last without the profiled prove), and stops; the default
-run is the full check.
+2^12 and 2^14 (the last without the profiled prove), and stops; `--mesh-only`
+runs the mesh phase (5a), then TestudoNIZK at 2^20 on 4 shards with both
+sumchecks against its unsharded proofs, then tries 2^24 on 4 shards (its
+instance's host build stopped after 600 s; the prove's peak device memory or
+the allocation that failed), and stops; the default run is the full check.
 """
 from __future__ import annotations
 
@@ -222,6 +239,7 @@ from testudo_tpu_torch.device import sumcheck_kernels as sk
 from testudo_tpu_torch.device.field import FQ, FR, FR381
 from testudo_tpu_torch.device.packed_curve import G1P, G2P
 from testudo_tpu_torch.examples import cubic
+from testudo_tpu_torch.parallel import mesh as pmesh
 from testudo_tpu_torch.fields.bls12_377 import P as R_BW6  # BW6-761's scalar field
 from testudo_tpu_torch.fields.bls12_377 import R
 from testudo_tpu_torch.poly import dense
@@ -448,10 +466,36 @@ BW6_SMALL = 50  # points of the small-path check
 # A row that times a kernel at a second shape reads its launches from the
 # kernel's counter, on the paths that give it that shape.
 ROW_COUNTER = {"mont_mul_rm_fr_full": ("mont_mul_rm_fr",
-                                       ("nizk_prove", "nizk_prove_looped", "nizk_verify")),
+                                       ("nizk_prove", "nizk_prove_looped", "nizk_verify",
+                                        "mesh_nizk", "mesh_nizk_looped")),
                "fixed_base_one_key": ("fixed_base_one", ("snark_groth16_setup",)),
                "fixed_base_one_key_g2": ("fixed_base_one_g2", ("snark_groth16_setup",))}
 MUST_LAUNCH["mont_mul_rm_fr_full"] = ("nizk_prove_looped",)
+# The mesh (parallel/mesh.py) on MESH_SHARDS shards of the card: one warm
+# sharded msm_g1 and msm_g2 at 2^20 (path mesh_msm: each shard's pipeline),
+# one warm sharded sqrt-PST commit at nv = 20 (mesh_commit: each shard's
+# multi-MSM over its block of columns, the canonical scalars through the Fr
+# product), one warm sharded TestudoNIZK prove at 2^16 with each sumcheck
+# (mesh_nizk: the NIZK prove's kernels and the fused sumcheck's three, the
+# round kernel on every shard, the permutation and the tail on the first
+# device; mesh_nizk_looped: the NIZK prove's kernels, the sumcheck's
+# products on every shard).  A shard's segment reduce may only copy (one
+# segment a bucket at 2^18 points), so mesh_msm may skip the general bucket;
+# a prove's one Pippenger MSM (the open's U-fold over 256 points) is 64
+# points a shard, the ladder's, so the mesh_nizk paths launch no `wsum`.
+MESH_SHARDS, MESH_SHARDS_WIDE = 4, 8  # the second: the fused 2^16 prove, three remnant rounds
+_MESH_MSM_KERNELS = tuple(k for k in _MSM_KERNELS if k != "bucket")
+_MESH_NIZK_KERNELS = tuple(k for k in _NIZK_PROVE_KERNELS if k != "wsum")
+MESH_MUST = {
+    "mesh_msm": _MESH_MSM_KERNELS + tuple(k + "_g2" for k in _MESH_MSM_KERNELS),
+    "mesh_commit": ("mont_mul_rm_fr", "chain_team", "bucket", "ladder_wide", "fold_team"),
+    "mesh_nizk": _MESH_NIZK_KERNELS + FUSED_KERNELS,
+    "mesh_nizk_looped": _MESH_NIZK_KERNELS,
+}
+for _path, _names in MESH_MUST.items():
+    for _name in _names:
+        MUST_LAUNCH[_name] += (_path,)
+MUST_LAUNCH["mont_mul_rm_fr_full"] += ("mesh_nizk_looped",)
 MUST_LAUNCH["fixed_base_one_key"] = MUST_LAUNCH["fixed_base_one_key_g2"] = ("snark_groth16_setup",)
 N_UNIQUE = 1 << 13
 ODD = 37  # extra lanes so no compared batch is a multiple of a block size
@@ -1062,9 +1106,10 @@ def _nizk_split(records) -> dict:
     return out
 
 
-def phase_nizk_golden(dev):
+def phase_nizk_golden(dev, mesh=None):
     """The golden instance of tests/fixtures/golden_nizk.json proved on the
-    card: byte-equal sat proof, equal final sponge states."""
+    card (under `mesh`, sharded, when one is given): byte-equal sat proof,
+    equal final sponge states."""
     with open(GOLDEN_NIZK) as f:
         fix = json.load(f)
     p = fix["params"]
@@ -1076,7 +1121,8 @@ def phase_nizk_golden(dev):
         which = "fused" if fused else "looped"
         build.reset_launches()
         tp = PoseidonTranscript(fr_params())
-        proof = snark.nizk_prove(inst, vars_, inputs, gens, tp, fused=fused)
+        with pmesh.use_mesh(mesh):
+            proof = snark.nizk_prove(inst, vars_, inputs, gens, tp, fused=fused)
         launched = sum(build.LAUNCHES[k] for k in FUSED_KERNELS)
         if (launched == 0) == fused:
             raise AssertionError(f"the golden NIZK prove ({which}) launched {launched} fused "
@@ -1092,8 +1138,9 @@ def phase_nizk_golden(dev):
             raise AssertionError(f"the golden NIZK proof ({which}) did not verify on the card")
         if [hex(v) for v in tv.sponge.state] != fix["verifier_final_sponge_state"]:
             raise AssertionError("the golden NIZK verifier ends in another sponge state")
+        where = "on the card" if mesh is None else f"on {mesh.size} shards of the card"
         say(f"NIZK golden ({p['num_cons']} x {p['num_vars']} x {p['num_inputs']}, seed {p['seed']}) "
-            f"on the card, {which} sumcheck: sat proof {len(blob)} B byte-equal to the fixture "
+            f"{where}, {which} sumcheck: sat proof {len(blob)} B byte-equal to the fixture "
             f"(sha256 {fix['sat_proof_sha256'][:12]}...), both final sponge states equal, verified")
 
 
@@ -2087,6 +2134,236 @@ def kernels_fr381(dev, rep: Report, quick: bool):
         say("  " + ln)
 
 
+# ---------------------------------------------------------------------------
+# The mesh: the sharded paths on shards of the card (parallel/mesh.py)
+# ---------------------------------------------------------------------------
+
+
+def make_shards(dev, D: int):
+    """D shards: the card listed D times on a one-card machine, else the
+    first D cards (`shard_mesh`)."""
+    mesh = pmesh.shard_mesh(D, dev)
+    say(f"mesh: {mesh.size} shards on {[str(d) for d in mesh.devices]}")
+    return mesh
+
+
+def turns(fn, reps: int = 3):
+    """Walls (s) of `reps` turns of fn(False) and fn(True) (unsharded, then
+    sharded), each synchronised on both sides, and the launches of the last
+    sharded call; every call's result must equal the first's."""
+    walls = {False: [], True: []}
+    first, counts = None, None
+    for i in range(reps):
+        for sharded in (False, True):
+            if sharded and i == reps - 1:
+                build.reset_launches()
+            out, ms = timed_once(lambda: fn(sharded))
+            if sharded and i == reps - 1:
+                counts = dict(build.LAUNCHES)
+            if first is None:
+                first = out
+            elif out != first:
+                raise AssertionError("a warm call changed its answer")
+            walls[sharded].append(ms / 1e3)
+    return walls, counts
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def _walls(w) -> str:
+    return f"{[round(x, 4) for x in w]} s, median {statistics.median(w):.4f} s"
+
+
+def mesh_msm(dev, mesh, grp, affine_pts, ks) -> dict:
+    """msm(affine=True) at 2^20 sharded over the mesh: equal to the unsharded
+    result and to the host value; warm walls of both in turns; the launches
+    of one warm sharded call."""
+    N = 1 << 20
+    pts = tile(affine_pts, N // N_UNIQUE)
+    scal_np = random_scalars(N, 7)
+    scal = torch.as_tensor(scal_np, device=dev)
+    want = expected_msm(grp, scal_np, ks)
+
+    def call(sharded):
+        with pmesh.use_mesh(mesh if sharded else None):
+            return grp.msm(pts, scal, affine=True, device=dev)
+
+    one, _ = timed_once(lambda: call(False))
+    got, cold = timed_once(lambda: call(True))
+    if got != one or got != want:
+        raise AssertionError(f"msm_{grp.name} at 2^20 on {mesh.size} shards differs from the "
+                             f"unsharded result or the host value")
+    walls, counts = turns(call)
+    say(f"mesh msm_{grp.name} N=2^20 on {mesh.size} shards: equal to the unsharded result and the "
+        f"host value; sharded cold {cold / 1e3:.4f} s, warm {_walls(walls[True])}; unsharded "
+        f"warm {_walls(walls[False])}")
+    say(f"  launches, one warm sharded msm_{grp.name}: {json.dumps(_nonzero(counts))}")
+    return counts
+
+
+def mesh_commit(dev, mesh) -> dict:
+    """The sqrt-PST commit at nv = 20 sharded over the mesh (its 1,024
+    columns in blocks): the column commitments limb-equal and, in affine,
+    equal to the unsharded ones, T byte-equal; warm walls of both in turns;
+    the launches of one warm sharded commit."""
+    nv = 20
+    pf = cprof.bls12_377(dev)
+    ck, _ = pst.setup(nv - nv // 2, profile=pf)
+    table = dense._to_mont_dev(torch.as_tensor(random_scalars(1 << nv, 7), device=dev))
+    pl = sqrt_pst.Polynomial.from_evaluations(table, pf)
+
+    def commit(sharded):
+        with pmesh.use_mesh(mesh if sharded else None):
+            comm, T = pl.commit(ck)
+        return pf.g1b.to_affine(comm), pf.ser_gt(T), comm
+
+    (aff1, t1, c1), _ = timed_once(lambda: commit(False))
+    (aff2, t2, c2), cold = timed_once(lambda: commit(True))
+    if aff2 != aff1 or t2 != t1 or not all(torch.equal(a, b) for a, b in zip(c1, c2)):
+        raise AssertionError(f"the sqrt-PST commit at nv = {nv} on {mesh.size} shards differs "
+                             f"from the unsharded one")
+    walls, counts = turns(lambda sharded: commit(sharded)[:2])
+    say(f"mesh sqrt-PST commit nv={nv} ({len(aff1)} columns) on {mesh.size} shards: column "
+        f"commitments limb-equal, T byte-equal ({len(t1)} B) to the unsharded commit; sharded "
+        f"cold {cold / 1e3:.4f} s, warm {_walls(walls[True])}; unsharded warm {_walls(walls[False])}")
+    say(f"  launches, one warm sharded commit: {json.dumps(_nonzero(counts))}")
+    return counts
+
+
+def mesh_nizk(dev, log2n: int, runs) -> dict:
+    """TestudoNIZK on produce_synthetic_r1cs(2^log2n, 2^log2n, 10) proved
+    unsharded and under each (mesh, fused, path) of `runs`: byte-equal sat
+    proofs and final sponge states, the sharded proof verified and its
+    eval_vars_at_ry + 1 rejected, the fused sumcheck's kernels launched by
+    the fused prove only; walls of warm proves of both in turns; the
+    launches of one warm sharded prove, by path (None: not counted)."""
+    n = 1 << log2n
+    what = f"mesh NIZK 2^{log2n}"
+    t0 = time.perf_counter()
+    inst, vars_, inputs = r1cs.Instance.produce_synthetic_r1cs(n, n, NIZK_INPUTS)
+    inst_s = time.perf_counter() - t0
+    gens = snark.TestudoNizkGens.setup(n, n, NIZK_INPUTS, profile=cprof.bls12_377(dev))
+    say(f"{what}: instance built in {inst_s:.1f} s")
+
+    def verify(proof):
+        return snark.nizk_verify(proof, gens, inst, inputs, PoseidonTranscript(fr_params()))
+
+    ref, by_path = {}, {}
+    for mesh, fused, path in runs:
+        which = "fused" if fused else "looped"
+
+        def prove(sharded):
+            tp = PoseidonTranscript(fr_params())
+            with pmesh.use_mesh(mesh if sharded else None):
+                proof = snark.nizk_prove(inst, vars_, inputs, gens, tp, fused=fused)
+            return proofs.ser_r1cs_proof(proof.r1cs_sat_proof), list(tp.sponge.state), proof
+
+        if fused not in ref:
+            ref[fused] = prove(False)
+        blob, state, _ = ref[fused]
+        (blob2, state2, proof2), cold = timed_once(lambda: prove(True))
+        if blob2 != blob or state2 != state:
+            raise AssertionError(f"{what} ({which}) on {mesh.size} shards: other bytes or another "
+                                 f"sponge state than the unsharded prove")
+        if verify(proof2) is not True:
+            raise AssertionError(f"{what} ({which}) on {mesh.size} shards did not verify")
+        bad = proofs.parse_r1cs_proof(blob2)
+        bad.eval_vars_at_ry = (bad.eval_vars_at_ry + 1) % R
+        if verify(snark.TestudoNizk(bad, proof2.r)) is not False:
+            raise AssertionError(f"{what} ({which}): the verifier accepted eval_vars_at_ry + 1")
+        walls, counts = turns(lambda sharded: prove(sharded)[:2], reps=2)
+        if any(counts[k] for k in FUSED_KERNELS) != fused:
+            raise AssertionError(f"{what} ({which}) on {mesh.size} shards launched "
+                                 f"{ {k: counts[k] for k in FUSED_KERNELS} } fused sumcheck kernels")
+        say(f"{what} ({n} constraints, {NIZK_INPUTS} inputs), {which} sumcheck, {mesh.size} "
+            f"shards: sat proof {len(blob)} B and final sponge state equal to the unsharded "
+            f"prove's; verified, eval_vars_at_ry + 1 rejected; sharded cold {cold / 1e3:.4f} s, "
+            f"warm {_walls(walls[True])}; unsharded warm {_walls(walls[False])}")
+        if path is not None:
+            by_path[path] = counts
+            say(f"  {what} launches, one warm sharded {which} prove: "
+                f"{json.dumps(_nonzero(counts))}")
+    return by_path
+
+
+def phase_mesh(dev, affine, ks) -> dict:
+    """The sharded paths (parallel/mesh.py) on MESH_SHARDS shards: the two
+    MSMs at 2^20, the sqrt-PST commit at nv = 20, TestudoNIZK at 2^16 with
+    both sumchecks and the golden instance, each against its unsharded run;
+    then on MESH_SHARDS_WIDE shards the fused 2^16 prove, whose remnant is
+    three rounds.  Returns the launches by path."""
+    mesh = make_shards(dev, MESH_SHARDS)
+    counts = {"mesh_msm": {name: 0 for name in build.LAUNCHES}}
+    for grp in (GROUPS["g1"], GROUPS["g2"]):
+        for name, n in mesh_msm(dev, mesh, grp, affine[grp.name], ks[grp.name]).items():
+            counts["mesh_msm"][name] += n
+    counts["mesh_commit"] = mesh_commit(dev, mesh)
+    phase_nizk_golden(dev, mesh)
+    wide = make_shards(dev, MESH_SHARDS_WIDE)
+    counts.update(mesh_nizk(dev, 16, [(mesh, True, "mesh_nizk"), (mesh, False, "mesh_nizk_looped"),
+                                      (wide, True, None)]))
+    return counts
+
+
+class _Late(Exception):
+    """The instance build outran its budget."""
+
+
+def mesh_big(dev, log2n: int, budget_s: int):
+    """Whether TestudoNIZK at 2^log2n fits on the card under the
+    MESH_SHARDS mesh: the instance's host build (stopped after `budget_s`
+    seconds), the setup, one fused prove (its peak device memory, or the
+    allocation that failed) and the verify."""
+    import signal
+
+    n = 1 << log2n
+    what = f"mesh NIZK 2^{log2n}"
+
+    def late(signum, frame):
+        raise _Late
+
+    old = signal.signal(signal.SIGALRM, late)
+    signal.alarm(budget_s)
+    t0 = time.perf_counter()
+    try:
+        inst, vars_, inputs = r1cs.Instance.produce_synthetic_r1cs(n, n, NIZK_INPUTS)
+    except _Late:
+        say(f"{what}: the instance's host build passed {budget_s} s "
+            f"({time.perf_counter() - t0:.1f} s) and was stopped; no prove")
+        return
+    finally:
+        signal.alarm(0)
+        signal.signal(signal.SIGALRM, old)
+    say(f"{what}: instance built in {time.perf_counter() - t0:.1f} s of host time")
+    mesh = make_shards(dev, MESH_SHARDS)
+    gens, setup_ms = timed_once(
+        lambda: snark.TestudoNizkGens.setup(n, n, NIZK_INPUTS, profile=cprof.bls12_377(dev)))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        tp = PoseidonTranscript(fr_params())
+        with pmesh.use_mesh(mesh):
+            proof = snark.nizk_prove(inst, vars_, inputs, gens, tp)
+        torch.cuda.synchronize()
+    except torch.cuda.OutOfMemoryError as err:
+        say(f"{what}: the prove ran out of device memory after {time.perf_counter() - t0:.1f} s "
+            f"(peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB allocated): "
+            f"{str(err).splitlines()[0]}")
+        return
+    prove_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    size = len(proofs.ser_r1cs_proof(proof.r1cs_sat_proof))
+    ok, verify_ms = timed_once(
+        lambda: snark.nizk_verify(proof, gens, inst, inputs, PoseidonTranscript(fr_params())))
+    if ok is not True:
+        raise AssertionError(f"{what}: the verifier rejected the sharded proof")
+    say(f"{what} on {mesh.size} shards fits: setup {setup_ms / 1e3:.1f} s, fused prove "
+        f"{prove_s:.1f} s (peak {peak:.2f} GiB allocated), sat proof {size} B, verified in "
+        f"{verify_ms / 1e3:.1f} s")
+
+
 def phase_harness(dev):
     """The chained-product harness as its user runs it; returns the launches
     it made."""
@@ -3071,6 +3348,9 @@ def main(argv=None) -> int:
     ap.add_argument("--bls381-only", action="store_true",
                     help="build, check and time the fr381 product and the R1CS proof over "
                          "BLS12-381 at 2^10, 2^12 and 2^14, stop")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="build, check and time the sharded paths on shards of the card, the "
+                         "NIZK at 2^20 under the mesh, try 2^24 under it, stop")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs only on the GPU", file=sys.stderr)
@@ -3122,6 +3402,15 @@ def main(argv=None) -> int:
     proj, affine, ks = {}, {}, {}
     for grp in (g1, g2):
         proj[grp.name], affine[grp.name], ks[grp.name] = make_points(dev, grp, t_start)
+    if args.mesh_only:
+        phase_mesh(dev, affine, ks)
+        say(f"mesh phase done ({time.time() - t_start:.1f} s)")
+        mesh_nizk(dev, 20, [(make_shards(dev, MESH_SHARDS), fused, None) for fused in (True, False)])
+        say(f"mesh NIZK 2^20 done ({time.time() - t_start:.1f} s)")
+        mesh_big(dev, 24, budget_s=600)
+        say(f"mesh-only pass done ({time.time() - t_start:.1f} s); run without arguments for the "
+            f"full check")
+        return 0
 
     # one dependent Fq product at one warp: the ladders' latency bound
     lat_us = exp_montmul.measure_latency(FQ, dev)["inline"]["us_per_product"]
@@ -3194,6 +3483,12 @@ def main(argv=None) -> int:
     for path, snap in phase_nizk(dev, 16, warm=1, profiled=False).items():
         note(path, snap)
     say(f"NIZK done ({time.time() - t_start:.1f} s)")
+
+    # the sharded paths: MESH_SHARDS shards of the card (parallel/mesh.py)
+    t_mesh = time.time()
+    for path, snap in phase_mesh(dev, affine, ks).items():
+        note(path, snap)
+    say(f"mesh done in {time.time() - t_mesh:.1f} s ({time.time() - t_start:.1f} s)")
 
     # TestudoSNARK: without Groth16 the small instance against the CPU; the
     # cubic twin; with Groth16 config #4 at 2^16 (the paths counted there), one

@@ -68,7 +68,7 @@ def test_new_modules_are_all_there():
                  "fields.bw6_761", "curves.bw6_761", "device.curve_generic",
                  "core.circuit_verifier", "core.groth16_bw6", "tools.exp_bw6",
                  "fields.tower", "fields.bls12_381", "curves.bls12_381",
-                 "poseidon.constants_381"):
+                 "poseidon.constants_381", "parallel.mesh", "parallel.dryrun"):
         importlib.import_module("testudo_tpu_torch." + name)
 
 

@@ -17,8 +17,8 @@ Differences from Testudo (behavior-preserving):
 
 Transcript: Fq sponge (PoseidonTranscript over get_bls12377_fq_params),
 exactly like sqrt_pst.rs:170, 233.  The curve profile rides on the
-CommitterKey and names the device.  One device only: sharding the columns
-over several GPUs waits for the multi-GPU slice.
+CommitterKey and names the device.  Under a mesh (parallel/mesh.py
+`use_mesh`) the columns of a device commit shard over the mesh's devices.
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ import torch
 
 from ..curves import profile as cprof
 from ..device import field as tf
+from ..parallel import mesh as pmesh
 from ..poly import dense
 from ..utils.timer import Timer
 from . import mipp, pst
@@ -176,7 +177,10 @@ def _multi_msm_g1(pf, basis, cols_mont: torch.Tensor):
     (K, N, nlimbs) -> backend repr of K points.
 
     Used for the per-column sqrt-PST commitments: the device backend runs
-    the shared-table multi-MSM, host backends loop over the columns.
+    the shared-table multi-MSM, its columns sharded over the ambient mesh
+    when there are at least two a shard (`parallel.mesh.sharded_multi_msm`,
+    the reference's sqrt_pst.py:186-195); host backends loop over the
+    columns, unsharded.
     """
     spec = pf.fr_spec
     if isinstance(pf.g1b, cprof.HostGroupBackend):
@@ -189,4 +193,7 @@ def _multi_msm_g1(pf, basis, cols_mont: torch.Tensor):
 
     scalars_canon = pst._to_canon_scalars(cols_mont, spec)
     c = msm._pick_window(scalars_canon.shape[1])
+    mesh = pmesh.active_mesh()
+    if mesh is not None and mesh.size >= 2 and scalars_canon.shape[0] >= 2 * mesh.size:
+        return pmesh.sharded_multi_msm(mesh, "g1", basis, scalars_canon, c)
     return msm._multi_msm_device("g1", basis, scalars_canon, c)

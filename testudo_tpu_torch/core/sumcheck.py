@@ -33,8 +33,21 @@ Transcript behaviour matches the reference: every round polynomial
 coefficient is absorbed with append_scalar (sumcheck.rs:127-129, 423-425)
 and one challenge is squeezed per round; every prover works with an Fr- or
 an Fq-sponge transcript.  There is no environment switch: the prover is
-chosen by the keyword `fused`.  The reference's sharded fused prover
-(:294-413) is multi-GPU work and not ported.
+chosen by the keyword `fused`.
+
+Under a mesh (parallel/mesh.py `use_mesh`) `prove_cubic_with_additive_term`,
+`prove_quad` and `prove_cubic` shard their Fr tables cyclically over the
+mesh's devices, as the reference does at :643-760 (`_sharded_mesh_for`,
+:399-410): `_prove_fused` with a mesh is the reference's
+`_prove_fused_sharded` (:293-396) on the same three kernels (a round launch
+a shard; the shards' partials concatenated along the blocks axis on the
+mesh's first device, where the permutation and the tail run), and
+`_prove_looped` with a mesh its `_prove_looped_sharded` (:466-520: each
+shard's evaluations, summed on the first device; the transcript on the
+host).  Once a shard holds one row, the D rows are gathered on the first
+device for the last log2 D rounds.  Proofs, challenges, final values and
+sponge states are the unsharded prover's.  Tables over BLS12-381's Fr and
+`prove_cubic_batched` stay unsharded, as in the reference.
 
 `prove_cubic_batched` is Spark's prover: every layer of its product trees
 (core/product_tree.py) is one batched cubic sumcheck, fused (the round
@@ -53,6 +66,7 @@ from ..device import field as tf
 from ..device import sponge as dsponge
 from ..device import sumcheck_kernels as sk
 from ..device.field import FR
+from ..parallel import mesh as pmesh
 from ..poly import dense
 from ..poly.unipoly import UniPoly
 from ..poseidon import constants_377 as PC
@@ -154,20 +168,44 @@ def _round(e: int, evals: List[int], transcript, m: int):
     return poly, transcript.challenge_scalar(m)
 
 
-def _prove_looped(round_evals, claim: int, num_rounds: int, tables, transcript, spec):
+def _split_tables(mesh, tables) -> List[List[torch.Tensor]]:
+    """The tables as one list a shard (cyclic layout), or as one list."""
+    if mesh is None:
+        return [list(tables)]
+    return [list(shard) for shard in pmesh.cyclic_split(mesh, torch.stack(list(tables)))]
+
+
+def _join_tables(parts, device) -> List[List[torch.Tensor]]:
+    """The shards' tables gathered in natural order on `device`, as one list."""
+    return [list(pmesh.cyclic_join([torch.stack(p) for p in parts], device))]
+
+
+def _prove_looped(round_evals, claim: int, num_rounds: int, tables, transcript, spec,
+                  mesh=None):
+    """The looped prover; with a mesh, over the tables' cyclic shards (each
+    shard's evaluations summed on the mesh's first device, one fold a shard)
+    until a shard holds one row, then over the gathered D rows there."""
     m = spec.modulus
     e = claim % m
-    tables = list(tables)
+    dev = tables[0].device if mesh is None else mesh.devices[0]
+    parts = _split_tables(mesh, tables)
     rs: List[int] = []
     polys: List[UniPoly] = []
     for _ in range(num_rounds):
-        poly, r_j = _round(e, _pull(round_evals(spec, *tables), spec), transcript, m)
+        if len(parts) > 1 and parts[0][0].shape[0] == 1:
+            parts = _join_tables(parts, dev)
+        evals = [round_evals(spec, *p) for p in parts]
+        if len(evals) > 1:  # the shards' sums: one fold of the wide sum
+            evals = [tf.reduce_sum(spec, torch.stack([x.to(dev) for x in evals]))]
+        poly, r_j = _round(e, _pull(evals[0], spec), transcript, m)
         rs.append(r_j)
-        rdev = dense.encode_scalar(r_j, spec, tables[0].device)
-        tables = [dense.bound_top(x, rdev, spec) for x in tables]
+        rdev = dense.encode_scalar(r_j, spec, dev)
+        parts = [[dense.bound_top(x, rdev.to(x.device), spec) for x in p] for p in parts]
         e = poly.evaluate(r_j)
         polys.append(poly)
-    return SumcheckInstanceProof(polys), rs, _finals(tables, spec)
+    if len(parts) > 1:
+        parts = _join_tables(parts, dev)
+    return SumcheckInstanceProof(polys), rs, _finals(parts[0], spec)
 
 
 # -- fused provers ------------------------------------------------------------
@@ -191,18 +229,62 @@ def _simulate_schedule(mode: int, index: int, num_rounds: int, ncoeffs: int):
     return mode, index
 
 
+class _Rounds:
+    """The round launches of a fused sumcheck over one stack of tables."""
+
+    def __init__(self, kind: str, src: torch.Tensor, k_par: int, k_seq: int):
+        self.kind, self.src, self.k_par, self.k_seq = kind, src, k_par, k_seq
+        self.device = src.device
+
+    def step(self, r):
+        """Fold by r (when given), then the round's partials."""
+        self.src, partials = sk.sumcheck_round(self.kind, self.src, r, self.k_par, self.k_seq)
+        return partials
+
+
+class _ShardedRounds(_Rounds):
+    """The round launches over the stack's cyclic shards: a launch a shard,
+    the partials concatenated along the blocks axis on the mesh's first
+    device (the tail's modular sum does not depend on their order), until a
+    shard's fold leaves one row; then that fold alone on each shard (its
+    partials are 0), the D rows gathered in natural order on the first
+    device, and the single-stack launches there."""
+
+    def __init__(self, kind: str, src: torch.Tensor, mesh):
+        self.kind, self.src, self.k_par, self.k_seq = kind, None, 1, 0
+        self.device = mesh.devices[0]
+        self.shards = pmesh.cyclic_split(mesh, src)
+
+    def step(self, r):
+        if self.shards is not None:
+            if self.shards[0].shape[1] > (1 if r is None else 2):
+                outs = [sk.sumcheck_round(self.kind, s, None if r is None else r.to(s.device))
+                        for s in self.shards]
+                self.shards = [s for s, _ in outs]
+                return torch.cat([p.to(self.device) for _, p in outs], dim=1)
+            if r is not None:
+                self.shards = [sk.sumcheck_round(self.kind, s, r.to(s.device))[0]
+                               for s in self.shards]
+            self.src, self.shards, r = pmesh.cyclic_join(self.shards, self.device), None, None
+        return super().step(r)
+
+
 def _prove_fused(kind: str, claim: int, num_rounds: int, tables, transcript,
-                 k_par: int = 1, k_seq: int = 0, inst_coeffs=None):
+                 k_par: int = 1, k_seq: int = 0, inst_coeffs=None, mesh=None):
     """The whole sumcheck on the device (see the module's docstring):
     returns (proof, r, the tables' final values in stack order) and leaves
-    the host transcript in the final state, mode and index."""
+    the host transcript in the final state, mode and index.  With a mesh,
+    the rounds run over the tables' cyclic shards (`_ShardedRounds`) and
+    the transcript on the mesh's first device."""
     host = transcript.sponge
     spec_s = dsponge._spec_of(transcript.params.modulus)
     src = torch.stack(list(tables))
     n = src.shape[1]
     if n & (n - 1) or n < 1 << num_rounds:
         raise ValueError(f"fused sumcheck: {num_rounds} rounds on tables of {n} rows")
-    dev = src.device
+    rounds = _Rounds(kind, src, k_par, k_seq) if mesh is None else _ShardedRounds(kind, src, mesh)
+    del src  # sharded, the shards hold their own copies
+    dev = rounds.device
     inst_coeffs = [1] if inst_coeffs is None else list(inst_coeffs)
     # one upload: the sponge state, the claim, the instances' coefficients
     up = torch.as_tensor(np.concatenate([
@@ -216,7 +298,7 @@ def _prove_fused(kind: str, claim: int, num_rounds: int, tables, transcript,
     mode, index = host.mode, host.index
     polys_d, rs_d, r = [], [], None
     for _ in range(num_rounds):
-        src, partials = sk.sumcheck_round(kind, src, r, k_par, k_seq)
+        partials = rounds.step(r)
         if mode == dsponge._SQUEEZING or index == PC.RATE:
             # the absorb's leading permutation depends on the state alone
             state = dsponge.permute(spec_s, state)
@@ -225,12 +307,13 @@ def _prove_fused(kind: str, claim: int, num_rounds: int, tables, transcript,
         mode, index = _simulate_schedule(mode, index, 1, ncoeffs)
         polys_d.append(c)
         rs_d.append(r)
-    src, _ = sk.sumcheck_round(kind, src, r, k_par, k_seq)  # the last fold: the final values
+    rounds.step(r)  # the last fold: the final values
+    finals = rounds.src[:, 0]
     flat = torch.cat([torch.stack(polys_d).reshape(-1), torch.stack(rs_d).reshape(-1),
-                      src[:, 0].reshape(-1), state.reshape(-1)]).cpu()
+                      finals.reshape(-1), state.reshape(-1)]).cpu()
     nc = num_rounds * ncoeffs * FR.nlimbs
     nr = num_rounds * FR.nlimbs
-    nf = src.shape[0] * FR.nlimbs
+    nf = finals.numel()
     cs = FR.decode(flat[:nc])
     polys = [UniPoly(cs[i * ncoeffs: (i + 1) * ncoeffs]) for i in range(num_rounds)]
     rs = FR.decode(flat[nc: nc + nr])
@@ -267,6 +350,18 @@ def _batched_claims(finals: List[int], k_par: int, k_seq: int):
 # -- provers ----------------------------------------------------------------
 
 
+def _sharded_mesh_for(tables, num_rounds: int):
+    """The ambient mesh, if the tables split evenly across it and the
+    sumcheck binds every variable (the reference's :399-410)."""
+    mesh = pmesh.active_mesh()
+    if mesh is None:
+        return None
+    D, n = mesh.size, tables[0].shape[0]
+    if D < 2 or n < D or n % D or (1 << num_rounds) != n:
+        return None
+    return mesh
+
+
 def _fuse(fused: bool, num_rounds: int, spec) -> bool:
     """Whether a prover fuses: asked to, with rounds to prove; raises when
     asked to over a field the fused kernels are not built for."""
@@ -291,11 +386,14 @@ def prove_cubic_with_additive_term(
 ) -> Tuple[SumcheckInstanceProof, List[int], List[int]]:
     """Phase-1 Spartan sumcheck over tau * (A*B - C) (sumcheck.rs:67-148).
     Returns (proof, r, [tau, A, B, C] bound at r).  Fused when `fused` and
-    there are rounds to prove (BLS12-377's Fr tables only)."""
+    there are rounds to prove (BLS12-377's Fr tables only); sharded under a
+    mesh over BLS12-377's Fr."""
+    tables = (tau, A, B, C)
+    mesh = _sharded_mesh_for(tables, num_rounds) if spec == FR else None
     if _fuse(fused, num_rounds, spec):
-        return _prove_fused("cubic_tau", claim, num_rounds, (tau, A, B, C), transcript)
-    return _prove_looped(_round_evals_cubic_tau_s, claim, num_rounds, (tau, A, B, C),
-                         transcript, spec)
+        return _prove_fused("cubic_tau", claim, num_rounds, tables, transcript, mesh=mesh)
+    return _prove_looped(_round_evals_cubic_tau_s, claim, num_rounds, tables, transcript, spec,
+                         mesh)
 
 
 def prove_quad(
@@ -307,10 +405,12 @@ def prove_quad(
     spec=FR,
     fused: bool = True,
 ) -> Tuple[SumcheckInstanceProof, List[int], List[int]]:
-    """Phase-2 Spartan sumcheck over A*B (sumcheck.rs:387-443)."""
+    """Phase-2 Spartan sumcheck over A*B (sumcheck.rs:387-443); sharded under
+    a mesh over BLS12-377's Fr."""
+    mesh = _sharded_mesh_for((A, B), num_rounds) if spec == FR else None
     if _fuse(fused, num_rounds, spec):
-        return _prove_fused("quad", claim, num_rounds, (A, B), transcript)
-    return _prove_looped(_round_evals_quad_s, claim, num_rounds, (A, B), transcript, spec)
+        return _prove_fused("quad", claim, num_rounds, (A, B), transcript, mesh=mesh)
+    return _prove_looped(_round_evals_quad_s, claim, num_rounds, (A, B), transcript, spec, mesh)
 
 
 def prove_cubic(
@@ -322,11 +422,13 @@ def prove_cubic(
     transcript,
     fused: bool = True,
 ) -> Tuple[SumcheckInstanceProof, List[int], List[int]]:
-    """Product sumcheck over A*B*C (sumcheck.rs:149-218), over Fr."""
+    """Product sumcheck over A*B*C (sumcheck.rs:149-218), over Fr; sharded
+    under a mesh."""
+    mesh = _sharded_mesh_for((A, B, C), num_rounds)
     if fused and num_rounds > 0:
-        return _prove_fused("cubic", claim, num_rounds, (A, B, C), transcript)
+        return _prove_fused("cubic", claim, num_rounds, (A, B, C), transcript, mesh=mesh)
     return _prove_looped(_round_evals_cubic_prod_s, claim, num_rounds, (A, B, C),
-                         transcript, FR)
+                         transcript, FR, mesh)
 
 
 def prove_cubic_batched(

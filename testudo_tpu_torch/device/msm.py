@@ -451,10 +451,31 @@ def msm_pipeline(group_name: str, points, scal: torch.Tensor, c: Optional[int] =
     return out
 
 
+def _mesh_for_batch(n: int):
+    """The ambient prover mesh, when a batch of n points is worth sharding
+    (tpu/msm.py:1162): not for a mesh of one shard, a small batch, or fewer
+    than two points a shard."""
+    from ..parallel import mesh as pmesh  # it drives this module's pipelines
+
+    mesh = pmesh.active_mesh()
+    if mesh is None or mesh.size < 2 or n <= _SMALL_N or n < 2 * mesh.size:
+        return None
+    return mesh
+
+
 def _msm_entry(group_name: str, points, scalars, c, affine, signed_c, device, on_phase):
-    """The body `msm_g1` and `msm_g2` share: move the batch to `device` and
-    run its pipeline (the ladder for small batches, Pippenger otherwise) to
-    the end; the sum comes back as a host affine point."""
+    """The body `msm_g1` and `msm_g2` share: under a mesh worth sharding
+    over (`_mesh_for_batch`), `parallel.mesh.sharded_msm` on the mesh's
+    devices; else move the batch to `device` and run its pipeline (the
+    ladder for small batches, Pippenger otherwise) to the end.  The sum
+    comes back as a host affine point."""
+    mesh = _mesh_for_batch(len(scalars) if isinstance(scalars, (list, tuple))
+                           else scalars.shape[0])
+    if mesh is not None:
+        from ..parallel import mesh as pmesh
+
+        scal = _prep_scalars(scalars, mesh.devices[0])
+        return pmesh.sharded_msm(mesh, group_name, points, scal, c, affine, signed_c)
     device = torch.device(device)
     points = _map_coords(lambda coord: coord.to(device), points)
     scal = _prep_scalars(scalars, device)
@@ -470,7 +491,9 @@ def msm_g1(points, scalars: Sequence[int] | torch.Tensor, c: Optional[int] = Non
     `points` is an (X, Y, Z) tuple of (N, 24) int32 Montgomery limb tensors,
     `scalars` host ints or (N, 16) canonical (non-Montgomery) Fr limbs; both
     are moved to `device`, where the whole computation runs (the CUDA
-    kernels on a CUDA device, their plain versions on the CPU).
+    kernels on a CUDA device, their plain versions on the CPU).  Under
+    `parallel.mesh.use_mesh` a large batch shards over the mesh's devices
+    instead (`_mesh_for_batch`).
     `affine=True` asserts every point has Z = mont(1) and enables mixed adds
     in the bucket phase.  c=None uses signed windows of `signed_c` bits."""
     return _msm_entry("g1", points, scalars, c, affine, signed_c, device, on_phase)
