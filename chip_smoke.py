@@ -127,7 +127,11 @@ testudo_tpu_torch/csrc/, then
      holds the result against the kernel's plain PyTorch version on the
      same inputs (integers: the tolerance is exact equality, max_abs_err
      must be 0), at a lane count that is no multiple of the block size and
-     with edge cases mixed in, and times both; the row-major product's rows
+     with edge cases mixed in, and times both; the product, inlined and
+     called, against the plain product at all four fields (Fq, Fr, BW6-761's
+     Fq, BLS12-381's Fr) on operands 0, 1, p - 1 and below R but not below p,
+     as `_fold_wide` gives them (the `mont_chain` row's
+     `edges_max_abs_err`); the row-major product's rows
      give its own device time (torch.profiler; L2 flushed before each
      launch, and left warm) beside the rate of raw
      launches and the time of a call through `field.mont_mul`, at its wide
@@ -2563,6 +2567,15 @@ def kernels_chain(dev, rep: Report, quick: bool):
                     plain_g, 3 * spec.nlimbs * 4 * lanes, MADD_FQ * K64 * lanes,
                     f"({G}, {spec.nlimbs}, {Lc // G}) Fq, K = {K64}; compared at K = {K}, "
                     f"({G}, {spec.nlimbs}, {Lg}), both formulations, plain_ms from there")
+    # the product, inlined and called, at every field against the plain
+    # product on edge operands: 0, 1, p - 1 and operands below R but not
+    # below p, as `_fold_wide` hands them (times canonical ones)
+    edges = {}
+    for spec in exp_montmul.EDGE_FIELDS:
+        edges[spec.name] = exp_montmul.check_edges(spec, 1024 + ODD, dev)
+        say(f"product ({spec.name}), inlined and called: equal to the plain product on edge "
+            f"operands")
+    rep.rows["mont_chain"]["edges_max_abs_err"] = edges
 
 
 def kernels_commit_bucket(dev, rep: Report, canon, basis):

@@ -1,5 +1,5 @@
-// BLS12-377 group law for the Hopper kernels, once for both groups, and the
-// per-lane bodies of the packed EC kernels.
+// BLS12-377 group law for the Hopper kernels, once for both groups and both
+// reductions, and the per-lane bodies of the packed EC kernels.
 //
 // Replaces the fused EC kernel bodies of testudo_tpu/tpu/pallas_curve.py
 // (:391-584, ops "add_mask", "add2", "step", "scan2", "scan2b", "bucket",
@@ -7,206 +7,390 @@
 // staged RCB16 formulas over lazily reduced limb rows, for `ncomp = 1` (G1
 // over Fq) and `ncomp = 2` (G2 over Fq2).  The formulas here are the same
 // three (Renes-Costello-Batina 2016, a = 0: Algorithm 7 complete add,
-// Algorithm 8 complete mixed add, Algorithm 9 complete double) on strictly
-// reduced values, so every coordinate written is canonical and equals, limb
-// for limb, what the JAX package writes.
+// Algorithm 8 complete mixed add, Algorithm 9 complete double), and every
+// coordinate written is canonical and equals, limb for limb, what the JAX
+// package writes.
 //
-// The formulas are templates over a coordinate-field policy C (`FqCoord`:
-// one Fq element, b3 = 3; `Fq2Coord`: an Fq2 element, b3 = 3/u), as
-// tpu/curve.py writes them once over an ops namespace.  A point is three
-// coordinates in a thread's registers (and, for G2, local memory: two
-// points and the temporaries of an add exceed 255 registers).  In device
-// memory a batch is `(C::ROWS, L)` int32: coordinate-major, component-major
-// within a coordinate, 24 rows of 16-bit limbs per component, batch along
-// L: 72 rows for G1, 144 for G2.
+// The formulas are templates over a coordinate-field policy, as tpu/curve.py
+// writes them once over an ops namespace, and return their point by value
+// (each intermediate a new name, so its type may carry its own bound).  Two
+// reductions:
+//   - strict (`FqCoord`: one Fq element, b3 = 3; `Fq2Coord`: an Fq2
+//     element, b3 = 3/u): every value canonical (fp.cuh, fp2.cuh).  The
+//     kernel-phase bodies (add2, add_mask, step, scan2, scan2b, the one-thread
+//     ladder) run it.
+//   - lazy (`LazyFqCoord`, `LazyFq2Coord`, each strict policy's `Lazy`):
+//     lazy.cuh's static bounds, a loop-carried point clamped to K_CARRY (4
+//     for G1, 8 for G2, pallas_curve.py:154, :257) after every step, made
+//     canonical at the store.  The bucket kernels and the one-thread
+//     fixed-base kernel run it where it measured faster (BucketArith,
+//     FixedBaseArith: all but G2's general add).
+// A point is three coordinates in a thread's registers (and, for G2, local
+// memory: two points and the temporaries of an add exceed 255 registers).
+// In device memory a batch is `(C::ROWS, L)` int32: coordinate-major,
+// component-major within a coordinate, 24 rows of 16-bit limbs per
+// component, batch along L: 72 rows for G1, 144 for G2.
 //
 // Each `lane_*` function is the whole work of one thread of one kernel; the
 // `__global__` functions in the .cu files only compute the lane index (the
 // bucket kernel takes its lanes from a work counter).  The same functions
 // compile as plain C++ for csrc/host_check.cpp.
 #pragma once
-#include "fp2.cuh"
+#include "lazy.cuh"
 
 // ---------------------------------------------------------------------------
-// Coordinate-field policies
+// Points and coordinate-field policies
 // ---------------------------------------------------------------------------
+//
+// A policy gives the formulas their field: add, sub, mul3 (3a), mul_b3 and
+// select return values; `mul_to(r, a, b)` writes a product into r, of the
+// policy's one product type `Prod` (the product is a real call that writes
+// through its first argument: returning it by value cost the G2 kernels a
+// copy through local memory, 30-40% of the strict ones' time on the H100);
+// `point(x, y, z)` makes the formulas' result; `carry(P)` gives a
+// loop-carried point its fixed type; `canon(P)` the canonical point a store
+// writes.  `E` is the canonical coordinate (what load and load_row return,
+// store takes), Pt<A> the canonical point.
+
+template <class X>
+struct PtE {
+  X x, y, z;
+};
+
+template <class A>
+using Pt = PtE<typename A::E>;
+
+struct LazyFqCoord {
+  typedef LFq<1> E;
+  typedef LFq<2> Prod;
+  static constexpr int K_CARRY = 4;
+  static constexpr int COMP_ROWS = 2 * FQN;  // limb rows of one coordinate
+  static constexpr int ROWS = 3 * COMP_ROWS;
+  FP_MEMBER static E zero() {
+    E r;
+    fp_zero<Fq>(r.v);
+    return r;
+  }
+  FP_MEMBER static E one() { return lz_of<1>(FQ_ONE); }
+  template <int KA, int KB>
+  FP_MEMBER static auto add(const LFq<KA>& a, const LFq<KB>& b) { return lz_add(a, b); }
+  template <int KA, int KB>
+  FP_MEMBER static auto sub(const LFq<KA>& a, const LFq<KB>& b) { return lz_sub(a, b); }
+  template <int KA, int KB>
+  FP_MEMBER static void mul_to(Prod& r, const LFq<KA>& a, const LFq<KB>& b) {
+    lz_mul_to(r, a, b);
+  }
+  template <int K>
+  FP_MEMBER static auto mul3(const LFq<K>& a) { return lz_smul<3>(a); }
+  template <int K>
+  FP_MEMBER static auto mul_b3(const LFq<K>& a) { return lz_smul<3>(a); }  // b3 = 3
+  template <int KA, int KB>
+  FP_MEMBER static auto select(bool c, const LFq<KA>& a, const LFq<KB>& b) {
+    return lz_select(c, a, b);
+  }
+  template <int KX, int KY, int KZ>
+  FP_MEMBER static auto point(const LFq<KX>& x, const LFq<KY>& y, const LFq<KZ>& z) {
+    constexpr int K = lz_max(KX, lz_max(KY, KZ));
+    return PtE<LFq<K>>{lz_relax<K>(x), lz_relax<K>(y), lz_relax<K>(z)};
+  }
+  template <int K>
+  FP_MEMBER static PtE<LFq<K_CARRY>> carry(const PtE<LFq<K>>& a) {
+    return {lz_clamp<K_CARRY>(a.x), lz_clamp<K_CARRY>(a.y), lz_clamp<K_CARRY>(a.z)};
+  }
+  template <int K>
+  FP_MEMBER static PtE<E> canon(const PtE<LFq<K>>& a) {
+    return {lz_finalize(a.x), lz_finalize(a.y), lz_finalize(a.z)};
+  }
+  FP_MEMBER static E load(const int* base, long L, long lane, int row0) {
+    E r;
+    fp_load<Fq>(r.v, base, L, lane, row0);
+    return r;
+  }
+  FP_MEMBER static void store(int* base, long L, long lane, int row0, const E& a) {
+    fp_store<Fq>(base, L, lane, row0, a.v);
+  }
+  FP_MEMBER static E load_row(const int* row) {
+    E r;
+    fp_load_row<Fq>(r.v, row);
+    return r;
+  }
+};
+
+struct LazyFq2Coord {
+  typedef LFq2<1, 1> E;
+  typedef LFq2<4, 4> Prod;
+  static constexpr int K_CARRY = 8;
+  static constexpr int COMP_ROWS = 4 * FQN;
+  static constexpr int ROWS = 3 * COMP_ROWS;
+  FP_MEMBER static E zero() { return {LazyFqCoord::zero(), LazyFqCoord::zero()}; }
+  FP_MEMBER static E one() { return {LazyFqCoord::one(), LazyFqCoord::zero()}; }
+  template <int A0, int A1, int B0, int B1>
+  FP_MEMBER static auto add(const LFq2<A0, A1>& a, const LFq2<B0, B1>& b) {
+    return lz2_add(a, b);
+  }
+  template <int A0, int A1, int B0, int B1>
+  FP_MEMBER static auto sub(const LFq2<A0, A1>& a, const LFq2<B0, B1>& b) {
+    return lz2_sub(a, b);
+  }
+  template <int A0, int A1, int B0, int B1>
+  FP_MEMBER static void mul_to(Prod& r, const LFq2<A0, A1>& a, const LFq2<B0, B1>& b) {
+    lz2_mul_to(r, a, b);
+  }
+  template <int K0, int K1>
+  FP_MEMBER static auto mul3(const LFq2<K0, K1>& a) { return lz2_smul<3>(a); }
+  template <int K0, int K1>
+  FP_MEMBER static auto mul_b3(const LFq2<K0, K1>& a) { return lz2_mul_b3(a); }
+  template <int A0, int A1, int B0, int B1>
+  FP_MEMBER static auto select(bool c, const LFq2<A0, A1>& a, const LFq2<B0, B1>& b) {
+    return lz2_select(c, a, b);
+  }
+  template <int X0, int X1, int Y0, int Y1, int Z0, int Z1>
+  FP_MEMBER static auto point(const LFq2<X0, X1>& x, const LFq2<Y0, Y1>& y,
+                              const LFq2<Z0, Z1>& z) {
+    constexpr int K = lz_max(lz_max(lz_max(X0, X1), lz_max(Y0, Y1)), lz_max(Z0, Z1));
+    return PtE<LFq2<K, K>>{lz2_relax<K>(x), lz2_relax<K>(y), lz2_relax<K>(z)};
+  }
+  template <int K>
+  FP_MEMBER static PtE<LFq2<K_CARRY, K_CARRY>> carry(const PtE<LFq2<K, K>>& a) {
+    return {lz2_clamp<K_CARRY>(a.x), lz2_clamp<K_CARRY>(a.y), lz2_clamp<K_CARRY>(a.z)};
+  }
+  template <int K>
+  FP_MEMBER static PtE<E> canon(const PtE<LFq2<K, K>>& a) {
+    return {lz2_finalize(a.x), lz2_finalize(a.y), lz2_finalize(a.z)};
+  }
+  FP_MEMBER static E load(const int* base, long L, long lane, int row0) {
+    return {LazyFqCoord::load(base, L, lane, row0),
+            LazyFqCoord::load(base, L, lane, row0 + 2 * FQN)};
+  }
+  FP_MEMBER static void store(int* base, long L, long lane, int row0, const E& a) {
+    LazyFqCoord::store(base, L, lane, row0, a.c0);
+    LazyFqCoord::store(base, L, lane, row0 + 2 * FQN, a.c1);
+  }
+  FP_MEMBER static E load_row(const int* row) {
+    return {LazyFqCoord::load_row(row), LazyFqCoord::load_row(row + 2 * FQN)};
+  }
+};
 
 struct FqCoord {
   struct E {
     u32 v[FQN];
   };
+  typedef E Prod;
+  typedef LazyFqCoord Lazy;
   static constexpr int COMP_ROWS = 2 * FQN;  // limb rows of one coordinate
   static constexpr int ROWS = 3 * COMP_ROWS;
-  FP_MEMBER static void zero(E& r) { fp_zero<Fq>(r.v); }
-  FP_MEMBER static void one(E& r) { fp_copy<Fq>(r.v, FQ_ONE); }
-  FP_MEMBER static void select(E& r, bool c, const E& a, const E& b) {
-    fp_select<Fq>(r.v, c, a.v, b.v);
+  FP_MEMBER static E zero() {
+    E r;
+    fp_zero<Fq>(r.v);
+    return r;
   }
-  FP_MEMBER static void add(E& r, const E& a, const E& b) { fp_add<Fq>(r.v, a.v, b.v); }
-  FP_MEMBER static void sub(E& r, const E& a, const E& b) { fp_sub<Fq>(r.v, a.v, b.v); }
-  FP_MEMBER static void mul(E& r, const E& a, const E& b) { fp_mul<Fq>(r.v, a.v, b.v); }
-  FP_MEMBER static void mul3(E& r, const E& a) { fp_mul3<Fq>(r.v, a.v); }
-  FP_MEMBER static void mul_b3(E& r, const E& a) { fp_mul3<Fq>(r.v, a.v); }  // b3 = 3
-  FP_MEMBER static void load(E& r, const int* base, long L, long lane, int row0) {
+  FP_MEMBER static E one() {
+    E r;
+    fp_copy<Fq>(r.v, FQ_ONE);
+    return r;
+  }
+  FP_MEMBER static E select(bool c, const E& a, const E& b) {
+    E r;
+    fp_select<Fq>(r.v, c, a.v, b.v);
+    return r;
+  }
+  FP_MEMBER static E add(const E& a, const E& b) {
+    E r;
+    fp_add<Fq>(r.v, a.v, b.v);
+    return r;
+  }
+  FP_MEMBER static E sub(const E& a, const E& b) {
+    E r;
+    fp_sub<Fq>(r.v, a.v, b.v);
+    return r;
+  }
+  FP_MEMBER static void mul_to(E& r, const E& a, const E& b) { fp_mul<Fq>(r.v, a.v, b.v); }
+  FP_MEMBER static E mul3(const E& a) {
+    E r;
+    fp_mul3<Fq>(r.v, a.v);
+    return r;
+  }
+  FP_MEMBER static E mul_b3(const E& a) { return mul3(a); }  // b3 = 3
+  FP_MEMBER static PtE<E> point(const E& x, const E& y, const E& z) { return {x, y, z}; }
+  FP_MEMBER static const PtE<E>& carry(const PtE<E>& a) { return a; }
+  FP_MEMBER static const PtE<E>& canon(const PtE<E>& a) { return a; }
+  FP_MEMBER static E load(const int* base, long L, long lane, int row0) {
+    E r;
     fp_load<Fq>(r.v, base, L, lane, row0);
+    return r;
   }
   FP_MEMBER static void store(int* base, long L, long lane, int row0, const E& a) {
     fp_store<Fq>(base, L, lane, row0, a.v);
   }
-  FP_MEMBER static void load_row(E& r, const int* row) { fp_load_row<Fq>(r.v, row); }
+  FP_MEMBER static E load_row(const int* row) {
+    E r;
+    fp_load_row<Fq>(r.v, row);
+    return r;
+  }
 };
 
 struct Fq2Coord {
   typedef Fq2 E;
+  typedef E Prod;
+  typedef LazyFq2Coord Lazy;
   static constexpr int COMP_ROWS = 4 * FQN;
   static constexpr int ROWS = 3 * COMP_ROWS;
-  FP_MEMBER static void zero(E& r) { fp2_zero(r); }
-  FP_MEMBER static void one(E& r) { fp2_one(r); }
-  FP_MEMBER static void select(E& r, bool c, const E& a, const E& b) {
-    fp2_select(r, c, a, b);
+  FP_MEMBER static E zero() {
+    E r;
+    fp2_zero(r);
+    return r;
   }
-  FP_MEMBER static void add(E& r, const E& a, const E& b) { fp2_add(r, a, b); }
-  FP_MEMBER static void sub(E& r, const E& a, const E& b) { fp2_sub(r, a, b); }
-  FP_MEMBER static void mul(E& r, const E& a, const E& b) { fp2_mul(r, a, b); }
-  FP_MEMBER static void mul3(E& r, const E& a) { fp2_mul3(r, a); }
-  FP_MEMBER static void mul_b3(E& r, const E& a) { fp2_mul_b3(r, a); }
-  FP_MEMBER static void load(E& r, const int* base, long L, long lane, int row0) {
+  FP_MEMBER static E one() {
+    E r;
+    fp2_one(r);
+    return r;
+  }
+  FP_MEMBER static E select(bool c, const E& a, const E& b) {
+    E r;
+    fp2_select(r, c, a, b);
+    return r;
+  }
+  FP_MEMBER static E add(const E& a, const E& b) {
+    E r;
+    fp2_add(r, a, b);
+    return r;
+  }
+  FP_MEMBER static E sub(const E& a, const E& b) {
+    E r;
+    fp2_sub(r, a, b);
+    return r;
+  }
+  FP_MEMBER static void mul_to(E& r, const E& a, const E& b) { fp2_mul(r, a, b); }
+  FP_MEMBER static E mul3(const E& a) {
+    E r;
+    fp2_mul3(r, a);
+    return r;
+  }
+  FP_MEMBER static E mul_b3(const E& a) {
+    E r;
+    fp2_mul_b3(r, a);
+    return r;
+  }
+  FP_MEMBER static PtE<E> point(const E& x, const E& y, const E& z) { return {x, y, z}; }
+  FP_MEMBER static const PtE<E>& carry(const PtE<E>& a) { return a; }
+  FP_MEMBER static const PtE<E>& canon(const PtE<E>& a) { return a; }
+  FP_MEMBER static E load(const int* base, long L, long lane, int row0) {
+    E r;
     fp2_load(r, base, L, lane, row0);
+    return r;
   }
   FP_MEMBER static void store(int* base, long L, long lane, int row0, const E& a) {
     fp2_store(base, L, lane, row0, a);
   }
-  FP_MEMBER static void load_row(E& r, const int* row) { fp2_load_row(r, row); }
+  FP_MEMBER static E load_row(const int* row) {
+    E r;
+    fp2_load_row(r, row);
+    return r;
+  }
 };
 
+template <class A>
+FP_FN Pt<A> ec_identity() {
+  return {A::zero(), A::one(), A::zero()};
+}
+
+template <class A>
+FP_FN Pt<A> ec_load(const int* base, long L, long lane) {
+  return {A::load(base, L, lane, 0), A::load(base, L, lane, A::COMP_ROWS),
+          A::load(base, L, lane, 2 * A::COMP_ROWS)};
+}
+
+// Canonical words of `a` at lane `lane` of a (A::ROWS, L) batch.
+template <class A, class P>
+FP_FN void ec_store(int* base, long L, long lane, const P& a) {
+  const auto& c = A::canon(a);
+  A::store(base, L, lane, 0, c.x);
+  A::store(base, L, lane, A::COMP_ROWS, c.y);
+  A::store(base, L, lane, 2 * A::COMP_ROWS, c.z);
+}
+
+template <class A, class P, class Q>
+FP_FN auto ec_select(bool c, const P& a, const Q& b) {
+  return A::point(A::select(c, a.x, b.x), A::select(c, a.y, b.y), A::select(c, a.z, b.z));
+}
+
 // ---------------------------------------------------------------------------
-// Points and the three formulas
+// The three formulas
 // ---------------------------------------------------------------------------
-
-template <class C>
-struct Pt {
-  typename C::E x, y, z;
-};
-
-template <class C>
-FP_FN void ec_set_identity(Pt<C>& r) {
-  C::zero(r.x);
-  C::one(r.y);
-  C::zero(r.z);
-}
-
-template <class C>
-FP_FN void ec_load(Pt<C>& r, const int* base, long L, long lane) {
-  C::load(r.x, base, L, lane, 0);
-  C::load(r.y, base, L, lane, C::COMP_ROWS);
-  C::load(r.z, base, L, lane, 2 * C::COMP_ROWS);
-}
-
-template <class C>
-FP_FN void ec_store(int* base, long L, long lane, const Pt<C>& a) {
-  C::store(base, L, lane, 0, a.x);
-  C::store(base, L, lane, C::COMP_ROWS, a.y);
-  C::store(base, L, lane, 2 * C::COMP_ROWS, a.z);
-}
-
-template <class C>
-FP_FN void ec_select(Pt<C>& r, bool c, const Pt<C>& a, const Pt<C>& b) {
-  C::select(r.x, c, a.x, b.x);
-  C::select(r.y, c, a.y, b.y);
-  C::select(r.z, c, a.z, b.z);
-}
 
 // Shared tail of Algorithms 7 and 8: from t0 = X1X2, t1 = Y1Y2, t2 (Z1Z2 or
 // Z1), t3, t4 and Y3 as staged in tpu/curve.py:199-213.
-template <class C>
-FP_FN void ec_add_tail(Pt<C>& r, typename C::E& t0, typename C::E& t1,
-                       const typename C::E& t2, const typename C::E& t3,
-                       const typename C::E& t4, const typename C::E& y3) {
-  typename C::E x3, t2b, y3b, z3, a, b;
-  C::add(x3, t0, t0);
-  C::add(t0, x3, t0);  // 3 X1X2
-  C::mul_b3(t2b, t2);
-  C::mul_b3(y3b, y3);
-  C::add(z3, t1, t2b);
-  C::sub(t1, t1, t2b);
-  C::mul(a, t4, y3b);  // a1
-  C::mul(b, t3, t1);   // a2
-  C::sub(r.x, b, a);
-  C::mul(a, y3b, t0);  // a3
-  C::mul(b, t1, z3);   // a4
-  C::add(r.y, b, a);
-  C::mul(a, t0, t3);   // a5
-  C::mul(b, z3, t4);   // a6
-  C::add(r.z, b, a);
+template <class A, class T0, class T1, class T2, class T3, class T4, class Y3>
+FP_FN auto ec_add_tail(const T0& t0, const T1& t1, const T2& t2, const T3& t3, const T4& t4,
+                       const Y3& y3) {
+  const auto t0x3 = A::add(A::add(t0, t0), t0);  // 3 X1X2
+  const auto t2b = A::mul_b3(t2);
+  const auto y3b = A::mul_b3(y3);
+  const auto z3 = A::add(t1, t2b);
+  const auto t1b = A::sub(t1, t2b);
+  typename A::Prod a1, a2, a3, a4, a5, a6;
+  A::mul_to(a1, t4, y3b);
+  A::mul_to(a2, t3, t1b);
+  const auto x = A::sub(a2, a1);
+  A::mul_to(a3, y3b, t0x3);
+  A::mul_to(a4, t1b, z3);
+  const auto y = A::add(a4, a3);
+  A::mul_to(a5, t0x3, t3);
+  A::mul_to(a6, z3, t4);
+  return A::point(x, y, A::add(a6, a5));
 }
 
-// r = p + q, complete (RCB16 Algorithm 7).  r may alias p or q.
-template <class C>
-FP_FN void ec_add(Pt<C>& r, const Pt<C>& p, const Pt<C>& q) {
-  typename C::E t0, t1, t2, t3, t4, y3, u, v;
-  C::mul(t0, p.x, q.x);
-  C::mul(t1, p.y, q.y);
-  C::mul(t2, p.z, q.z);
-  C::add(u, p.x, p.y);
-  C::add(v, q.x, q.y);
-  C::mul(t3, u, v);  // m3
-  C::add(u, p.y, p.z);
-  C::add(v, q.y, q.z);
-  C::mul(t4, u, v);  // m4
-  C::add(u, p.x, p.z);
-  C::add(v, q.x, q.z);
-  C::mul(y3, u, v);  // m5
-  C::add(u, t0, t1);
-  C::sub(t3, t3, u);
-  C::add(u, t1, t2);
-  C::sub(t4, t4, u);
-  C::add(u, t0, t2);
-  C::sub(y3, y3, u);
-  ec_add_tail<C>(r, t0, t1, t2, t3, t4, y3);
+// p + q, complete (RCB16 Algorithm 7).
+template <class A, class P, class Q>
+FP_FN auto ec_add(const P& p, const Q& q) {
+  typename A::Prod t0, t1, t2, m3, m4, m5;
+  A::mul_to(t0, p.x, q.x);
+  A::mul_to(t1, p.y, q.y);
+  A::mul_to(t2, p.z, q.z);
+  A::mul_to(m3, A::add(p.x, p.y), A::add(q.x, q.y));
+  A::mul_to(m4, A::add(p.y, p.z), A::add(q.y, q.z));
+  A::mul_to(m5, A::add(p.x, p.z), A::add(q.x, q.z));
+  const auto t3 = A::sub(m3, A::add(t0, t1));
+  const auto t4 = A::sub(m4, A::add(t1, t2));
+  const auto y3 = A::sub(m5, A::add(t0, t2));
+  return ec_add_tail<A>(t0, t1, t2, t3, t4, y3);
 }
 
-// r = p + (x2, y2), complete mixed add (RCB16 Algorithm 8): the second
-// point is affine and must not be the identity.  r may alias p.
-template <class C>
-FP_FN void ec_add_mixed(Pt<C>& r, const Pt<C>& p, const typename C::E& x2,
-                        const typename C::E& y2) {
-  typename C::E t0, t1, t3, t4, y3, u, v;
-  C::mul(t0, p.x, x2);
-  C::mul(t1, p.y, y2);
-  C::add(u, p.x, p.y);
-  C::add(v, x2, y2);
-  C::mul(t3, u, v);      // m3
-  C::mul(t4, y2, p.z);  // m4
-  C::mul(y3, x2, p.z);  // m5
-  C::add(u, t0, t1);
-  C::sub(t3, t3, u);
-  C::add(t4, t4, p.y);
-  C::add(y3, y3, p.x);
-  // the tail reads its t2 (here Z1) before it writes r, so r may alias p
-  ec_add_tail<C>(r, t0, t1, p.z, t3, t4, y3);
+// p + (x2, y2), complete mixed add (RCB16 Algorithm 8): the second point is
+// affine and must not be the identity.
+template <class A, class P, class X>
+FP_FN auto ec_add_mixed(const P& p, const X& x2, const X& y2) {
+  typename A::Prod t0, t1, m3, m4, m5;
+  A::mul_to(t0, p.x, x2);
+  A::mul_to(t1, p.y, y2);
+  A::mul_to(m3, A::add(p.x, p.y), A::add(x2, y2));
+  A::mul_to(m4, y2, p.z);
+  A::mul_to(m5, x2, p.z);
+  const auto t3 = A::sub(m3, A::add(t0, t1));
+  const auto t4 = A::add(m4, p.y);
+  const auto y3 = A::add(m5, p.x);
+  return ec_add_tail<A>(t0, t1, p.z, t3, t4, y3);
 }
 
-// r = 2p, complete (RCB16 Algorithm 9).  r may alias p.
-template <class C>
-FP_FN void ec_double(Pt<C>& r, const Pt<C>& p) {
-  typename C::E t0, t1, t2, txy, z3, t2b, y3, u;
-  C::mul(t0, p.y, p.y);
-  C::mul(t1, p.y, p.z);
-  C::mul(t2, p.z, p.z);
-  C::mul(txy, p.x, p.y);
-  C::add(z3, t0, t0);
-  C::add(z3, z3, z3);
-  C::add(z3, z3, z3);  // 8 Y^2
-  C::mul_b3(t2b, t2);
-  C::add(y3, t0, t2b);
-  C::mul3(u, t2b);  // t2t = 3 t2b
-  C::sub(t0, t0, u);
-  C::mul(u, t2b, z3);   // b1
-  C::mul(r.z, t1, z3);  // b2
-  C::mul(y3, t0, y3);   // b3
-  C::add(r.y, u, y3);
-  C::mul(u, t0, txy);  // b4
-  C::add(r.x, u, u);
+// 2p, complete (RCB16 Algorithm 9).
+template <class A, class P>
+FP_FN auto ec_double(const P& p) {
+  typename A::Prod t0, t1, t2, txy, b1, b2, b3, b4;
+  A::mul_to(t0, p.y, p.y);
+  A::mul_to(t1, p.y, p.z);
+  A::mul_to(t2, p.z, p.z);
+  A::mul_to(txy, p.x, p.y);
+  const auto z2 = A::add(t0, t0);
+  const auto z4 = A::add(z2, z2);
+  const auto z3 = A::add(z4, z4);  // 8 Y^2
+  const auto t2b = A::mul_b3(t2);
+  const auto y3 = A::add(t0, t2b);
+  const auto t0b = A::sub(t0, A::mul3(t2b));  // t0 - 3 t2b
+  A::mul_to(b1, t2b, z3);
+  A::mul_to(b2, t1, z3);
+  A::mul_to(b3, t0b, y3);
+  A::mul_to(b4, t0b, txy);
+  return A::point(A::add(b4, b4), A::add(b1, b3), b2);
 }
 
 // ---------------------------------------------------------------------------
@@ -216,11 +400,8 @@ FP_FN void ec_double(Pt<C>& r, const Pt<C>& p) {
 // out = a + b
 template <class C>
 FP_FN void lane_add2(const int* a, const int* b, int* out, long L, long lane) {
-  Pt<C> p, q;
-  ec_load<C>(p, a, L, lane);
-  ec_load<C>(q, b, L, lane);
-  ec_add<C>(p, p, q);
-  ec_store<C>(out, L, lane, p);
+  const Pt<C> p = ec_load<C>(a, L, lane), q = ec_load<C>(b, L, lane);
+  ec_store<C>(out, L, lane, ec_add<C>(p, q));
 }
 
 // out = mask ? acc + pts : acc.  `pts` is a batch of L points, or ONE point
@@ -229,12 +410,9 @@ FP_FN void lane_add2(const int* a, const int* b, int* out, long L, long lane) {
 template <class C>
 FP_FN void lane_add_mask(const int* acc, const int* pts, const int* mask, int* out,
                          long L, bool shared, long lane) {
-  Pt<C> a, b, s;
-  ec_load<C>(a, acc, L, lane);
-  ec_load<C>(b, pts, shared ? 1 : L, shared ? 0 : lane);
-  ec_add<C>(s, a, b);
-  ec_select<C>(s, mask[lane] != 0, s, a);
-  ec_store<C>(out, L, lane, s);
+  const Pt<C> a = ec_load<C>(acc, L, lane);
+  const Pt<C> b = ec_load<C>(pts, shared ? 1 : L, shared ? 0 : lane);
+  ec_store<C>(out, L, lane, ec_select<C>(mask[lane] != 0, ec_add<C>(a, b), a));
 }
 
 // out_acc = mask ? acc + base : acc;  out_base = 2 base.  The add always
@@ -243,42 +421,27 @@ FP_FN void lane_add_mask(const int* acc, const int* pts, const int* mask, int* o
 template <class C>
 FP_FN void lane_step(const int* acc, const int* base, const int* mask,
                      int* out_acc, int* out_base, long L, long lane) {
-  Pt<C> a, b, s;
-  ec_load<C>(a, acc, L, lane);
-  ec_load<C>(b, base, L, lane);
-  ec_add<C>(s, a, b);
-  ec_select<C>(s, mask[lane] != 0, s, a);
-  ec_store<C>(out_acc, L, lane, s);
-  ec_double<C>(b, b);
-  ec_store<C>(out_base, L, lane, b);
+  const Pt<C> a = ec_load<C>(acc, L, lane), b = ec_load<C>(base, L, lane);
+  ec_store<C>(out_acc, L, lane, ec_select<C>(mask[lane] != 0, ec_add<C>(a, b), a));
+  ec_store<C>(out_base, L, lane, ec_double<C>(b));
 }
 
 // out_run = run + bl;  out_tot = tot + out_run (the new run: two dependent adds)
 template <class C>
 FP_FN void lane_scan2(const int* run, const int* tot, const int* bl,
                       int* out_run, int* out_tot, long L, long lane) {
-  Pt<C> r, o;
-  ec_load<C>(r, run, L, lane);
-  ec_load<C>(o, bl, L, lane);
-  ec_add<C>(r, r, o);
+  const Pt<C> r = ec_add<C>(ec_load<C>(run, L, lane), ec_load<C>(bl, L, lane));
   ec_store<C>(out_run, L, lane, r);
-  ec_load<C>(o, tot, L, lane);
-  ec_add<C>(o, o, r);
-  ec_store<C>(out_tot, L, lane, o);
+  ec_store<C>(out_tot, L, lane, ec_add<C>(ec_load<C>(tot, L, lane), r));
 }
 
 // out_run = run + bl;  out_tot = tot + run (the old run)
 template <class C>
 FP_FN void lane_scan2b(const int* run, const int* tot, const int* bl,
                        int* out_run, int* out_tot, long L, long lane) {
-  Pt<C> r, o, s;
-  ec_load<C>(r, run, L, lane);
-  ec_load<C>(o, bl, L, lane);
-  ec_add<C>(s, r, o);
-  ec_store<C>(out_run, L, lane, s);
-  ec_load<C>(o, tot, L, lane);
-  ec_add<C>(s, o, r);
-  ec_store<C>(out_tot, L, lane, s);
+  const Pt<C> r = ec_load<C>(run, L, lane);
+  ec_store<C>(out_run, L, lane, ec_add<C>(r, ec_load<C>(bl, L, lane)));
+  ec_store<C>(out_tot, L, lane, ec_add<C>(ec_load<C>(tot, L, lane), r));
 }
 
 // Is `bit` set in any lane of this warp?  The answer is the same for every
@@ -303,36 +466,55 @@ FP_FN bool any_lane(bool bit) {
 template <class C>
 FP_FN void lane_ladder(const int* pts, const int* scal, int* out, int nl, long L,
                        long lane) {
-  Pt<C> acc, base, s;
-  ec_set_identity<C>(acc);
-  ec_load<C>(base, pts, L, lane);
+  Pt<C> acc = ec_identity<C>(), base = ec_load<C>(pts, L, lane);
   FP_NO_UNROLL
   for (int k = 0; k < nl; k++) {
     u32 limb = (u32)scal[(long)k * L + lane];
     FP_NO_UNROLL
     for (int bit = 0; bit < 16; bit++) {
       bool set = ((limb >> bit) & 1u) != 0;
-      if (any_lane(set)) {
-        ec_add<C>(s, acc, base);
-        ec_select<C>(acc, set, s, acc);
-      }
-      ec_double<C>(base, base);
+      if (any_lane(set)) acc = ec_select<C>(set, ec_add<C>(acc, base), acc);
+      base = ec_double<C>(base);
     }
   }
   ec_store<C>(out, L, lane, acc);
 }
 
+// The arithmetic the one-thread bodies run, a group and kernel each (their
+// default A), as the H100 measured them against the strict bodies in one
+// call (PERF.md): the lazy policy for G1's adds and G2's mixed add (bucket
+// kernels -5% to -14%, G1 fixed-base -20%), the strict one for G2's general
+// add, where two projective points and the lazy operands' halvings spill
+// past 255 registers (its bucket +17%, its fixed-base +22% lazy).
+template <class C, bool MIXED>
+struct BucketArith {
+  typedef typename C::Lazy A;
+};
+template <>
+struct BucketArith<Fq2Coord, false> {
+  typedef Fq2Coord A;
+};
+template <class C>
+struct FixedBaseArith {
+  typedef typename C::Lazy A;
+};
+template <>
+struct FixedBaseArith<Fq2Coord> {
+  typedef Fq2Coord A;
+};
+
 // out[lane] = [s] B by a table of doublings: acc = O; for k < 16 nl: acc =
 // bit k of s ? acc + T_k : acc, with T_k column k of the packed (C::ROWS,
 // 16 nl) table (2^k B) and s row `lane` of the (N, nl) canonical 16-bit
 // limbs: the adds and selects of `add_mask`, the accumulator held by the
-// thread for all 16 nl steps.  The add is skipped when no lane of the warp
-// has the bit set, which changes no lane's result.
-template <class C>
+// thread for all 16 nl steps, in the arithmetic A (FixedBaseArith's unless a
+// caller asks for another), clamped to A's K_CARRY after every step.  The
+// add is skipped when no lane of the warp has the bit set, which changes no
+// lane's result.
+template <class C, class A = typename FixedBaseArith<C>::A>
 FP_FN void lane_fixed_base(const int* table, const int* scal, int* out, long N, int nl,
                            long lane) {
-  Pt<C> acc, t, s;
-  ec_set_identity<C>(acc);
+  auto acc = A::carry(ec_identity<A>());
   FP_NO_UNROLL
   for (int l = 0; l < nl; l++) {
     u32 limb = (u32)scal[lane * nl + l];
@@ -340,13 +522,12 @@ FP_FN void lane_fixed_base(const int* table, const int* scal, int* out, long N, 
     for (int bit = 0; bit < 16; bit++) {
       bool set = ((limb >> bit) & 1u) != 0;
       if (any_lane(set)) {
-        ec_load<C>(t, table, 16L * nl, 16 * l + bit);
-        ec_add<C>(s, acc, t);
-        ec_select<C>(acc, set, s, acc);
+        const Pt<A> t = ec_load<A>(table, 16L * nl, 16 * l + bit);
+        acc = A::carry(ec_select<A>(set, ec_add<A>(acc, t), acc));
       }
     }
   }
-  ec_store<C>(out, N, lane, acc);
+  ec_store<A>(out, N, lane, acc);
 }
 
 // out[lane] = sum over t < count[lane] of table[src(start[lane] + t)], added
@@ -355,30 +536,27 @@ FP_FN void lane_fixed_base(const int* table, const int* scal, int* out, long N, 
 // phase), else i itself (consecutive rows: the segment reduce).  MIXED reads
 // only X and Y of each row and runs the mixed add: the rows must be affine
 // lifts (Z = R mod p) and never the identity.  A lane with count 0 returns
-// the identity.
-template <class C, bool MIXED>
+// the identity.  The accumulator runs in the arithmetic A (BucketArith's
+// unless a caller asks for another) and is clamped to A's K_CARRY after
+// every add (pallas_curve.py:494), so its type is the same at every step.
+template <class C, bool MIXED, class A = typename BucketArith<C, MIXED>::A>
 FP_FN void lane_bucket(const int* table, const int* idx, const int* start,
                        const int* count, int* out, long L, long lane) {
-  Pt<C> acc;
-  ec_set_identity<C>(acc);
+  auto acc = A::carry(ec_identity<A>());
   long pos = start[lane];
   int n = count[lane];
   FP_NO_UNROLL
   for (int t = 0; t < n; t++) {
     long src = idx ? (long)idx[pos + t] : pos + t;
-    const int* row = table + src * C::ROWS;
+    const int* row = table + src * A::ROWS;
     if (MIXED) {
-      typename C::E x2, y2;
-      C::load_row(x2, row);
-      C::load_row(y2, row + C::COMP_ROWS);
-      ec_add_mixed<C>(acc, acc, x2, y2);
+      const typename A::E x2 = A::load_row(row), y2 = A::load_row(row + A::COMP_ROWS);
+      acc = A::carry(ec_add_mixed<A>(acc, x2, y2));
     } else {
-      Pt<C> q;
-      C::load_row(q.x, row);
-      C::load_row(q.y, row + C::COMP_ROWS);
-      C::load_row(q.z, row + 2 * C::COMP_ROWS);
-      ec_add<C>(acc, acc, q);
+      const Pt<A> q = {A::load_row(row), A::load_row(row + A::COMP_ROWS),
+                       A::load_row(row + 2 * A::COMP_ROWS)};
+      acc = A::carry(ec_add<A>(acc, q));
     }
   }
-  ec_store<C>(out, L, lane, acc);
+  ec_store<A>(out, L, lane, acc);
 }

@@ -11,9 +11,11 @@
 // 1024-wide vector unit, and it deferred reductions (static `RV` bounds) to
 // save vector ops.  Here a thread holds a whole element as N 32-bit words in
 // registers (N = 12 for Fq, 8 for Fr) and runs a word-serial CIOS Montgomery
-// product on 32x32->64 multiply-adds.  R is the same 2^(16 * nlimbs), so a
-// Montgomery value is the same integer as in the JAX package; only the word
-// size differs.  Every op reduces strictly: all values are canonical (< p).
+// product.  R is the same 2^(16 * nlimbs), so a Montgomery value is the same
+// integer as in the JAX package; only the word size differs.  The functions
+// here reduce strictly (every value canonical, < p); lazy.cuh keeps the
+// TPU's static bounds for the one-thread group law over Fq and Fq2, on
+// `fp_mul_lazy` below.
 //
 // In device memory a batch is `(rows, L)` int32, one 16-bit limb per row and
 // the batch along L, so a warp's load of one limb row is coalesced;
@@ -35,6 +37,7 @@ typedef uint64_t u64;
 #define FP_CALL_FN static __device__ __noinline__
 #define FP_MEMBER __device__ __forceinline__
 #define FP_TABLE static __device__ __constant__ const
+#define FP_CONSTEXPR __host__ __device__ constexpr
 #define FP_UNROLL _Pragma("unroll")
 #define FP_NO_UNROLL _Pragma("unroll 1")
 #else
@@ -43,6 +46,7 @@ typedef uint64_t u64;
 #define FP_CALL_FN static inline
 #define FP_MEMBER inline
 #define FP_TABLE static const
+#define FP_CONSTEXPR constexpr
 #define FP_UNROLL
 #define FP_NO_UNROLL
 #endif
@@ -130,23 +134,29 @@ FP_FN void fp_select(u32* r, bool c, const u32* a, const u32* b) {
   for (int i = 0; i < F::N; i++) r[i] = c ? a[i] : b[i];
 }
 
-// t (N words, plus `hi` above them) -> t - p when hi != 0 or t >= p.
-// Callers guarantee the value is < 2p.
+// t (N words, plus `hi` above them) -> t - q when hi != 0 or t >= q: compute
+// and select, no branch.  Callers guarantee the value is < 2q.
 template <class F>
-FP_FN void fp_cond_sub_p(u32* r, const u32* t, u32 hi) {
+FP_FN void fp_cond_sub(u32* r, const u32* t, u32 hi, const u32* q) {
   constexpr int N = F::N;
-  const u32* p = F::mod();
   u32 d[N];
   u64 borrow = 0;
   FP_UNROLL
   for (int i = 0; i < N; i++) {
-    u64 s = (u64)t[i] - p[i] - borrow;
+    u64 s = (u64)t[i] - q[i] - borrow;
     d[i] = (u32)s;
     borrow = s >> 63;
   }
   bool need = (hi != 0) | (borrow == 0);
   FP_UNROLL
   for (int i = 0; i < N; i++) r[i] = need ? d[i] : t[i];
+}
+
+// t (N words, plus `hi` above them) -> t - p when hi != 0 or t >= p.
+// Callers guarantee the value is < 2p.
+template <class F>
+FP_FN void fp_cond_sub_p(u32* r, const u32* t, u32 hi) {
+  fp_cond_sub<F>(r, t, hi, F::mod());
 }
 
 // r = a + b mod p.  Every modulus leaves spare top bits (377 of 384, 253 of
@@ -196,18 +206,21 @@ FP_FN void fp_mul3(u32* r, const u32* a) {
   fp_add<F>(r, t, a);
 }
 
-// r = a * b * R^{-1} mod p: coarsely integrated operand scanning (CIOS).
-// Per word of b: t += a * b_i, then t = (t + m p) / 2^32 with
-// m = t_0 * INV.  (u64)a*b + t + c <= 2^64 - 1, so nothing overflows.
-// r may alias a or b.
+// (a * b + m p) / R for the m that makes it exact: coarsely integrated
+// operand scanning (CIOS), word-serial.  Per word of b: t += a * b_i, then
+// t = (t + m p) / 2^32 with m = t_0 * INV.  For operands below R the sum
+// stays below a + p < 2R: N words in t plus the bit `t_top` (set only when
+// a is near R: BLS12-381's Fr takes operands below R from `_fold_wide`).
+// When a b < R p the result is below 2p; when one operand is also below p,
+// one conditional subtract makes it canonical.  (u64)a*b + t + c <= 2^64 - 1,
+// so nothing overflows.
 template <class F>
-FP_FN void fp_mul_inline(u32* r, const u32* a, const u32* b) {
+FP_FN void fp_mont_rows(u32* t, u32& t_top, const u32* a, const u32* b) {
   constexpr int N = F::N;
   const u32* p = F::mod();
-  u32 t[N];
-  u32 t_top = 0;
   FP_UNROLL
   for (int i = 0; i < N; i++) t[i] = 0;
+  t_top = 0;
   FP_UNROLL
   for (int i = 0; i < N; i++) {
     u64 c = 0;
@@ -232,6 +245,14 @@ FP_FN void fp_mul_inline(u32* r, const u32* a, const u32* b) {
     t[N - 1] = (u32)s;
     t_top = (u32)(s >> 32);
   }
+}
+
+// r = a * b * R^{-1} mod p, canonical: the CIOS rows and one conditional
+// subtract.  r may alias a or b.
+template <class F>
+FP_FN void fp_mul_inline(u32* r, const u32* a, const u32* b) {
+  u32 t[F::N], t_top;
+  fp_mont_rows<F>(t, t_top, a, b);
   fp_cond_sub_p<F>(r, t, t_top);
 }
 
@@ -247,6 +268,19 @@ FP_FN void fp_mul_inline(u32* r, const u32* a, const u32* b) {
 template <class F>
 FP_MUL_FN void fp_mul(u32* r, const u32* a, const u32* b) {
   fp_mul_inline<F>(r, a, b);
+}
+
+// r = a * b * R^{-1} mod p, below 2p and not reduced further: the
+// `lazy=True` product of pallas_field.py:86-94.  Only for a b < R p, where
+// the CIOS sum's top bit is 0; lazy.cuh's choke point `lz_cap` is the one
+// place that meets that cap, and only it reaches this.  A real call, as
+// fp_mul, and the NOTE there holds.  r may alias a or b.
+template <class F>
+FP_MUL_FN void fp_mul_lazy(u32* r, const u32* a, const u32* b) {
+  u32 t[F::N], t_top;
+  fp_mont_rows<F>(t, t_top, a, b);
+  FP_UNROLL
+  for (int i = 0; i < F::N; i++) r[i] = t[i];
 }
 
 // Load element `lane` of a (rows, L) int32 array of 16-bit limbs whose

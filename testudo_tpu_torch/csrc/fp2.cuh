@@ -5,9 +5,10 @@
 // (testudo_tpu/tpu/pallas_curve.py:253-319 `_RowOpsFq2`: Karatsuba with the
 // non-residue folded in by additions, `mul_b3`).  The TPU version carries
 // static bounds of lazily reduced values (`RV`, `K_CARRY = 8`, the product
-// cap ka kb p <= R); here every Fq operation reduces strictly, so each
-// component is canonical and equals, limb for limb, what the JAX package
-// writes at a kernel's edge.
+// cap ka kb p <= R): lazy.cuh's `LFq2` does that for the one-thread group
+// law.  Here every Fq operation reduces strictly, so each component is
+// canonical and equals, limb for limb, what the JAX package writes at a
+// kernel's edge.
 //
 // Compiles as plain C++ too (csrc/host_check.cpp).
 #pragma once

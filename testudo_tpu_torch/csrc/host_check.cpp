@@ -4,6 +4,7 @@
 // builds this with the host compiler and holds it against the plain PyTorch
 // versions, so the field and group code is checked where there is no GPU.
 #include <algorithm>
+#include <utility>
 #include <vector>
 
 #include "ec_team.cuh"
@@ -280,6 +281,119 @@ static void host_tail(const int* partials, const int* inst_coeffs, const int* e_
   fp_store_row<Fr>(e_out, e);
 }
 
+
+// ---------------------------------------------------------------------------
+// The lazy layer (lazy.cuh) at the bounds its formulas reach
+// ---------------------------------------------------------------------------
+
+// (bound a, bound b) pairs each lazy Fq op is instantiated at: the pairs of
+// ec.cuh's lazy formulas for G1 and G2, their edges (k up to R / p = 152)
+// and pairs that need the choke point's halvings.  An op at another pair
+// returns -1.  tests/test_torch_lazy_field.py lists the same pairs.
+#define LZ_ADD_PAIRS(X) X(1, 1) X(2, 2) X(2, 4) X(4, 2) X(4, 4) X(6, 6) X(2, 12) X(8, 8) \
+  X(16, 16) X(36, 2) X(76, 76) X(151, 1)
+#define LZ_SUB_PAIRS(X) X(2, 2) X(2, 4) X(2, 6) X(4, 2) X(2, 10) X(2, 12) X(2, 18) X(4, 4) \
+  X(6, 6) X(8, 8) X(12, 36) X(4, 36) X(2, 40) X(112, 40)
+#define LZ_SMUL_PAIRS(X) X(3, 1) X(3, 2) X(3, 4) X(5, 2) X(3, 6) X(3, 12) X(15, 10)
+#define LZ_MUL_PAIRS(X) X(1, 1) X(2, 2) X(4, 1) X(8, 2) X(6, 18) X(18, 6) X(14, 14) X(20, 8) \
+  X(8, 20) X(16, 16) X(32, 4) X(50, 38) X(76, 2) X(152, 1) X(1, 152) X(152, 152) X(12, 1)
+#define LZ_ONE_BOUNDS(X) X(1) X(2) X(3) X(4) X(6) X(7) X(8) X(12) X(14) X(16) X(20) X(36) \
+  X(40) X(80) X(152)
+
+enum { LZ_ADD = 0, LZ_SUB, LZ_SMUL, LZ_MUL, LZ_FINALIZE, LZ_HALVE, LZ_CLAMP4, LZ_CLAMP8,
+       LZ_SELECT };
+
+template <int K>
+static LFq<K> lz_in(const u32* w) {
+  return lz_of<K>(w);
+}
+
+template <int K>
+static int lz_out(u32* w, const LFq<K>& r) {
+  fp_copy<Fq>(w, r.v);
+  return K;
+}
+
+static int host_lazy_fq_one(int op, int ka, int kb, const u32* a, const u32* b, u32* out) {
+#define LZ_ADD_CASE(KA, KB) \
+  if (op == LZ_ADD && ka == KA && kb == KB) return lz_out(out, lz_add(lz_in<KA>(a), lz_in<KB>(b)));
+#define LZ_SUB_CASE(KA, KB) \
+  if (op == LZ_SUB && ka == KA && kb == KB) return lz_out(out, lz_sub(lz_in<KA>(a), lz_in<KB>(b)));
+#define LZ_SMUL_CASE(C, K) \
+  if (op == LZ_SMUL && kb == C && ka == K) return lz_out(out, lz_smul<C>(lz_in<K>(a)));
+#define LZ_MUL_CASE(KA, KB)                                \
+  if (op == LZ_MUL && ka == KA && kb == KB) {              \
+    LFq<2> r;                                              \
+    lz_mul_to(r, lz_in<KA>(a), lz_in<KB>(b));              \
+    return lz_out(out, r);                                 \
+  }
+#define LZ_ONE_CASE(K)                                                                   \
+  if (ka == K) {                                                                         \
+    if (op == LZ_FINALIZE) return lz_out(out, lz_finalize(lz_in<K>(a)));                \
+    if (op == LZ_CLAMP4) return lz_out(out, lz_clamp<4>(lz_in<K>(a)));                  \
+    if (op == LZ_CLAMP8) return lz_out(out, lz_clamp<8>(lz_in<K>(a)));                  \
+    if (op == LZ_SELECT) return lz_out(out, lz_select(kb != 0, lz_in<K>(a), lz_in<1>(b))); \
+    if constexpr (K > 1)                                                                 \
+      if (op == LZ_HALVE) return lz_out(out, lz_sub_mp<(K + 1) / 2>(lz_in<K>(a)));      \
+  }
+  LZ_ADD_PAIRS(LZ_ADD_CASE)
+  LZ_SUB_PAIRS(LZ_SUB_CASE)
+  LZ_SMUL_PAIRS(LZ_SMUL_CASE)
+  LZ_MUL_PAIRS(LZ_MUL_CASE)
+  LZ_ONE_BOUNDS(LZ_ONE_CASE)
+#undef LZ_ADD_CASE
+#undef LZ_SUB_CASE
+#undef LZ_SMUL_CASE
+#undef LZ_MUL_CASE
+#undef LZ_ONE_CASE
+  return -1;
+}
+
+// The bound of a lazy coordinate, of either field.
+template <int K>
+static constexpr int lz_bound(const LFq<K>*) {
+  return K;
+}
+template <int K0, int K1>
+static constexpr int lz_bound(const LFq2<K0, K1>*) {
+  return lz_max(K0, K1);
+}
+template <class P>
+static constexpr int lz_point_bound() {
+  return lz_bound((decltype(std::declval<P>().x)*)nullptr);
+}
+
+// The bounds of the lazy formulas' results for a loop-carried first operand
+// (K_CARRY) and a canonical second one: add, mixed add, double, and K_CARRY.
+template <class A>
+static void lazy_bounds(int* out) {
+  typedef decltype(A::carry(ec_identity<A>())) PC;
+  typedef typename A::E E;
+  out[0] = lz_point_bound<decltype(ec_add<A>(std::declval<PC>(), std::declval<Pt<A>>()))>();
+  out[1] = lz_point_bound<decltype(
+      ec_add_mixed<A>(std::declval<PC>(), std::declval<E>(), std::declval<E>()))>();
+  out[2] = lz_point_bound<decltype(ec_double<A>(std::declval<PC>()))>();
+  out[3] = A::K_CARRY;
+}
+
+// One formula of arithmetic A on lane `lane`: op 0 add (a, b), 1 mixed add
+// (a, b's X and Y), 2 double (a); a's words labelled with bound KIN (its
+// values may be anything below KIN p), b's canonical.
+template <class A, int KIN>
+static void lane_ec_op(int op, const int* a, const int* b, int* out, long L, long lane) {
+  const Pt<A> pa = ec_load<A>(a, L, lane), pb = ec_load<A>(b, L, lane);
+  const auto p = A::carry(pa);
+  if constexpr (KIN == 1) {
+    if (op == 0) ec_store<A>(out, L, lane, ec_add<A>(pa, pb));
+    if (op == 1) ec_store<A>(out, L, lane, ec_add_mixed<A>(pa, pb.x, pb.y));
+    if (op == 2) ec_store<A>(out, L, lane, ec_double<A>(pa));
+  } else {
+    if (op == 0) ec_store<A>(out, L, lane, ec_add<A>(p, pb));
+    if (op == 1) ec_store<A>(out, L, lane, ec_add_mixed<A>(p, pb.x, pb.y));
+    if (op == 2) ec_store<A>(out, L, lane, ec_double<A>(p));
+  }
+}
+
 extern "C" {
 
 int host_mont_mul(const int* a, const int* b, int* out, int field, long m) {
@@ -492,6 +606,86 @@ int host_bucket(const int* table, const int* idx, const int* start, const int* c
       else
         lane_bucket<C, false>(table, idx, start, count, out, L, perm[i]);
     }
+  });
+}
+
+// Lazy Fq op `op` (LZ_*) on n elements of (n, 12) word arrays a and b, at
+// bounds (ka, kb) (LZ_SMUL: kb is the constant; the one-operand ops read ka;
+// LZ_SELECT takes a when kb != 0, else b, canonical).  Returns the bound of
+// the outputs, or -1 for an op or a pair that is not instantiated.
+int host_lazy_fq(int op, int ka, int kb, const u32* a, const u32* b, u32* out, long n) {
+  int k = -1;
+  for (long i = 0; i < n; i++) {
+    k = host_lazy_fq_one(op, ka, kb, a + i * FQN, b + i * FQN, out + i * FQN);
+    if (k < 0) return -1;
+  }
+  return k;
+}
+
+// out[0..3]: the bounds of the lazy add, mixed add and double of a
+// loop-carried point and a canonical one, and K_CARRY, for the group.
+int host_lazy_bounds(int ncomp, int* out) {
+  if (ncomp == 1) return lazy_bounds<LazyFqCoord>(out), 0;
+  if (ncomp == 2) return lazy_bounds<LazyFq2Coord>(out), 0;
+  return -1;
+}
+
+// One formula (op 0 add, 1 mixed add: b's X and Y, 2 double: a alone) over
+// (rows, L) batches, canonical words out.  lazy: the lazy policy, a's words
+// labelled with bound 1 (kin 1) or K_CARRY (kin 0: they may be any value
+// below K_CARRY p); else the strict policy (canonical a).
+int host_ec_op(int op, const int* a, const int* b, int* out, long L, int lazy, int kin_one,
+               int ncomp) {
+  if (op < 0 || op > 2 || (ncomp != 1 && ncomp != 2)) return -1;
+  for (long lane = 0; lane < L; lane++) {
+    if (!lazy) {
+      if (ncomp == 1)
+        lane_ec_op<FqCoord, 1>(op, a, b, out, L, lane);
+      else
+        lane_ec_op<Fq2Coord, 1>(op, a, b, out, L, lane);
+    } else if (kin_one) {
+      if (ncomp == 1)
+        lane_ec_op<LazyFqCoord, 1>(op, a, b, out, L, lane);
+      else
+        lane_ec_op<LazyFq2Coord, 1>(op, a, b, out, L, lane);
+    } else {
+      if (ncomp == 1)
+        lane_ec_op<LazyFqCoord, LazyFqCoord::K_CARRY>(op, a, b, out, L, lane);
+      else
+        lane_ec_op<LazyFq2Coord, LazyFq2Coord::K_CARRY>(op, a, b, out, L, lane);
+    }
+  }
+  return 0;
+}
+
+// host_bucket's schedule in the arithmetic asked for (lazy: the lazy policy,
+// else the strict one), whichever the kernel runs (BucketArith).
+int host_bucket_as(const int* table, const int* idx, const int* start, const int* count,
+                   const int* perm, int* next, int* out, long L, int mixed, int ncomp, int lazy) {
+  FOR_GROUP(for (long first = *next; first < L; first = *next) {
+    *next += 32;
+    for (long i = first; i < first + 32 && i < L; i++) {
+      if (mixed && lazy)
+        lane_bucket<C, true, typename C::Lazy>(table, idx, start, count, out, L, perm[i]);
+      else if (mixed)
+        lane_bucket<C, true, C>(table, idx, start, count, out, L, perm[i]);
+      else if (lazy)
+        lane_bucket<C, false, typename C::Lazy>(table, idx, start, count, out, L, perm[i]);
+      else
+        lane_bucket<C, false, C>(table, idx, start, count, out, L, perm[i]);
+    }
+  });
+}
+
+// The one-thread fixed-base body in the arithmetic asked for.
+int host_fixed_base_one_as(const int* table, const int* scal, int* out, long N, int nl, int ncomp,
+                           int lazy) {
+  if (nl < 1 || nl > 16) return -3;
+  FOR_GROUP(for (long lane = 0; lane < N; lane++) {
+    if (lazy)
+      lane_fixed_base<C, typename C::Lazy>(table, scal, out, N, nl, lane);
+    else
+      lane_fixed_base<C, C>(table, scal, out, N, nl, lane);
   });
 }
 

@@ -33,7 +33,7 @@ SOURCES = ("mont_mul.cu", "mont_mul_rm.cu", "mont_chain.cu", "ec_ops.cu", "ladde
            "ladder_team.cu", "ladder_wide.cu", "bucket.cu", "wsum_team.cu", "chain_team.cu",
            "fold_team.cu", "fixed_base_team.cu", "poseidon.cu", "sumcheck_round.cu",
            "sumcheck_tail.cu")
-HEADERS = ("fp.cuh", "fp2.cuh", "ec.cuh", "ec_team.cuh", "launch.cuh", "mont_rm.cuh",
+HEADERS = ("fp.cuh", "fp2.cuh", "lazy.cuh", "ec.cuh", "ec_team.cuh", "launch.cuh", "mont_rm.cuh",
            "poseidon.cuh", "sumcheck.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -25,6 +25,11 @@ the single chain at one warp (32 lanes) with K = 256 dependent Fq products,
 inlined and called: the slope between K = 8 and K = 256 is what one product
 costs a thread that waits for it, the floor of any kernel whose products
 depend on each other (the ladders: PERF.md).
+
+`check_edges` (chip_smoke.py runs it) holds one product, inlined and
+called, against the plain product at every field of the chain kernel (Fq,
+Fr, BW6-761's Fq, BLS12-381's Fr) on edge operands: 0, 1, p - 1, and
+operands below R but not below p, as `field._fold_wide` hands them.
 """
 from __future__ import annotations
 
@@ -36,7 +41,8 @@ import numpy as np
 import torch
 
 from ..device import packed_field as pf
-from ..device.field import FQ, FR, FieldSpec
+from ..device.curve_generic import FQ761
+from ..device.field import FQ, FR, FR381, FieldSpec
 
 K_LO, K_HI = 8, 64
 GROUP = pf.CHAIN_GROUP
@@ -44,6 +50,7 @@ L_REFERENCE = 1024  # tools/exp_montmul_block.py
 L_REFERENCE_GROUP = 256  # tools/exp_mulmany_wide.py
 L_CARD = 132 * 2048  # every SM holds 2048 resident threads
 L_LATENCY, K_LATENCY = 32, 256  # one warp, a chain as long as a ladder's
+EDGE_FIELDS = (FQ, FR, FQ761, FR381)  # every field of the chain kernel
 # 32-bit multiply-adds a second: 67 TFLOP/s float32 is 33.5e12 fused
 # multiply-adds on 128 lanes per SM; an SM has 64 int32 lanes
 DERIVED_INT32_MADD_PER_S = 67e12 / 2 / 2
@@ -130,6 +137,40 @@ def measure_latency(spec: FieldSpec, device) -> dict:
         out[name] = {"k8_ms": lo, "k256_ms": hi,
                      "us_per_product": (hi - lo) / (K_LATENCY - K_LO) * 1e3}
     return out
+
+
+def edge_operands(spec: FieldSpec, L: int, seed: int, device):
+    """(a, b) limb rows for one product: b canonical, a any value below R.
+    Their first columns are the edges: 0, 1, p - 1 against 0, 1, p - 1,
+    R mod p, R^2 mod p; a = p, p + 1, R - 1 and values in [p, R) against
+    canonical b, as `_fold_wide`'s low and high words meet R mod p and
+    R^2 mod p."""
+    p, n = spec.modulus, spec.nlimbs
+    R = 1 << (16 * n)
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 1 << 16, size=(n, L), dtype=np.int64)  # below R
+    b = random_rows(spec, (n, L), seed + 1, "cpu").numpy().astype(np.int64)
+    cols = [(x, y) for x in (0, 1, p - 1) for y in (0, 1, p - 1, spec.r_mod_p, spec.r2_mod_p)]
+    cols += [(x, y) for x in (p, p + 1, R - 1, R - p, p + (R - p) // 3)
+             for y in (1, p - 1, spec.r_mod_p, spec.r2_mod_p)]
+    a[:, :len(cols)] = np.asarray(spec.to_limbs([x for x, _ in cols])).T
+    b[:, :len(cols)] = np.asarray(spec.to_limbs([y for _, y in cols])).T
+    return (torch.as_tensor(a.astype(np.int32), device=device),
+            torch.as_tensor(b.astype(np.int32), device=device))
+
+
+def check_edges(spec: FieldSpec, L: int, device) -> dict:
+    """One product, inlined and called, against the plain product on
+    edge_operands: the largest limb difference of each (both must be 0)."""
+    a, b = edge_operands(spec, L, 60, device)
+    want = pf.mont_mul_chain_plain(spec, a, b, 1).to(torch.int64)
+    errs = {name: int((pf.mont_mul_chain(spec, a, b, 1, inline_body=flag).to(torch.int64)
+                       - want).abs().max())
+            for name, flag in (("inline", True), ("call", False))}
+    if any(errs.values()):
+        raise AssertionError(f"{spec.name}: the product differs from the plain product on edge "
+                             f"operands: {errs}")
+    return errs
 
 
 def run_latency(device=torch.device("cuda"), say=print) -> dict:

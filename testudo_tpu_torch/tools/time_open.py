@@ -8,7 +8,9 @@ host pairings and transcript work.  This tool wraps `PackedGroup.ladder`,
 `PackedGroup.fold` and `PackedGroup.add2` with CUDA events for the length
 of each open and sums, per group, the device time between the events around
 each call (the kernels, and whatever wait for the host falls inside: the
-wrapper's own few microseconds).  Folds and `add2` calls are summed
+wrapper's own few microseconds).  Each warm commit is split into the parts
+its timers record (the multi-MSM on the card, the host's to_affine and
+multi-pairing of T).  Folds and `add2` calls are summed
 together as "adds": a checkout from before the fold kernel launches `add2`
 once a level where this one launches one fold a tree.  Run on a machine with the GPU, from the root of a
 checkout:
@@ -40,6 +42,7 @@ from testudo_tpu_torch.device.field import FR
 from testudo_tpu_torch.fields.bls12_377 import R
 from testudo_tpu_torch.poly import dense
 from testudo_tpu_torch.poseidon.transcript import PoseidonTranscript, fq_params
+from testudo_tpu_torch.utils import timer
 
 
 # what is timed: `PackedGroup` methods by kind (a method the checkout lacks
@@ -102,11 +105,16 @@ def run(nv: int = 20, opens: int = 3, device=torch.device("cuda")) -> dict:
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    commits = []
+    commits, parts = [], []
     for _ in range(4):  # the first commit is cold
-        (comm, T), secs = timed_call(lambda: pl.commit(ck))
+        with timer.record() as rec:
+            (comm, T), secs = timed_call(lambda: pl.commit(ck))
         commits.append(secs)
-    commits = commits[1:]
+        split = {}
+        for label, t in rec:
+            split[label] = split.get(label, 0.0) + t
+        parts.append(split)
+    commits, parts = commits[1:], parts[1:]
 
     def do_open():
         pl.q = None
@@ -125,6 +133,7 @@ def run(nv: int = 20, opens: int = 3, device=torch.device("cuda")) -> dict:
         rows.append(row)
     return {"nv": nv, "device": torch.cuda.get_device_name(0),
             "commit_warm_s": commits, "commit_median_s": statistics.median(commits),
+            "commit_parts_s": parts,
             "open_cold_s": open_cold, "opens": rows}
 
 
