@@ -106,7 +106,8 @@ testudo_tpu_torch/csrc/, then
      lanes of each key batch and gamma_abc against the host's multiples of
      the setup's scalars), proved and verified, -C and another A rejected;
      times split by the Timer labels, the launches of the setup and of the
-     prove counted (paths bw6_setup, bw6_prove);
+     prove counted (paths bw6_setup, bw6_prove: every group operation there
+     is a launch of fp_group.cu, the group law a thread a lane);
   5d. drives the R1CS proof over BLS12-381 (curves/profile.py's
      `bls12_381(dev)`: Fr tables on the card, groups, pairings and Poseidon
      on the host, the looped sumcheck) at Testudo's own size for this curve,
@@ -170,7 +171,15 @@ testudo_tpu_torch/csrc/, then
      pair times a shared element, the weighted sum's 384 lanes, 2^16 + ODD
      with 0, 1, q - 1, R mod q and r mixed in), its device time at 2^20
      (torch.profiler, L2 flushed, and warm) beside `bound_ms` and the latency
-     of one dependent 761-bit product at one warp; the row-major product at
+     of one dependent 761-bit product at one warp; BW6-761's group-law
+     kernel (fp_group.cu) for both groups against its plain versions: the
+     add, mixed add and double at 2^20 lanes with the identity on either
+     side, P + P, P + (-P) and Z != R among them, the chunk sums of a bucket
+     pass of msm_fp at 983,040 points (compared on its first chunks and on
+     chunks of 0, 1, T, T + 1 and 3T + 2 entries), the fixed-base
+     multiplication at the wrap's key width (compared at 4,096 lanes with 0,
+     1, r - 1 and a digit column zero in every lane), each timed beside
+     `bound_ms` and `latency_bound_ms`; the row-major product at
      BLS12-381's Fr at 2^20 + ODD with two full operands and times a shared
      element, at 8,192 + ODD and at the proof's 2^10 and 2^11 tables, with
      R - 1, r - 1, 0, 1 and R mod r among the operands, against its plain
@@ -296,6 +305,9 @@ _REPLACES = {
     "sumcheck_round": "testudo_tpu/tpu/pallas_field.py:226",
     "poseidon_permute": "testudo_tpu/tpu/pallas_field.py:226",
     "sumcheck_tail": "testudo_tpu/tpu/pallas_field.py:226",
+    # BW6-761's group law, a thread a lane: every product of the JAX
+    # package's FpGroup (tpu/curve_generic.py:29) is the 761-bit Pallas call
+    **{k: "testudo_tpu/tpu/pallas_field.py:226" for k in build.BW6_KERNELS},
 }
 _REPLACES_ALSO = {
     "sumcheck_round": ["testudo_tpu/core/sumcheck.py:62", "testudo_tpu/core/sumcheck.py:222",
@@ -320,6 +332,15 @@ _SOURCE = {
     "fixed_base_one": "fixed_base_team.cu", "fixed_base_one_key": "fixed_base_team.cu",
     "poseidon_permute": "poseidon.cu",
     "sumcheck_round": "sumcheck_round.cu", "sumcheck_tail": "sumcheck_tail.cu",
+    **{k: "fp_group.cu" for k in build.BW6_KERNELS},
+}
+# the JAX package's functions each BW6 kernel stands for (row key "replaces_also")
+_BW6_ALSO = {
+    "bw6_add": ["testudo_tpu/tpu/curve_generic.py:81", "testudo_tpu/tpu/curve.py:184"],
+    "bw6_add_mixed": ["testudo_tpu/tpu/curve.py:217"],
+    "bw6_double": ["testudo_tpu/tpu/curve_generic.py:84", "testudo_tpu/tpu/curve.py:254"],
+    "bw6_chunk_sum": ["testudo_tpu/tpu/msm.py:97", "testudo_tpu/tpu/curve.py:184"],
+    "bw6_fixed_base": ["testudo_tpu/tpu/curve_generic.py:158", "testudo_tpu/tpu/curve.py:217"],
 }
 # proof bytes (PST opening + MIPP proof) of sqrt-PST per number of variables:
 # counts of group and field elements, the same on any hardware
@@ -446,11 +467,18 @@ _SNARK_MUST = {
 for _path, _names in _SNARK_MUST.items():
     for _name in _names:
         MUST_LAUNCH[_name] += (_path,)
-# BW6-761 (the one-level wrap at nv = 16): every group operation of the
-# Groth16 setup's six fixed-base batches and of the prove's five msm_fp is
-# complete formulas over the 761-bit product (the prove's NTTs run on the Fq
-# row-major product)
-MUST_LAUNCH["mont_mul_rm_bw6fq"] = ("bw6_setup", "bw6_prove")
+# BW6-761 (the one-level wrap at nv = 16): every group operation is a launch
+# of the group-law kernel (fp_group.cu): the Groth16 setup's six key
+# batches are fixed-base launches (G1, and G2's b_g2), the prove's five
+# msm_fp the chunk sums of the bucket runs, the elementwise adds that halve
+# them and the weighted sum's adds and doublings (the prove's NTTs run on
+# the Fq row-major product).  The elementwise mixed add serves no path (the
+# fixed-base kernel runs its own), and no path launches the 761-bit product
+# any more: both are launched in the kernel phase only.
+MUST_LAUNCH.update({"mont_mul_rm_bw6fq": (), "bw6_add_mixed": (), "bw6_add_mixed_g2": ()})
+MUST_LAUNCH.update({k + g: ("bw6_prove",) for k in ("bw6_add", "bw6_double", "bw6_chunk_sum")
+                    for g in ("", "_g2")})
+MUST_LAUNCH.update({"bw6_fixed_base": ("bw6_setup",), "bw6_fixed_base_g2": ("bw6_setup",)})
 MUST_LAUNCH["mont_mul_rm_fq"] += ("bw6_prove",)
 # BLS12-381 (curves/profile.py's bls12_381: Fr tables on the card; groups,
 # pairing and Poseidon on the host, as in the JAX package): the setup's eq
@@ -1908,6 +1936,174 @@ def kernels_bw6(dev, rep: Report, quick: bool):
     say(f"  761-bit product at 2^{n.bit_length() - 1}: L2-warm {l2_ms:.4f} ms, raw launches "
         f"{raw_ms:.4f} ms; one dependent product at one warp {lat:.3f} us; "
         + "; ".join(ptx))
+
+
+# BW6-761's group law a thread a lane (csrc/fp_group.cu): the 761-bit
+# products a lane's formula runs (the product by 3b is sums there); a
+# coordinate is 48 int32 limbs
+BW6_PRODUCTS = {"bw6_add": 12, "bw6_add_mixed": 11, "bw6_double": 8}
+BW6_COORD = 48 * 4
+
+
+def bw6_edge_points(G, gen, mul, neg, dev):
+    """The identity, P, Q, -P, and P and Q again with Z != R mod q: host
+    points and their projective coordinates on the card (P's first copy
+    with Z = R mod q)."""
+    rng = random.Random(29)
+    q = cg.FQ761.modulus
+    p1, p2 = (mul(gen(), rng.randrange(1, R_BW6)) for _ in range(2))
+    pts = [None, p1, p2, neg(p1), p1, p2]
+    zs = [0, 1, 1, 1, rng.randrange(2, q), rng.randrange(2, q)]
+    cols = ([], [], [])
+    for pt, z in zip(pts, zs):
+        for col, v in zip(cols, (0, 1, 0) if pt is None else (pt[0] * z % q, pt[1] * z % q, z)):
+            col.append(v)
+    return pts, [torch.as_tensor(cg.FQ761.encode(c), device=dev) for c in cols]
+
+
+def kernels_bw6_group(dev, rep: Report, quick: bool):
+    """BW6-761's group-law kernel (fp_group.cu) against its plain versions
+    (the torch formulas on the plain product), per group: the elementwise
+    add, mixed add and double at 2^20 lanes (every pair of the identity, P,
+    Q, -P and P, Q with Z != R first, the rest random elements), compared
+    and timed there; the chunk sums at a bucket pass of msm_fp at 983,040
+    points (random 376-bit scalars, chunks of msm._FP_CHUNK), timed on the
+    pass and compared on its first 4,096 chunks plus chunks of 0, 1, T, T +
+    1 and 3T + 2 entries that read the identity; fixed_base_mul at the wrap's
+    key width (983,426 lanes), timed there and compared at 4,096 lanes with
+    0, 1, r - 1 and a digit column zero in every lane.  bound_ms: the
+    products' multiply-adds at the derived rate; latency_bound_ms: a lane's
+    serial products times one dependent 761-bit product at one warp."""
+    S = cg.FQ761
+    lat_ms = rep.rows["mont_mul_rm_bw6fq"]["latency_bound_ms"]
+    madd = exp_montmul.madds_per_product(S)
+    ptx_all = build.build_report()["ptxas"]
+    rng = np.random.default_rng(83)
+    T = msm._FP_CHUNK
+
+    def rows(n):
+        v = rng.integers(0, 1 << 16, size=(n, S.nlimbs), dtype=np.int64)
+        v[:, -1] &= 0x00FF  # below q
+        return torch.as_tensor(v.astype(np.int32), device=dev)
+
+    def scalars(n):
+        v = rng.integers(0, 1 << 16, size=(n, FQ.nlimbs), dtype=np.int64)
+        v[:, -1] &= 0x00FF  # 376-bit, below r
+        return torch.as_tensor(v.astype(np.int32), device=dev)
+
+    def row(name, got, want, ms, plain_ms, nbytes, madds, shape, serial, kernel):
+        rep.add(name, got, want, ms, plain_ms, nbytes, madds, shape)
+        rep.rows[name].update({
+            "latency_bound_ms": serial * lat_ms, "library_ms": None,
+            "replaces_also": _BW6_ALSO[name.replace("_g2", "")],
+            "ptxas": [ln for ln in ptx_all if ln.startswith(kernel + ":")]})
+
+    lanes = (1 << 12) if quick else (1 << 20)
+    for gname, G, gen, add, mul in bw6_groups():
+        sfx, b = ("", -1) if gname == "g1" else ("_g2", 4)
+        neg = bw.g1_neg if gname == "g1" else bw.g2_neg
+        pts, edge = bw6_edge_points(G, gen, mul, neg, dev)
+        k = len(pts)
+        ia = [i for i in range(k) for _ in range(k)]
+        ib = [j for _ in range(k) for j in range(k)]
+        A, B = [rows(lanes) for _ in range(3)], [rows(lanes) for _ in range(3)]
+        for c in range(3):
+            A[c][: k * k] = edge[c][ia]
+            B[c][: k * k] = edge[c][ib]
+        aff = [j for j in range(k) if pts[j] is not None]
+        Xa, Ya, _ = G.from_affine_host([pts[j] for j in aff] * k, device=dev)
+        Am = [rows(lanes) for _ in range(3)]
+        Bm = [rows(lanes) for _ in range(2)]
+        im = [i for i in range(k) for _ in aff]
+        for c in range(3):
+            Am[c][: len(im)] = edge[c][im]
+        Bm[0][: len(im)], Bm[1][: len(im)] = Xa, Ya
+        cases = {
+            "bw6_add": (lambda: G.add(A, B), lambda: G.add_plain(A, B), 9,
+                        [add(pts[i], pts[j]) for i, j in zip(ia, ib)]),
+            "bw6_add_mixed": (lambda: G.add_mixed(Am, Bm), lambda: G.add_mixed_plain(Am, Bm), 8,
+                              [add(pts[i], pts[j]) for i, j in zip(im, aff * k)]),
+            "bw6_double": (lambda: G.double(A), lambda: G.double_plain(A), 6,
+                           [add(pts[i], pts[i]) for i in ia]),
+        }
+        for kname, (kern, plain, ncoords, host) in cases.items():
+            got = kern()
+            want, plain_ms = timed_once(plain)
+            m = len(host)
+            if G.to_affine_host(tuple(c[:m] for c in got)) != host:
+                raise AssertionError(f"{kname}{sfx}: the edge lanes differ from the host curve")
+            ms = time_ms(kern, 3 if quick else 5)
+            row(kname + sfx, got, want, ms, plain_ms, ncoords * BW6_COORD * lanes,
+                BW6_PRODUCTS[kname] * madd * lanes,
+                f"({lanes}, 48) x {ncoords - 3} + 3 coordinates; edge lanes first ({m}: the "
+                f"identity on either side, P + P, P + (-P), Z != R mod q), = host curve",
+                BW6_PRODUCTS[kname], f"k_fpg_op<Fq761Coord<{b}>, {list(cases).index(kname)}>")
+            say(f"  {kname}{sfx}: {ms:.4f} ms at {lanes} lanes, plain {plain_ms:.1f} ms")
+        del A, B, Am, Bm
+
+        # the chunk sums of one bucket pass of msm_fp at a key's width
+        N = (1 << 14) if quick else BW6_MSM_LANES
+        ks = [int(x) for x in rng.integers(1, 1 << 20, size=N_UNIQUE)]
+        uniq = cg.fixed_base_mul(G, torch.as_tensor(FQ.to_limbs(ks), device=dev), gen(), add)
+        bases = [c.repeat(N // N_UNIQUE, 1) for c in uniq]
+        for c in range(3):  # base 7 the identity
+            bases[c][7] = edge[c][0]
+        npass, (kw, idx, counts) = 0, (None, None, None)
+        for npass, part in enumerate(msm._bucket_passes(scalars(N), 8), 1):
+            if npass == 1:
+                kw, idx, counts = part
+        first, count, _, _ = msm._chunk_plan(counts)
+        idx32, first32, count32 = (t.to(torch.int32) for t in (idx, first, count))
+        got_t = G.chunk_sums(bases, idx32, first32, count32)
+        ms = time_ms(lambda: G.chunk_sums(bases, idx32, first32, count32), 3)
+        ncmp = 512 if quick else 4096
+        extra = torch.as_tensor([7, 0, 7] + [int(x) for x in rng.integers(0, N, size=3 * T)],
+                                dtype=torch.int32, device=dev)
+        e0 = idx32.shape[0]
+        cidx = torch.cat([idx32, extra])
+        ecount = torch.as_tensor([0, 1, T, T + 1, 3 * T + 2], dtype=torch.int32, device=dev)
+        cfirst = torch.cat([first32[:ncmp], torch.full((5,), e0, dtype=torch.int32, device=dev)])
+        ccount = torch.cat([count32[:ncmp], ecount])
+        got = G.chunk_sums(bases, cidx, cfirst, ccount)
+        want, plain_ms = timed_once(lambda: G.chunk_sums_plain(bases, cidx, cfirst, ccount))
+        if G.to_affine_host(tuple(c[ncmp: ncmp + 1] for c in got)) != [None]:
+            raise AssertionError(f"bw6_chunk_sum{sfx}: a chunk of 0 entries is not the identity")
+        E, L = int(count.sum()), int(first.shape[0])
+        row("bw6_chunk_sum" + sfx, got, want, ms, plain_ms,
+            E * (3 * BW6_COORD + 4) + L * (8 + 3 * BW6_COORD), 12 * madd * E,
+            f"one bucket pass of msm_fp at {N} points ({kw} of 48 8-bit windows, {E} entries, "
+            f"{L} chunks of at most {T}; {npass} such launches a msm_fp); compared on its first "
+            f"{ncmp} chunks and chunks of 0, 1, {T}, {T + 1}, {3 * T + 2} entries (plain_ms "
+            f"there)", 12 * int(count.max()), f"k_fpg_chunk<Fq761Coord<{b}>>")
+        rep.rows["bw6_chunk_sum" + sfx].update({"chunk": T, "launches_a_msm_fp": npass})
+        say(f"  bw6_chunk_sum{sfx}: {ms:.3f} ms for {E} entries in {L} chunks; {npass} passes")
+        del bases, uniq, idx, got_t
+
+        # fixed_base_mul at the wrap's key width
+        Nk = 4096 if quick else BW6_SHAPES[16][1]
+        st = scalars(Nk)
+        tx, ty = cg.fixed_base_table(G, gen(), add, FQ.nlimbs, dev)
+        got_k = cg.fixed_base_mul_table(G, st, tx, ty)
+        ms = time_ms(lambda: cg.fixed_base_mul_table(G, st, tx, ty), 2)
+        ncmp = 256 if quick else 4096
+        sc = st[:ncmp].clone()
+        sc[:3] = torch.as_tensor(FQ.to_limbs([0, 1, R_BW6 - 1]), device=dev)
+        sc[:, 5] = 0  # windows 10 and 11 zero in every lane
+        got = cg.fixed_base_mul_table(G, sc, tx, ty)
+        want, plain_ms = timed_once(lambda: cg.fixed_base_mul_plain(G, sc, tx, ty))
+        ints = FQ.from_limbs(sc[:4].cpu().numpy())
+        if G.to_affine_host(tuple(c[:4] for c in got)) != [mul(gen(), v) for v in ints]:
+            raise AssertionError(f"bw6_fixed_base{sfx}: lanes differ from the host's multiples")
+        digits = msm._digits_from_scalars(st, 8)
+        nz = int((digits != 0).sum())
+        row("bw6_fixed_base" + sfx, got, want, ms, plain_ms,
+            Nk * (FQ.nlimbs * 4 + 3 * BW6_COORD) + nz * 2 * BW6_COORD, 11 * madd * nz,
+            f"({Nk}, 24) random 376-bit scalars, {nz} nonzero 8-bit digits, table (12288, 48) "
+            f"x 2; compared at {ncmp} lanes with 0, 1, r - 1 and limb 5 zero in every lane "
+            f"(plain_ms there)", 11 * digits.shape[0], f"k_fpg_fixed_base<Fq761Coord<{b}>>")
+        say(f"  bw6_fixed_base{sfx}: {ms:.3f} ms at {Nk} lanes")
+        del got_k, st, tx, ty, digits
+    torch.cuda.empty_cache()
 
 
 def _proof_key_381(pf, proof) -> tuple:
@@ -3391,10 +3587,15 @@ def main(argv=None) -> int:
     rep = Report()
     if args.bw6_only:
         kernels_bw6(dev, rep, quick=False)
+        kernels_bw6_group(dev, rep, quick=False)
         phase_bw6_msm(dev)
         phase_bw6_toy(dev)
         for nv in (16, 10):
-            phase_bw6_wrap(dev, nv)
+            counts = phase_bw6_wrap(dev, nv)
+            if nv == 16:  # the default run's paths
+                for name, row in rep.rows.items():
+                    row["launches_by_path"] = {p: c[name] for p, c in counts.items() if c[name]}
+                    row["launches"] = sum(row["launches_by_path"].values())
             say(f"BW6 wrap nv={nv} done ({time.time() - t_start:.1f} s)")
         say(json.dumps({"kernels": list(rep.rows.values())}))
         say("bw6-only pass done; run without arguments for the full check")
@@ -3438,6 +3639,7 @@ def main(argv=None) -> int:
         kernels_chain(dev, rep, quick=True)
         kernels_sumcheck(dev, rep, lat_us, lat_fr, quick=True)
         kernels_bw6(dev, rep, quick=True)
+        kernels_bw6_group(dev, rep, quick=True)
         kernels_fr381(dev, rep, quick=True)
         phase_bls381(dev, 4, profiled=False)
         phase_nizk_golden(dev)
@@ -3550,7 +3752,8 @@ def main(argv=None) -> int:
     kernels_sumcheck(dev, rep, lat_us, lat_fr, quick=False)
     lap("kernels: sumcheck")
     kernels_bw6(dev, rep, quick=False)
-    lap("kernels: 761-bit product")
+    kernels_bw6_group(dev, rep, quick=False)
+    lap("kernels: 761-bit product, BW6 group law")
     kernels_fr381(dev, rep, quick=False)
     lap("kernels: fr381 product")
     kernels_group(dev, g1, rep, proj["g1"], *batches["g1", 20], *batches["g1", 20], lat_us,

@@ -1,5 +1,7 @@
 // BLS12-377 group law for the Hopper kernels, once for both groups and both
-// reductions, and the per-lane bodies of the packed EC kernels.
+// reductions, and the per-lane bodies of the packed EC kernels; the same
+// formulas over BW6-761's 761-bit field (`Fq761Coord`, strict) for the
+// group-law kernels of fp_group.cu.
 //
 // Replaces the fused EC kernel bodies of testudo_tpu/tpu/pallas_curve.py
 // (:391-584, ops "add_mask", "add2", "step", "scan2", "scan2b", "bucket",
@@ -25,6 +27,8 @@
 //     canonical at the store.  The bucket kernels and the one-thread
 //     fixed-base kernel run it where it measured faster (BucketArith,
 //     FixedBaseArith: all but G2's general add).
+// BW6-761's two groups have a strict policy each (`Fq761Coord<B>`, b = -1
+// and 4) over FpGroup's row-major coordinates; they are at the end.
 // A point is three coordinates in a thread's registers (and, for G2, local
 // memory: two points and the temporaries of an add exceed 255 registers).
 // In device memory a batch is `(C::ROWS, L)` int32: coordinate-major,
@@ -287,6 +291,76 @@ struct Fq2Coord {
     fp2_load_row(r, row);
     return r;
   }
+};
+
+// BW6-761's two groups (device/curve_generic.py `FpGroup`): G1 (b = -1) and
+// G2 (b = 4, the sextic twist), both over the 761-bit base field, one strict
+// policy a group.  An element is 24 words (96 bytes, as large as an Fq2
+// element) and every value is canonical, as in the plain `FpGroup` and in the
+// JAX package, which has no lazy layer for this field: the kernels' limbs are
+// theirs, limb for limb.  mul_b3 is the product by 3b done with sums, -3a for
+// G1 and 12a for G2: the value the product by the constant 3b gives.  Points
+// are in FpGroup's layout, three (n, 48) int32 arrays of 16-bit limbs (a
+// coordinate's limbs contiguous, `load_row` / `store_row`).
+template <int B>
+struct Fq761Coord {
+  static_assert(B == -1 || B == 4, "BW6-761's G1 has b = -1, its G2 b = 4");
+  typedef Fq761Params F;
+  struct E {
+    u32 v[F::N];
+  };
+  typedef E Prod;
+  static constexpr int ROW = 2 * F::N;  // int32 limbs of one coordinate
+  FP_MEMBER static E zero() {
+    E r;
+    fp_zero<F>(r.v);
+    return r;
+  }
+  FP_MEMBER static E one() {
+    E r;
+    fp_copy<F>(r.v, FQ761_ONE);
+    return r;
+  }
+  FP_MEMBER static E select(bool c, const E& a, const E& b) {
+    E r;
+    fp_select<F>(r.v, c, a.v, b.v);
+    return r;
+  }
+  FP_MEMBER static E add(const E& a, const E& b) {
+    E r;
+    fp_add<F>(r.v, a.v, b.v);
+    return r;
+  }
+  FP_MEMBER static E sub(const E& a, const E& b) {
+    E r;
+    fp_sub<F>(r.v, a.v, b.v);
+    return r;
+  }
+  FP_MEMBER static void mul_to(E& r, const E& a, const E& b) { fp_mul<F>(r.v, a.v, b.v); }
+  FP_MEMBER static E mul3(const E& a) {
+    E r;
+    fp_mul3<F>(r.v, a.v);
+    return r;
+  }
+  FP_MEMBER static E mul_b3(const E& a) {
+    E r = mul3(a);
+    if constexpr (B == -1) {
+      r = sub(zero(), r);  // -3a
+    } else {
+      r = add(r, r);
+      r = add(r, r);  // 12a
+    }
+    return r;
+  }
+  FP_MEMBER static PtE<E> point(const E& x, const E& y, const E& z) { return {x, y, z}; }
+  FP_MEMBER static const PtE<E>& carry(const PtE<E>& a) { return a; }
+  FP_MEMBER static const PtE<E>& canon(const PtE<E>& a) { return a; }
+  FP_MEMBER static E load_row(const int* row) {
+    E r;
+    fp_load_row<F>(r.v, row);
+    return r;
+  }
+  FP_MEMBER static void store_row(int* row, const E& a) { fp_store_row<F>(row, a.v); }
 };
 
 template <class A>
@@ -559,4 +633,106 @@ FP_FN void lane_bucket(const int* table, const int* idx, const int* start,
     }
   }
   ec_store<A>(out, L, lane, acc);
+}
+
+// ---------------------------------------------------------------------------
+// BW6-761's group law, a thread a lane (csrc/fp_group.cu)
+// ---------------------------------------------------------------------------
+//
+// The bodies of the kernels under `FpGroup` (device/curve_generic.py), each
+// over a Fq761Coord<B> policy A: the elementwise add, mixed add and double,
+// the chunk sums of `msm_fp`'s bucket runs and `fixed_base_mul`.  A point is
+// element `i` of three (n, 48) int32 arrays, one a coordinate.
+
+enum FpgOp { FPG_ADD = 0, FPG_ADD_MIXED = 1, FPG_DOUBLE = 2 };
+
+template <class A>
+FP_FN Pt<A> fpg_load(const int* x, const int* y, const int* z, long i) {
+  return {A::load_row(x + i * A::ROW), A::load_row(y + i * A::ROW),
+          A::load_row(z + i * A::ROW)};
+}
+
+template <class A>
+FP_FN void fpg_store(int* x, int* y, int* z, long i, const Pt<A>& p) {
+  A::store_row(x + i * A::ROW, p.x);
+  A::store_row(y + i * A::ROW, p.y);
+  A::store_row(z + i * A::ROW, p.z);
+}
+
+// out = p1 + p2 (FPG_ADD), p1 + (x2, y2) for an affine p2 that is not the
+// identity (FPG_ADD_MIXED: z2 is not read), or 2 p1 (FPG_DOUBLE: p2 is not
+// read), at lane `lane`.
+template <class A, int OP>
+FP_FN void lane_fpg_op(const int* x1, const int* y1, const int* z1, const int* x2,
+                       const int* y2, const int* z2, int* ox, int* oy, int* oz, long lane) {
+  const Pt<A> p = fpg_load<A>(x1, y1, z1, lane);
+  if constexpr (OP == FPG_ADD) {
+    const Pt<A> q = fpg_load<A>(x2, y2, z2, lane);
+    fpg_store<A>(ox, oy, oz, lane, ec_add<A>(p, q));
+  } else if constexpr (OP == FPG_ADD_MIXED) {
+    const typename A::E qx = A::load_row(x2 + lane * A::ROW), qy = A::load_row(y2 + lane * A::ROW);
+    fpg_store<A>(ox, oy, oz, lane, ec_add_mixed<A>(p, qx, qy));
+  } else {
+    fpg_store<A>(ox, oy, oz, lane, ec_double<A>(p));
+  }
+}
+
+// The largest `v` of this warp's lanes, the same for every thread of the
+// warp (on the CPU build a lane is a warp of its own).
+FP_FN int warp_max(int v) {
+#ifdef __CUDACC__
+  return __reduce_max_sync(__activemask(), v);
+#else
+  return v;
+#endif
+}
+
+// out[lane] = sum over t < count[lane] of P[idx[start[lane] + t]], the points
+// (x, y, z) added in order onto the identity with the complete add: one
+// chunk of a bucket run of `msm_fp`.  The loop runs to the longest count of
+// the warp, so a warp never branches around a product: a step past a lane's
+// count adds point 0 and the select keeps the sum.  A lane with count 0
+// gives the identity.
+template <class A>
+FP_FN void lane_fpg_chunk(const int* x, const int* y, const int* z, const int* idx,
+                          const int* start, const int* count, int* ox, int* oy, int* oz,
+                          long lane) {
+  Pt<A> acc = ec_identity<A>();
+  const long pos = start[lane];
+  const int n = count[lane];
+  const int steps = warp_max(n);
+  FP_NO_UNROLL
+  for (int t = 0; t < steps; t++) {
+    const bool live = t < n;
+    const long src = live ? (long)idx[pos + t] : 0L;
+    const Pt<A> q = fpg_load<A>(x, y, z, src);
+    acc = ec_select<A>(live, ec_add<A>(acc, q), acc);
+  }
+  fpg_store<A>(ox, oy, oz, lane, acc);
+}
+
+#define FPG_WINDOW 8  // scalar bits a window of the fixed-base table takes
+
+// out[lane] = [s] B, s row `lane` of (N, nl) canonical 16-bit limbs, by the
+// 2 nl 8-bit windows of a table of B's affine multiples: for w < 2 nl, with
+// d the window's digit, acc = d ? acc + T[w 256 + d] : acc, the complete
+// mixed add with row w 256 + d of the (2 nl 256, 48) coordinate arrays
+// (tx, ty) (`_window_table`: row w 256 stands in for d = 0 and is never
+// kept), then the select.  The add is skipped where no lane of the warp has
+// a nonzero digit, which changes no lane's result.
+template <class A>
+FP_FN void lane_fpg_fixed_base(const int* tx, const int* ty, const int* scal, int* ox, int* oy,
+                               int* oz, int nl, long lane) {
+  Pt<A> acc = ec_identity<A>();
+  FP_NO_UNROLL
+  for (int w = 0; w < 2 * nl; w++) {
+    const u32 limb = (u32)scal[lane * nl + w / 2];
+    const u32 d = (limb >> (FPG_WINDOW * (w & 1))) & ((1u << FPG_WINDOW) - 1u);
+    if (any_lane(d != 0)) {
+      const long row = ((long)w << FPG_WINDOW) + d;
+      const typename A::E x2 = A::load_row(tx + row * A::ROW), y2 = A::load_row(ty + row * A::ROW);
+      acc = ec_select<A>(d != 0, ec_add_mixed<A>(acc, x2, y2), acc);
+    }
+  }
+  fpg_store<A>(ox, oy, oz, lane, acc);
 }

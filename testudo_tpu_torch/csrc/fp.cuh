@@ -68,6 +68,13 @@ FP_TABLE u32 FQ761_P[24] = {
     0x5667a8f8u, 0x98a116c2u, 0x73ebff2eu, 0x71dcd3dcu, 0x12f9fd90u, 0x8689c8edu,
     0x25b42304u, 0x03cebaffu, 0xe584e919u, 0x707ba638u, 0x8087be41u, 0x528275efu,
     0x81d14688u, 0xb926186au, 0x04faff3eu, 0xd187c940u, 0xfb83ce0au, 0x0122e824u};
+// R mod q = 2^768 mod q: the Montgomery form of 1 (the BW6 groups' identity
+// has Y = 1).
+FP_TABLE u32 FQ761_ONE[24] = {
+    0xffff85d5u, 0x0202ffffu, 0x8fff8ce7u, 0x5a582635u, 0x827faadeu, 0x9e996e43u,
+    0x0ee47df4u, 0xda6aff32u, 0x1d94b80bu, 0xece9cb3eu, 0x5248240bu, 0xc0e667a2u,
+    0xdcad3905u, 0xa74da5bfu, 0x462f2103u, 0x2352e7feu, 0x08b1c87cu, 0x7b565880u,
+    0xe711022fu, 0x45848a63u, 0x9f65a9dfu, 0xd7a81ebbu, 0xf127e87du, 0x0051f77eu};
 
 // BLS12-381's scalar field r (fields/bls12_381.py), 255 bits in 8 words.
 // R / r is about 2.2 (7.6 for BLS12-377's Fr): less room for the non-canonical

@@ -756,4 +756,51 @@ int host_sumcheck_tail(const int* partials, const int* inst_coeffs, const int* e
 #undef TAIL
   return 0;
 }
+
+// BW6-761's group law of fp_group.cu, lane by lane, for the group whose
+// curve constant is b (-1: G1, 4: G2), with the launchers' arguments and
+// return codes.  Each lane runs as a warp of its own (`warp_max`,
+// `any_lane`): the chunk sum's steps are its own count, and the fixed-base
+// window is never skipped, so the select, not the skip, keeps the result.
+#define FOR_BW6_GROUP(b, ...)          \
+  do {                                 \
+    if ((b) == -1) {                   \
+      typedef Fq761Coord<-1> A;        \
+      __VA_ARGS__;                     \
+    } else if ((b) == 4) {             \
+      typedef Fq761Coord<4> A;         \
+      __VA_ARGS__;                     \
+    } else {                           \
+      return -1;                       \
+    }                                  \
+    return 0;                          \
+  } while (0)
+
+int host_fp_group_op(const int* x1, const int* y1, const int* z1, const int* x2, const int* y2,
+                     const int* z2, int* ox, int* oy, int* oz, long n, int op, int b) {
+  if (op < FPG_ADD || op > FPG_DOUBLE) return -1;
+  FOR_BW6_GROUP(b, for (long lane = 0; lane < n; lane++) {
+    if (op == FPG_ADD)
+      lane_fpg_op<A, FPG_ADD>(x1, y1, z1, x2, y2, z2, ox, oy, oz, lane);
+    else if (op == FPG_ADD_MIXED)
+      lane_fpg_op<A, FPG_ADD_MIXED>(x1, y1, z1, x2, y2, z2, ox, oy, oz, lane);
+    else
+      lane_fpg_op<A, FPG_DOUBLE>(x1, y1, z1, x2, y2, z2, ox, oy, oz, lane);
+  });
+}
+
+int host_fp_chunk_sums(const int* x, const int* y, const int* z, const int* idx,
+                       const int* start, const int* count, int* ox, int* oy, int* oz, long n,
+                       int b) {
+  FOR_BW6_GROUP(b, for (long lane = 0; lane < n; lane++)
+                       lane_fpg_chunk<A>(x, y, z, idx, start, count, ox, oy, oz, lane));
+}
+
+int host_fp_fixed_base(const int* tx, const int* ty, const int* scal, int* ox, int* oy, int* oz,
+                       long n, int nl, int b) {
+  if (nl < 1 || nl > 32) return -1;
+  FOR_BW6_GROUP(b, for (long lane = 0; lane < n; lane++)
+                       lane_fpg_fixed_base<A>(tx, ty, scal, ox, oy, oz, nl, lane));
+}
+#undef FOR_BW6_GROUP
 }

@@ -32,7 +32,7 @@ BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("mont_mul.cu", "mont_mul_rm.cu", "mont_chain.cu", "ec_ops.cu", "ladder.cu",
            "ladder_team.cu", "ladder_wide.cu", "bucket.cu", "wsum_team.cu", "chain_team.cu",
            "fold_team.cu", "fixed_base_team.cu", "poseidon.cu", "sumcheck_round.cu",
-           "sumcheck_tail.cu")
+           "sumcheck_tail.cu", "fp_group.cu")
 HEADERS = ("fp.cuh", "fp2.cuh", "lazy.cuh", "ec.cuh", "ec_team.cuh", "launch.cuh", "mont_rm.cuh",
            "poseidon.cuh", "sumcheck.cuh")
 NVCC_FLAGS = (
@@ -70,6 +70,11 @@ _SIGNATURES = {
     "sumcheck_round": ("testudo_sumcheck_round", (_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P)),
     "sumcheck_tail": ("testudo_sumcheck_tail", (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                                 _I, _I, _P)),
+    # BW6-761's group law (fp_group.cu): the field id and the curve constant b
+    # just before the stream
+    "fp_group_op": ("testudo_fp_group_op", (_P,) * 9 + (_L, _I, _I, _I, _P)),
+    "fp_chunk_sums": ("testudo_fp_chunk_sums", (_P,) * 9 + (_L, _I, _I, _P)),
+    "fp_fixed_base": ("testudo_fp_fixed_base", (_P,) * 6 + (_L, _I, _I, _I, _P)),
 }
 # C functions that launch nothing and take no stream: (symbol, argtypes).
 _QUERIES = {
@@ -83,15 +88,18 @@ _QUERIES = {
 # kernel: the G1 count keeps the bare name, the G2 count ends in "_g2".  The
 # row-major Montgomery product is counted per field, the grouped chain per
 # variant; the Poseidon permutation and the sumcheck's kernels once each
-# (both fields, every kind).
+# (both fields, every kind); BW6-761's group law per entry point and group
+# (G1 the bare name, G2 with "_g2"; the elementwise kernel per formula).
 EC_KERNELS = ("add2", "add_mask", "step", "scan2", "scan2b", "ladder", "ladder_team",
               "ladder_wide", "bucket", "bucket_mixed", "wsum", "chain_team", "fold_team",
               "fixed_base", "fixed_base_one")
 FIELD_KERNELS = ("mont_mul", "mont_mul_rm_fq", "mont_mul_rm_fr", "mont_mul_rm_bw6fq",
                  "mont_mul_rm_fr381", "mont_chain", "mont_chain_seq", "mont_chain_wide")
 SUMCHECK_KERNELS = ("poseidon_permute", "sumcheck_round", "sumcheck_tail")
+BW6_KERNELS = ("bw6_add", "bw6_add_mixed", "bw6_double", "bw6_chunk_sum", "bw6_fixed_base")
 LAUNCHES = {name: 0 for name in (
-    *FIELD_KERNELS, *SUMCHECK_KERNELS, *EC_KERNELS, *(k + "_g2" for k in EC_KERNELS))}
+    *FIELD_KERNELS, *SUMCHECK_KERNELS, *EC_KERNELS, *(k + "_g2" for k in EC_KERNELS),
+    *BW6_KERNELS, *(k + "_g2" for k in BW6_KERNELS))}
 
 
 def reset_launches() -> None:
@@ -195,31 +203,50 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+def _template_args(mangled: str, pos: int):
+    """The template arguments at `pos` (just after an "I") up to their "E":
+    (the arguments as text, the position after the "E"), or None for
+    anything this library's kernels do not use."""
+    args = []
+    while pos < len(mangled) and mangled[pos] != "E":
+        lit = re.match(r"L([bi])(n?\d+)E", mangled[pos:])
+        num = re.match(r"\d+", mangled[pos:])
+        if lit:
+            kind, value = lit.groups()
+            value = value.replace("n", "-")
+            args.append(value if kind == "i" else "true" if value == "1" else "false")
+            pos += lit.end()
+        elif num:
+            start = pos + num.end()
+            pos = start + int(num.group())
+            name = mangled[start:pos]
+            if mangled[pos:pos + 1] == "I":  # a template of its own: Fq761Coord<-1>
+                inner = _template_args(mangled, pos + 1)
+                if inner is None:
+                    return None
+                name, pos = f"{name}<{', '.join(inner[0])}>", inner[1]
+            args.append(name)
+        else:
+            return None
+    return args, pos + 1
+
+
 def _kernel_name(mangled: str) -> str:
     """`_Z8k_bucketI8Fq2CoordLb1EEv...` -> `k_bucket<Fq2Coord, true>`: enough
     of the Itanium scheme for this library's kernels (a name, then type,
-    bool and int template arguments); anything else comes back as it is."""
+    class template, bool and int template arguments); anything else comes
+    back as it is."""
     m = re.match(r"_Z(\d+)", mangled)
     if not m:
         return mangled
     pos = m.end() + int(m.group(1))
-    name, args = mangled[m.end():pos], []
-    if mangled[pos:pos + 1] == "I":
-        pos += 1
-        while pos < len(mangled) and mangled[pos] != "E":
-            lit = re.match(r"L([bi])(\d+)E", mangled[pos:])
-            num = re.match(r"\d+", mangled[pos:])
-            if lit:
-                kind, value = lit.groups()
-                args.append(value if kind == "i" else "true" if value == "1" else "false")
-                pos += lit.end()
-            elif num:
-                start = pos + num.end()
-                pos = start + int(num.group())
-                args.append(mangled[start:pos])
-            else:
-                return mangled
-    return f"{name}<{', '.join(args)}>" if args else name
+    name = mangled[m.end():pos]
+    if mangled[pos:pos + 1] != "I":
+        return name
+    inner = _template_args(mangled, pos + 1)
+    if inner is None:
+        return mangled
+    return f"{name}<{', '.join(inner[0])}>"
 
 
 def build_report() -> dict:

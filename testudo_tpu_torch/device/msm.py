@@ -704,19 +704,30 @@ def _multi_msm_device(group_name: str, points, scalars_canon: torch.Tensor, c: i
 #
 # Counterpart of `msm_fp` (tpu/msm.py:1242) and the helpers it runs: the
 # window pick (:65), the digits (:76), the bucket sums (:97), the weighted
-# bucket sum (:134) and the small path (:200).  Every group operation is a
-# batched complete formula of `FpGroup`, so on the card the only kernel is
-# the row-major product at 48 limbs.  The bucket sums differ in form: the
-# JAX package steps every (window, bucket) run in lock step up to the
-# longest one, which is as long as the count of ones among the scalars in
-# a bit-heavy witness (a circuit's booleans); here each run is summed by
-# pairwise halving, ceil(log2 run) batched adds, over windows taken a few at
-# a time, the lanes gathered through the sort's order.  Bucket sums are
-# group elements, so the result (host affine) is the JAX package's exactly.
-# The power-of-two and 64-lane paddings (`_pad_pow2`, `_pad_to`) bound the
-# JAX package's jit shapes; nothing is traced here, so nothing is padded.
+# bucket sum (:134) and the small path (:200).  Every group operation is an
+# `FpGroup` operation, so on the card each is one launch of the group-law
+# kernel (csrc/fp_group.cu).  The bucket sums differ in form: the JAX package
+# steps every (window, bucket) run in lock step up to the longest one, which
+# is as long as the count of ones among the scalars in a bit-heavy witness
+# (a circuit's booleans); here each run is cut into chunks of at most
+# `_FP_CHUNK` consecutive entries, each chunk summed in order by one lane
+# (`FpGroup.chunk_sums`: a thread a chunk on the card, the points read
+# through the sort's order), and the chunk sums of a run are then halved
+# pairwise, ceil(log2 chunks) batched adds, over windows taken a few at a
+# time.  Bucket sums are group elements, so the result (host affine) is the
+# JAX package's exactly.  The power-of-two and 64-lane paddings
+# (`_pad_pow2`, `_pad_to`) bound the JAX package's jit shapes; nothing is
+# traced here, so nothing is padded.
 
-_FP_ENTRIES = 1 << 22  # nonzero digits the windows of one bucket pass hold
+# Digits the windows of one bucket pass hold, and the entries of a bucket run
+# one lane sums in order: the chunk bounds a lane's serial work whatever the
+# skew (a run of a boolean witness's ones is hundreds of thousands long).  On
+# the H100 at a key's width (983,040 points, random or half-boolean scalars;
+# tools/exp_bw6.py --chunks, PERF.md) passes of 2^24 digits beat 2^22, and
+# chunks of 64 beat 32 and 128 on random scalars (32 led on half booleans by
+# about a tenth).
+_FP_ENTRIES = 1 << 24
+_FP_CHUNK = 64
 _FP_LANES = 1 << 20  # most lanes one batched add of the bucket sums takes
 
 
@@ -724,21 +735,32 @@ def _gather(points, rows: torch.Tensor):
     return tuple(coord.index_select(0, rows) for coord in points)
 
 
+def _chunk_plan(counts: torch.Tensor):
+    """Segments of `counts` consecutive entries cut into chunks of at most
+    `_FP_CHUNK`: (each chunk's first entry, its entries, the chunks of each
+    segment, each segment's first chunk)."""
+    dev = counts.device
+    lens = counts.to(torch.int64)
+    starts = torch.cumsum(lens, 0) - lens
+    T = _FP_CHUNK
+    nch = (lens + T - 1) // T
+    cstarts = torch.cumsum(nch, 0) - nch
+    seg = torch.repeat_interleave(torch.arange(lens.shape[0], device=dev), nch)
+    j = torch.arange(seg.shape[0], device=dev) - cstarts[seg]
+    return starts[seg] + T * j, torch.clamp(lens[seg] - T * j, max=T), nch, cstarts
+
+
 def _segment_sums(G, points, idx: torch.Tensor, counts: torch.Tensor):
     """Sum of every segment of `idx` (host-ordered runs of `counts`
     entries; points[idx[j]] is entry j) -> one point a segment, the identity
-    for an empty one.  Each level adds entries 2j and 2j + 1 of every
-    segment in one batched add (sliced at `_FP_LANES`) and keeps an odd last
-    entry as it is."""
+    for an empty one.  Level 0 sums each chunk of at most `_FP_CHUNK`
+    consecutive entries of a segment in order (`G.chunk_sums`); each further
+    level adds chunk sums 2j and 2j + 1 of every segment in one batched add
+    (sliced at `_FP_LANES`) and keeps an odd last one as it is."""
     dev = idx.device
     nseg = counts.shape[0]
-    lens = counts.to(torch.int64)
-    starts = torch.cumsum(lens, 0) - lens
-    cur, via = points, idx  # level 0 reads the points through idx
-
-    def pick(rows):
-        return _gather(cur, rows if via is None else via.index_select(0, rows))
-
+    first, count, lens, starts = _chunk_plan(counts)
+    cur = G.chunk_sums(points, idx, first, count)
     while int(lens.max()) > 1:
         half = (lens + 1) // 2
         nstarts = torch.cumsum(half, 0) - half
@@ -746,19 +768,38 @@ def _segment_sums(G, points, idx: torch.Tensor, counts: torch.Tensor):
         j = torch.arange(seg.shape[0], device=dev) - nstarts[seg]
         left = starts[seg] + 2 * j
         pair = (2 * j + 1 < lens[seg]).nonzero().squeeze(1)
-        nxt = pick(left)
+        nxt = _gather(cur, left)
         for lo in range(0, pair.shape[0], _FP_LANES):
             at = pair[lo: lo + _FP_LANES]
             rows = left.index_select(0, at)
-            s = G.add(pick(rows), pick(rows + 1))
+            s = G.add(_gather(cur, rows), _gather(cur, rows + 1))
             for coord, part in zip(nxt, s):
                 coord.index_copy_(0, at, part)
-        cur, via, lens, starts = nxt, None, half, nstarts
+        cur, lens, starts = nxt, half, nstarts
     out = G.identity((nseg,), device=dev)
     full = (lens == 1).nonzero().squeeze(1)
-    for coord, part in zip(out, pick(starts.index_select(0, full))):
+    for coord, part in zip(out, _gather(cur, starts.index_select(0, full))):
         coord.index_copy_(0, full, part)
     return out
+
+
+def _bucket_passes(scal: torch.Tensor, c: int):
+    """The bucket passes of `_bucket_sums_fp`: for each group of at most
+    `_FP_ENTRIES // N` windows, (its windows, the points of its nonzero
+    digits sorted by (window, digit), the entries of each of its k 2^c
+    (window, digit) runs)."""
+    N = scal.shape[0]
+    B = 1 << c
+    digits = _digits_from_scalars(scal, c)  # (W, N)
+    per_pass = max(1, _FP_ENTRIES // max(N, 1))
+    for w0 in range(0, digits.shape[0], per_pass):
+        d = digits[w0: w0 + per_pass].to(torch.int64)
+        k = d.shape[0]
+        flat = d.reshape(-1)
+        nz = (flat != 0).nonzero().squeeze(1)
+        keys = flat.index_select(0, nz) + torch.div(nz, N, rounding_mode="floor") * B
+        keys, order = torch.sort(keys, stable=True)
+        yield k, (nz % N).index_select(0, order), torch.bincount(keys, minlength=k * B)
 
 
 def _bucket_sums_fp(G, points, scal: torch.Tensor, c: int):
@@ -766,21 +807,9 @@ def _bucket_sums_fp(G, points, scal: torch.Tensor, c: int):
     in passes of at most `_FP_ENTRIES` digits; a pass sorts its nonzero
     digits by (window, digit) and sums the runs (`_segment_sums`).  Digit 0
     has weight 0: it gets no entry, and bucket 0 is the identity."""
-    N = scal.shape[0]
     B = 1 << c
-    digits = _digits_from_scalars(scal, c)  # (W, N)
-    W = digits.shape[0]
-    per_pass = max(1, _FP_ENTRIES // max(N, 1))
     parts = []
-    for w0 in range(0, W, per_pass):
-        d = digits[w0: w0 + per_pass].to(torch.int64)
-        k = d.shape[0]
-        flat = d.reshape(-1)
-        nz = (flat != 0).nonzero().squeeze(1)
-        keys = flat.index_select(0, nz) + torch.div(nz, N, rounding_mode="floor") * B
-        keys, order = torch.sort(keys, stable=True)
-        idx = (nz % N).index_select(0, order)
-        counts = torch.bincount(keys, minlength=k * B)
+    for k, idx, counts in _bucket_passes(scal, c):
         sums = _segment_sums(G, points, idx, counts)
         parts.append(tuple(coord.reshape(k, B, -1) for coord in sums))
     return tuple(torch.cat(cs, dim=0) for cs in zip(*parts))
