@@ -13,7 +13,9 @@ testudo_tpu_torch/csrc/, then
      one warm call at the largest size; `msm_g2(affine=False)` at 2^16 on
      projective bases with identity rows among them, exact;
   3. drives the rest of the group layer: `fixed_base_mul_g1/g2` on 2^16
-     scalars (one fixed-base launch each, no `add_mask`), `scalar_mul_batch_g2`,
+     scalars (the base's window table built on the card by one chain launch
+     and a batched inversion on the row-major product, then one window
+     launch each, no `add_mask`, no bit-serial kernel), `scalar_mul_batch_g2`,
      `msm_segmented` and `msm_multi_small` for both groups, each against the
      host, and the field path (`curve.g1_add` / `curve.g2_add` through the
      Montgomery kernel) against the fused add kernels;
@@ -156,10 +158,16 @@ testudo_tpu_torch/csrc/, then
      path's segments plus one of ODD points, against their plain versions
      (the `add2_plain` sequences) and timed beside the `add2` launches they
      replaced; the fixed-base kernels (the team kernel at the setup's widths,
-     one thread per lane at wide ones) at 2,047 + ODD and 2^16 + ODD lanes
-     with edge scalars (0, 1, r - 1, 2, 2^252), against the plain sequence of
-     masked adds (on a stride of the lanes at 2^16), timed beside the 256
-     `add_mask` launches they replaced, `bound_ms` and `latency_bound_ms`;
+     one thread per lane over all bits at wide ones, on no path since the
+     window kernel) at 2,047 + ODD and 2^16 + ODD lanes with edge scalars (0,
+     1, r - 1, 2, 2^252), against the plain sequence of masked adds (on a
+     stride of the lanes at 2^16), timed beside the 256 `add_mask` launches
+     they replaced, `bound_ms` and `latency_bound_ms`; the window kernel at
+     the Groth16 keys' widths (KEY_LANES) + ODD and 2^16 + ODD lanes, against
+     its plain version on the edge lanes and a stride, and against the
+     one-thread bit-serial kernel in affine on every lane, timed beside its
+     window-work bound, the bit-serial bound and `latency_bound_ms`, with
+     the window table's build;
      the fused sumcheck's kernels: the Poseidon permutation on Fr and Fq
      states, the round kernel for each kind at the NIZK's 2^16 and 2^17 rows,
      phase one's and phase two's at 2^20 and 2^21, and at 2, 4 and 8 rows,
@@ -259,7 +267,8 @@ from testudo_tpu_torch.poly import dense
 from testudo_tpu_torch.poseidon import sponge
 from testudo_tpu_torch.poseidon.transcript import (PoseidonTranscript, fq_params, fr_params,
                                                    fr_params_381)
-from testudo_tpu_torch.tools import exp_mont_rm, exp_montmul, exp_sumcheck_round, time_open
+from testudo_tpu_torch.tools import (exp_fixed_base, exp_mont_rm, exp_montmul,
+                                     exp_sumcheck_round, time_open)
 from testudo_tpu_torch.utils import timer
 
 # Least-time model.  Bytes: every input read once, every output written
@@ -298,7 +307,7 @@ _REPLACES = {
     "ladder_wide": _EC + ":733",
     "wsum": _EC + ":450", "chain_team": _EC + ":415", "fold_team": _EC + ":415",
     "fixed_base": _EC + ":403", "fixed_base_one": _EC + ":403",
-    "fixed_base_one_key": _EC + ":403",
+    "fixed_base_one_key": _EC + ":403", "fixed_base_window": _EC + ":403",
     # the fused sumcheck: its products over 512 rows or more reach the Pallas
     # product inside the reference's fused jit (tpu/field.py:292-295); the
     # permutation and the tail are XLA ops there (row key "replaces_also")
@@ -330,6 +339,7 @@ _SOURCE = {
     "bucket_mixed": "bucket.cu", "wsum": "wsum_team.cu", "chain_team": "chain_team.cu",
     "fold_team": "fold_team.cu", "fixed_base": "fixed_base_team.cu",
     "fixed_base_one": "fixed_base_team.cu", "fixed_base_one_key": "fixed_base_team.cu",
+    "fixed_base_window": "fixed_base_window.cu",
     "poseidon_permute": "poseidon.cu",
     "sumcheck_round": "sumcheck_round.cu", "sumcheck_tail": "sumcheck_tail.cu",
     **{k: "fp_group.cu" for k in build.BW6_KERNELS},
@@ -376,7 +386,8 @@ GROTH16_PROVE_LABELS = ("groth16::circuit build", "groth16::row evals", "groth16
 GROTH16_VERIFY_LABELS = ("snark_verify::groth16", "snark_verify::sqrt-PST check",
                          "snark_verify::sat proof", "snark_verify::spark")
 # the Groth16 key batches of the 2^16 circuit (31,654 variables, domain 2^15):
-# the widths chip_smoke times `fixed_base_one` at, G1 the h query's, G2 b_g2's
+# the widths chip_smoke times `fixed_base_window` and `fixed_base_one` at, G1
+# the h query's, G2 b_g2's
 KEY_LANES = {"g1": (1 << 15) - 1, "g2": 31654}
 
 # the Timer labels that split a prove (core/r1csproof.py)
@@ -390,9 +401,10 @@ NIZK_LABELS = {"polycommit (sqrt-PST)": "commit", "prove_sc_phase_one": "phase o
 # work on the paths the chain kernel (the commit's table) and the fold
 # kernel (every tree of pairwise sums) do in one launch each; `add_mask`,
 # whose 256 launches a fixed-base multiplication the fixed-base kernels do in
-# one (the team kernel at the setup's widths, one thread per lane at the
-# fixed-base phase's 2^16: FIXED_TEAM_MAX_LANES); the G2 chain
-# (the commit is over G1 only); the one-thread ladder over all bits, whose
+# one (the team kernel at the setup's widths, the window kernel above
+# FIXED_TEAM_MAX_LANES: the fixed-base phase's 2^16 and Groth16's keys); the
+# one-thread bit-serial fixed-base kernel, whose widths the window kernel
+# took; the one-thread ladder over all bits, whose
 # wide launches (the commit's Horner) the wide kernel runs (it keeps only
 # unordered launches above WIDE_LADDER_MAX_UNORDERED, which no path makes);
 # and the wide G2
@@ -404,19 +416,22 @@ NIZK_LABELS = {"polycommit (sqrt-PST)": "commit", "prove_sc_phase_one": "phase o
 _MSM_KERNELS = ("fold_team", "wsum", "ladder_team", "bucket", "bucket_mixed")
 _KERNEL_PHASE_ONLY = ("mont_mul", "scan2", "scan2_g2", "ladder", "ladder_g2", "ladder_wide_g2",
                       "step", "step_g2", "scan2b", "scan2b_g2", "add2", "add2_g2",
-                      "chain_team_g2", "add_mask", "add_mask_g2")
+                      "add_mask", "add_mask_g2", "fixed_base_one", "fixed_base_one_g2")
 MUST_LAUNCH = {
     **{k: () for k in _KERNEL_PHASE_ONLY},
     "mont_mul_rm_fq": ("field", "open"),
     "mont_mul_rm_fr": ("commit", "open"),
     "mont_chain": ("harness",), "mont_chain_seq": ("harness",), "mont_chain_wide": ("harness",),
     "fixed_base": ("setup",), "fixed_base_g2": ("setup",),
-    "fixed_base_one": ("fixed_base",), "fixed_base_one_g2": ("fixed_base",),
+    # the fixed-base phase builds its base's window tables (a chain launch a
+    # group: the G2 chain's only path) and runs one window launch a group
+    "fixed_base_window": ("fixed_base",), "fixed_base_window_g2": ("fixed_base",),
+    "chain_team_g2": ("fixed_base",),
     **{k: ("msm",) for k in _MSM_KERNELS},
     **{k + "_g2": ("msm",) for k in _MSM_KERNELS},
 }
 MUST_LAUNCH.update({
-    "chain_team": ("commit",), "fold_team": ("msm", "commit", "open"),
+    "chain_team": ("commit", "fixed_base"), "fold_team": ("msm", "commit", "open"),
     "fold_team_g2": ("msm", "open"), "ladder_wide": ("commit",),
     "ladder_team": ("msm", "open"), "ladder_team_g2": ("msm", "open"),
     "bucket": ("msm", "commit", "open"), "wsum": ("msm", "open"),
@@ -447,15 +462,16 @@ for _name in FUSED_KERNELS:
 # the Fq product); the verify's device work is the dot-product verifiers'
 # MSMs over the generators
 # With Groth16 (the default): the setup's keys are fixed-base batches, the
-# one-thread kernel above FIXED_TEAM_MAX_LANES (every batch of the 2^16
-# circuit but gamma_abc's) and the team kernel for gamma_abc and sqrt-PST's
-# key; the Groth16 prove (path groth16_prove: `groth16.prove` alone on the
+# window kernel above FIXED_TEAM_MAX_LANES (every batch of the 2^16 circuit
+# but gamma_abc's; the generators' window tables are built by the first
+# setup that needs them and kept) and the team kernel for gamma_abc and
+# sqrt-PST's key; the Groth16 prove (path groth16_prove: `groth16.prove` alone on the
 # circuit of the warm proof) runs four general-bucket `msm_g1` and one
 # `msm_g2` over the projective keys (bucket, weighted sum, the MSM's Horner
 # on the team ladder, folds) and seven NTTs on the row-major Fr product; the
 # SNARK prove holds it, so its G2 MSM's kernels join that path too
 _SNARK_MUST = {
-    "snark_groth16_setup": ("fixed_base_one", "fixed_base_one_g2", "fixed_base"),
+    "snark_groth16_setup": ("fixed_base_window", "fixed_base_window_g2", "fixed_base"),
     "snark_encode": ("mont_mul_rm_fr", "ladder_wide", "bucket", "chain_team", "fold_team"),
     "snark_prove": ("mont_mul_rm_fq", "mont_mul_rm_fr", "poseidon_permute", "sumcheck_round",
                     "sumcheck_tail", "ladder_team", "ladder_wide", "bucket", "wsum", "chain_team",
@@ -496,12 +512,13 @@ BW6_SHAPES = {16: (983727, 983426, 20), 10: (650138, 649957, 20)}
 BW6_MSM_LANES = 120 * (1 << 13)  # 983,040: a key's width at nv = 16
 BW6_SMALL = 50  # points of the small-path check
 # A row that times a kernel at a second shape reads its launches from the
-# kernel's counter, on the paths that give it that shape.
+# kernel's counter, on the paths that give it that shape (None: on every
+# path).
 ROW_COUNTER = {"mont_mul_rm_fr_full": ("mont_mul_rm_fr",
                                        ("nizk_prove", "nizk_prove_looped", "nizk_verify",
                                         "mesh_nizk", "mesh_nizk_looped")),
-               "fixed_base_one_key": ("fixed_base_one", ("snark_groth16_setup",)),
-               "fixed_base_one_key_g2": ("fixed_base_one_g2", ("snark_groth16_setup",))}
+               "fixed_base_one_key": ("fixed_base_one", None),
+               "fixed_base_one_key_g2": ("fixed_base_one_g2", None)}
 MUST_LAUNCH["mont_mul_rm_fr_full"] = ("nizk_prove_looped",)
 # The mesh (parallel/mesh.py) on MESH_SHARDS shards of the card: one warm
 # sharded msm_g1 and msm_g2 at 2^20 (path mesh_msm: each shard's pipeline),
@@ -528,7 +545,7 @@ for _path, _names in MESH_MUST.items():
     for _name in _names:
         MUST_LAUNCH[_name] += (_path,)
 MUST_LAUNCH["mont_mul_rm_fr_full"] += ("mesh_nizk_looped",)
-MUST_LAUNCH["fixed_base_one_key"] = MUST_LAUNCH["fixed_base_one_key_g2"] = ("snark_groth16_setup",)
+MUST_LAUNCH["fixed_base_one_key"] = MUST_LAUNCH["fixed_base_one_key_g2"] = ()
 N_UNIQUE = 1 << 13
 ODD = 37  # extra lanes so no compared batch is a multiple of a block size
 
@@ -874,30 +891,37 @@ def phase_field_path(dev, grp, proj):
 
 def phase_fixed_base(dev, grp):
     """fixed_base_mul on 2^16 scalars (0, 1, r-1 among them): spot lanes
-    against the host; one fixed-base launch, no add_mask."""
+    against the host; the base's window table built (one chain launch) and
+    one window launch, no add_mask and no bit-serial launch."""
     N = 1 << 16
     scal_np = random_scalars(N, 13)
     edge = [0, 1, R - 1]
     scal_np[: len(edge)] = FR.to_limbs(edge)
     base = grp.mul(grp.gen(), 0xC0FFEE)
     name = counter(grp, grp.Gp.fixed_base_kernel(N))
+    if name != counter(grp, "fixed_base_window"):
+        raise AssertionError(f"fixed_base_mul_{grp.name} at 2^16 takes {name}, not the window "
+                             f"kernel")
     build.reset_launches()
-    t0 = time.perf_counter()
-    out = grp.fixed(torch.as_tensor(scal_np, device=dev), base, device=dev)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
+    with timer.record() as rec:
+        t0 = time.perf_counter()
+        out = grp.fixed(torch.as_tensor(scal_np, device=dev), base, device=dev)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
     snap = dict(build.LAUNCHES)
     launches = snap[name]
-    if launches != 1 or snap[counter(grp, "add_mask")] != 0:
-        raise AssertionError(f"fixed_base_mul_{grp.name}: {launches} {name} launches and "
-                             f"{snap[counter(grp, 'add_mask')]} add_mask, expected 1 and 0")
+    others = {k: snap[counter(grp, k)] for k in ("add_mask", "fixed_base", "fixed_base_one")}
+    chains = snap[counter(grp, "chain_team")]
+    if launches != 1 or chains != 1 or any(others.values()):
+        raise AssertionError(f"fixed_base_mul_{grp.name}: {launches} {name} launches, {chains} "
+                             f"chain launches and {others}, expected 1, 1 and none")
     lanes = [0, 1, 2, 3, 777, N - 1]
     spot = msm._map_coords(lambda c: c[lanes], out)
     want = [grp.mul(base, k) for k in FR.from_limbs(scal_np[lanes])]
     if grp.to_affine(spot) != want or want[0] is not None:
         raise AssertionError(f"fixed_base_mul_{grp.name} disagrees with the host")
-    say(f"fixed_base_mul_{grp.name} on 2^16 scalars: {launches} {name} launches, {secs:.3f} s, "
-        f"{len(lanes)} lanes equal the host")
+    say(f"fixed_base_mul_{grp.name} on 2^16 scalars: {launches} {name} launches, {secs:.3f} s "
+        f"(parts, host clock: {json.dumps(_split(rec))}), {len(lanes)} lanes equal the host")
     return snap
 
 
@@ -3005,7 +3029,8 @@ def fixed_base_inputs(dev, grp, N: int, seed: int):
 def kernels_fixed_base(dev, grp, rep: Report, rounds: int, lat_us: float, quick: bool):
     """The fixed-base kernels of one group: the team kernel (`fixed_base`)
     at the setup's 2,047 lanes (nv = 20) and one thread per lane
-    (`fixed_base_one`) at the fixed-base phase's 2^16 and, as the row
+    (`fixed_base_one`, kernel phase only since the window kernel took its
+    widths) at the fixed-base phase's 2^16 and, as the row
     `fixed_base_one_key`, at the Groth16 keys' widths (KEY_LANES: the 2^16
     circuit's h query in G1, its b_g2 query in G2).  Each is compared with
     the plain version (256 `add_mask_plain` calls) at its width + ODD lanes,
@@ -3058,6 +3083,81 @@ def kernels_fixed_base(dev, grp, rep: Report, rounds: int, lat_us: float, quick:
         say(f"  {nm(row)}: {ms:.4f} ms at {N} lanes ({other} {other_ms:.4f} ms; the 256 add_mask "
             f"launches it replaced: {seq_ms:.4f} ms); latency bound {lat(max(pop)):.4f} ms (all "
             f"256 steps {lat(16 * FR.nlimbs):.4f})")
+
+
+def kernels_fixed_base_window(dev, grp, rep: Report, lat_us: float, quick: bool):
+    """The window kernel (`fixed_base_window`) of one group at the Groth16
+    keys' width (KEY_LANES: the row's numbers) and at 2^16 (the fixed-base
+    phase's; keys `*_65536`), over the window table the fixed-base phase
+    built for its base: at each width + ODD lanes against its plain version
+    on the edge lanes (0, 1, r - 1, 2, 2^252) and a stride, and against the
+    one-thread bit-serial kernel (`fixed_base_one`) in affine on every lane;
+    timed at the width beside the bit-serial kernels' rows.  bound_ms: the
+    nonzero digits' mixed adds (11 / 35 Fq products) against the products'
+    multiply-adds; bit_serial_bound_ms: the set bits' complete adds, the
+    bit-serial rows' bound; latency_bound_ms: the most nonzero digits of a
+    lane times a mixed add's products, each at one dependent product's
+    latency (a thread runs them one after another).  window_table_ms: one
+    build of the table from the doublings (a chain launch, the batched
+    inversion, the products), host clock."""
+    Gp = grp.Gp
+    rows = Gp.rows
+    nm = lambda kernel: counter(grp, kernel)
+    launch = lambda kernel, t, k: Gp.fixed_base_launch(kernel, t, k)
+    base = grp.mul(grp.gen(), 0xC0FFEE)
+    wtable = tc.window_table(Gp, base, 16 * FR.nlimbs, dev)
+    widths = (256,) if quick else (KEY_LANES[grp.name], 1 << 16)
+    res = {}
+    for N in widths:
+        table, scal, ks = fixed_base_inputs(dev, grp, N + ODD, 41)
+        got = launch("fixed_base_window", wtable, scal)
+        if not exp_fixed_base.same_points(Gp, got, launch("fixed_base_one", table, scal)):
+            raise AssertionError(f"{nm('fixed_base_window')} and {nm('fixed_base_one')} give other "
+                                 f"points at {N + ODD} lanes")
+        pick = torch.arange(N + ODD, device=dev)
+        if N + ODD > 4096:  # the edge lanes, then a stride
+            pick = torch.as_tensor(sorted({*range(5), *np.linspace(0, N + ODD - 1, 96).astype(int)}),
+                                   device=dev)
+        want, plain = timed_once(lambda: Gp.fixed_base_window_plain(wtable, scal[pick].contiguous()))
+        s0, k0 = scal[:N].contiguous(), ks[:N]
+        ms = time_ms(lambda: launch("fixed_base_window", wtable, s0), 5)
+        limbs = s0.cpu().numpy()
+        digits = ((limbs & 0xFF) != 0).sum(axis=1) + ((limbs >> 8) != 0).sum(axis=1)
+        digits = [int(d) for d in digits]
+        pop = [bin(k).count("1") for k in k0]
+        res[N] = dict(got=got[:, pick].contiguous(), want=want, ms=ms, plain=plain, pick=len(pick),
+                      nbytes=wtable.numel() * 4 + N * FR.nlimbs * 4 + N * rows * 4,
+                      madds=sum(digits) * grp.muls[1] * MADD_FQ, digits=sum(digits),
+                      serial=sum(pop) * grp.muls[0] * MADD_FQ,
+                      latency=max(digits) * grp.muls[1] * lat_us / 1e3)
+    _, build_ms = timed_once(lambda: Gp.window_table(table))
+    N = widths[0]
+    r = res[N]
+    rep.add(nm("fixed_base_window"), r["got"], r["want"], r["ms"], r["plain"], r["nbytes"],
+            r["madds"], f"({32 * 256}, {rows}) window table x ({N}, 16) scalars -> ({rows}, {N}), "
+            f"{r['digits']} nonzero digits; compared at {N + ODD} lanes on {r['pick']} of them "
+            f"(plain_ms from there) and in affine on all of them against fixed_base_one")
+    extra = {"latency_bound_ms": r["latency"], "latency_us_per_product": lat_us,
+             "bit_serial_bound_ms": bound(r["nbytes"], r["serial"])[0],
+             "window_table_ms": build_ms, "ptxas": ptxas_of("k_fixed_base_window", Gp.ncomp)}
+    for N2 in widths[1:]:
+        r2 = res[N2]
+        if max_abs_err(r2["got"], r2["want"]) != 0:
+            raise AssertionError(f"kernel {nm('fixed_base_window')} differs from its plain version "
+                                 f"at {N2 + ODD} lanes")
+        extra.update({f"ms_{N2}": r2["ms"], f"plain_ms_{N2}": r2["plain"],
+                      f"bound_ms_{N2}": bound(r2["nbytes"], r2["madds"])[0],
+                      f"bit_serial_bound_ms_{N2}": bound(r2["nbytes"], r2["serial"])[0],
+                      f"latency_bound_ms_{N2}": r2["latency"]})
+    for key, row in (("one_thread_ms", "fixed_base_one_key"),
+                     (f"one_thread_ms_{1 << 16}", "fixed_base_one")):
+        if nm(row) in rep.rows and not quick:
+            extra[key] = rep.rows[nm(row)]["ms"]
+    rep.rows[nm("fixed_base_window")].update(extra)
+    say(f"  {nm('fixed_base_window')}: " + ", ".join(
+        f"{n} lanes {res[n]['ms']:.4f} ms (bound {bound(res[n]['nbytes'], res[n]['madds'])[0]:.5f}, "
+        f"bit-serial bound {bound(res[n]['nbytes'], res[n]['serial'])[0]:.5f}, latency bound "
+        f"{res[n]['latency']:.4f})" for n in widths) + f"; window table build {build_ms:.3f} ms")
 
 
 def kernels_group(dev, grp, rep: Report, proj, pts_cmp, scal_cmp, pts_time, scal_time,
@@ -3262,6 +3362,7 @@ def kernels_group(dev, grp, rep: Report, proj, pts_cmp, scal_cmp, pts_time, scal
     kernels_wsum(dev, grp, rep, proj, rounds, lat_us, quick)
     kernels_chain_fold(dev, grp, rep, proj, rounds, lat_us, quick)
     kernels_fixed_base(dev, grp, rep, rounds, lat_us, quick)
+    kernels_fixed_base_window(dev, grp, rep, lat_us, quick)
 
     # the bucket kernels with the exact arguments of a main path, plus a tail
     # of hand-made lanes: count 0, a doubling lane, a long lane that ends at
@@ -3676,7 +3777,7 @@ def main(argv=None) -> int:
         return 0
     phase_projective_msm(dev, g2, proj["g2"], ks["g2"])
 
-    # the rest of the group layer: the one-thread fixed-base kernel runs under
+    # the rest of the group layer: the window fixed-base kernel runs under
     # fixed_base_mul at 2^16, the Fq row-major product under the field path
     for grp in (g1, g2):
         note("fixed_base", phase_fixed_base(dev, grp))
@@ -3766,7 +3867,8 @@ def main(argv=None) -> int:
     lap("kernels: commit bucket, G2")
 
     for name, row in rep.rows.items():
-        ctr, paths = ROW_COUNTER.get(name, (name, tuple(by_path)))
+        ctr, paths = ROW_COUNTER.get(name, (name, None))
+        paths = tuple(by_path) if paths is None else paths
         row["launches_by_path"] = {path: tot[ctr] for path, tot in by_path.items()
                                    if tot[ctr] and path in paths}
         row["launches"] = sum(row["launches_by_path"].values())

@@ -191,9 +191,9 @@ def test_fixed_base_kernel_changes_at_the_measured_width():
         top = packed_curve.FIXED_TEAM_MAX_LANES[Gp.ncomp]
         assert Gp.fixed_base_kernel(2047) == "fixed_base"  # pst.setup at nv = 20
         assert Gp.fixed_base_kernel(top) == "fixed_base"
-        assert Gp.fixed_base_kernel(top + 1) == "fixed_base_one"
-    assert {"fixed_base", "fixed_base_g2", "fixed_base_one", "fixed_base_one_g2"} <= set(
-        build.LAUNCHES)
+        assert Gp.fixed_base_kernel(top + 1) == "fixed_base_window"
+    assert {"fixed_base", "fixed_base_g2", "fixed_base_one", "fixed_base_one_g2",
+            "fixed_base_window", "fixed_base_window_g2"} <= set(build.LAUNCHES)
 
 
 # -- the table -----------------------------------------------------------------------

@@ -4,10 +4,11 @@ Counterpart of testudo_tpu/core/groth16.py (itself of the reference's
 ark-groth16 dependency, r1csproof.rs:27, 149, 421, 467): proves the Spartan
 verifier circuit (core/circuit.py).  Every group batch goes through the
 curve profile: on the device backends the keys are fixed-base batches (one
-`fixed_base` launch each: the team kernel up to 8,192 lanes, one thread a
-lane above), the prover's A / B / C / H / L sums are `msm_g1` / `msm_g2`
-over the projective keys (the general bucket path), and the QAP division
-runs seven NTTs on the device (core/ntt.py).  The host does the QAP
+launch each: the team kernel up to 8,192 lanes, above it the 8-bit window
+kernel over a table of g1's or g2's multiples built once on the card and
+shared by the batches), the prover's A / B / C / H / L sums are `msm_g1` /
+`msm_g2` over the projective keys (the general bucket path), and the QAP
+division runs seven NTTs on the device (core/ntt.py).  The host does the QAP
 evaluations at tau, the witness's row sums and the pairing check.
 
 QAP layout (standard, as arkworks' LibsnarkReduction):

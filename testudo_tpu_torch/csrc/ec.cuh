@@ -25,8 +25,9 @@
 //     lazy.cuh's static bounds, a loop-carried point clamped to K_CARRY (4
 //     for G1, 8 for G2, pallas_curve.py:154, :257) after every step, made
 //     canonical at the store.  The bucket kernels and the one-thread
-//     fixed-base kernel run it where it measured faster (BucketArith,
-//     FixedBaseArith: all but G2's general add).
+//     fixed-base kernels run it where it measured faster (BucketArith,
+//     FixedBaseArith: all but G2's general add; the window kernel's mixed
+//     add is the mixed bucket's).
 // BW6-761's two groups have a strict policy each (`Fq761Coord<B>`, b = -1
 // and 4) over FpGroup's row-major coordinates; they are at the end.
 // A point is three coordinates in a thread's registers (and, for G2, local
@@ -604,6 +605,34 @@ FP_FN void lane_fixed_base(const int* table, const int* scal, int* out, long N, 
   ec_store<A>(out, N, lane, acc);
 }
 
+#define FB_WINDOW 8  // scalar bits a window of either fixed-base table takes
+
+// out[lane] = [s] B by the 2 nl 8-bit windows of s, row `lane` of the (N,
+// nl) canonical 16-bit limbs: acc = O; for w < 2 nl, with d window w's
+// digit, acc = d ? acc + T[w 256 + d] : acc, the complete mixed add with row
+// w 256 + d of the point-major (2 nl 256, C::ROWS) table of affine lifts
+// (d 2^(8 w) B; row w 256 holds 2^(8 w) B, a stand-in for d = 0 that is
+// never kept; only X and Y are read), then the select.  The accumulator
+// runs in the arithmetic A (the mixed bucket's: lazy for both groups) and
+// is clamped to A's K_CARRY after every window.  A window is skipped where
+// no lane of the warp has a nonzero digit, which changes no lane's result.
+template <class C, class A = typename BucketArith<C, true>::A>
+FP_FN void lane_fixed_base_window(const int* table, const int* scal, int* out, long N, int nl,
+                                  long lane) {
+  auto acc = A::carry(ec_identity<A>());
+  FP_NO_UNROLL
+  for (int w = 0; w < 2 * nl; w++) {
+    const u32 limb = (u32)scal[lane * nl + w / 2];
+    const u32 d = (limb >> (FB_WINDOW * (w & 1))) & ((1u << FB_WINDOW) - 1u);
+    if (any_lane(d != 0)) {
+      const int* row = table + (((long)w << FB_WINDOW) + d) * A::ROWS;
+      const typename A::E x2 = A::load_row(row), y2 = A::load_row(row + A::COMP_ROWS);
+      acc = A::carry(ec_select<A>(d != 0, ec_add_mixed<A>(acc, x2, y2), acc));
+    }
+  }
+  ec_store<A>(out, N, lane, acc);
+}
+
 // out[lane] = sum over t < count[lane] of table[src(start[lane] + t)], added
 // in order onto the identity.  table is point-major, `(rows, C::ROWS)` int32;
 // src(i) = idx[i] when idx != nullptr (the sorted-index table of the bucket
@@ -711,8 +740,6 @@ FP_FN void lane_fpg_chunk(const int* x, const int* y, const int* z, const int* i
   fpg_store<A>(ox, oy, oz, lane, acc);
 }
 
-#define FPG_WINDOW 8  // scalar bits a window of the fixed-base table takes
-
 // out[lane] = [s] B, s row `lane` of (N, nl) canonical 16-bit limbs, by the
 // 2 nl 8-bit windows of a table of B's affine multiples: for w < 2 nl, with
 // d the window's digit, acc = d ? acc + T[w 256 + d] : acc, the complete
@@ -727,9 +754,9 @@ FP_FN void lane_fpg_fixed_base(const int* tx, const int* ty, const int* scal, in
   FP_NO_UNROLL
   for (int w = 0; w < 2 * nl; w++) {
     const u32 limb = (u32)scal[lane * nl + w / 2];
-    const u32 d = (limb >> (FPG_WINDOW * (w & 1))) & ((1u << FPG_WINDOW) - 1u);
+    const u32 d = (limb >> (FB_WINDOW * (w & 1))) & ((1u << FB_WINDOW) - 1u);
     if (any_lane(d != 0)) {
-      const long row = ((long)w << FPG_WINDOW) + d;
+      const long row = ((long)w << FB_WINDOW) + d;
       const typename A::E x2 = A::load_row(tx + row * A::ROW), y2 = A::load_row(ty + row * A::ROW);
       acc = ec_select<A>(d != 0, ec_add_mixed<A>(acc, x2, y2), acc);
     }

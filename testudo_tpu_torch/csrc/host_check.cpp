@@ -571,6 +571,16 @@ int host_fixed_base(const int* table, const int* scal, int* out, long N, int nl,
   return host_fixed_base_team_impl<Fq2Coord>(table, scal, out, N, nl);
 }
 
+// The fixed-base multiplication of fixed_base_window.cu: point-major (512 nl,
+// rows) table of affine lifts, (N, nl) scalar limbs -> packed (rows, N).
+int host_fixed_base_window(const int* table, const int* scal, int* out, long N, int nl,
+                           int ncomp) {
+  if (ncomp != 1 && ncomp != 2) return -1;
+  if (nl < 1 || nl > 16) return -3;
+  FOR_GROUP(for (long lane = 0; lane < N; lane++)
+                lane_fixed_base_window<C>(table, scal, out, N, nl, lane));
+}
+
 // The table of a team program (ec_team.cuh: 0 the ladder step, 1-3 the
 // weighted sum's scan step, ladder step and add, 4 the pair add, 5 the
 // masked add, 6 the ladder's doubling alone) for a group: dims =

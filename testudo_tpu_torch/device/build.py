@@ -31,8 +31,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("mont_mul.cu", "mont_mul_rm.cu", "mont_chain.cu", "ec_ops.cu", "ladder.cu",
            "ladder_team.cu", "ladder_wide.cu", "bucket.cu", "wsum_team.cu", "chain_team.cu",
-           "fold_team.cu", "fixed_base_team.cu", "poseidon.cu", "sumcheck_round.cu",
-           "sumcheck_tail.cu", "fp_group.cu")
+           "fold_team.cu", "fixed_base_team.cu", "fixed_base_window.cu", "poseidon.cu",
+           "sumcheck_round.cu", "sumcheck_tail.cu", "fp_group.cu")
 HEADERS = ("fp.cuh", "fp2.cuh", "lazy.cuh", "ec.cuh", "ec_team.cuh", "launch.cuh", "mont_rm.cuh",
            "poseidon.cuh", "sumcheck.cuh")
 NVCC_FLAGS = (
@@ -66,6 +66,7 @@ _SIGNATURES = {
     "fold_team": ("testudo_fold_team", (_P, _L, _P, _I, _I, _P, _P, _I, _P)),
     "fixed_base": ("testudo_fixed_base_team", (_P, _P, _P, _L, _I, _I, _P)),
     "fixed_base_one": ("testudo_fixed_base_one", (_P, _P, _P, _L, _I, _I, _P)),
+    "fixed_base_window": ("testudo_fixed_base_window", (_P, _P, _P, _L, _I, _I, _P)),
     "poseidon_permute": ("testudo_poseidon_permute", (_P, _P, _I, _L, _P)),
     "sumcheck_round": ("testudo_sumcheck_round", (_P, _P, _P, _P, _I, _L, _I, _I, _I, _I, _P)),
     "sumcheck_tail": ("testudo_sumcheck_tail", (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
@@ -92,7 +93,7 @@ _QUERIES = {
 # (G1 the bare name, G2 with "_g2"; the elementwise kernel per formula).
 EC_KERNELS = ("add2", "add_mask", "step", "scan2", "scan2b", "ladder", "ladder_team",
               "ladder_wide", "bucket", "bucket_mixed", "wsum", "chain_team", "fold_team",
-              "fixed_base", "fixed_base_one")
+              "fixed_base", "fixed_base_one", "fixed_base_window")
 FIELD_KERNELS = ("mont_mul", "mont_mul_rm_fq", "mont_mul_rm_fr", "mont_mul_rm_bw6fq",
                  "mont_mul_rm_fr381", "mont_chain", "mont_chain_seq", "mont_chain_wide")
 SUMCHECK_KERNELS = ("poseidon_permute", "sumcheck_round", "sumcheck_tail")

@@ -20,6 +20,7 @@ versions of the packed kernels (device/packed_curve.py).  On CUDA tensors
 """
 from __future__ import annotations
 
+import functools
 from typing import List, Tuple
 
 import numpy as np
@@ -396,17 +397,41 @@ def fixed_base_table(Gp, base_host, nbits: int, device) -> torch.Tensor:
     return Gp.pack((g1_from_affine_host if g1 else g2_from_affine_host)(doublings, device=device))
 
 
+@functools.lru_cache(maxsize=8)
+def window_table(Gp, base_host, nbits: int, device: torch.device) -> torch.Tensor:
+    """The window kernel's table of a host affine base (`PackedGroup.
+    window_table` over `fixed_base_table`), built once per base, width and
+    device and kept: the batches of one setup share it (Groth16's four G1
+    key batches share g1).  Callers must not write to it.  Timer labels
+    `fixed_base::host doublings` and `fixed_base::window table` (the latter
+    ends in a synchronise on the card)."""
+    tdbl = Timer("fixed_base::host doublings")
+    table = fixed_base_table(Gp, base_host, nbits, device)
+    tdbl.stop()
+    twin = Timer("fixed_base::window table")
+    wtable = Gp.window_table(table)
+    if wtable.is_cuda:
+        torch.cuda.synchronize(wtable.device)
+    twin.stop()
+    return wtable
+
+
 def _fixed_base_mul(Gp, scalars_canon: torch.Tensor, base_host, device):
-    """[s_i] * base for one shared host affine base.  A host table of the
-    256 doublings 2^k base is packed once; then ONE `fixed_base` launch
+    """[s_i] * base for one shared host affine base, ONE fixed-base launch
+    on the card.  Up to FIXED_TEAM_MAX_LANES lanes (`Gp.fixed_base_kernel`)
+    a host table of the 256 doublings 2^k base is packed and the team kernel
     runs, for every lane, the complete adds of the columns its scalar's bits
-    select (the kernel reads the bits itself).  The same sequence of adds
-    and selects as the JAX package's `fori_loop`, so the projective limbs
-    agree."""
+    select: the same adds and selects as the JAX package's `fori_loop`, so
+    the projective limbs agree.  Above, the window kernel adds one row of
+    the base's `window_table` per 8-bit window: the same points, other
+    projective limbs."""
     device = torch.device(device)
     scal = scalars_canon.to(device=device, dtype=torch.int32).contiguous()
+    nbits = LIMB_BITS * scal.shape[1]
+    if Gp.fixed_base_kernel(scal.shape[0]) == "fixed_base_window":
+        return Gp.unpack(Gp.fixed_base_window(window_table(Gp, base_host, nbits, device), scal))
     tdbl = Timer("fixed_base::host doublings")
-    table = fixed_base_table(Gp, base_host, LIMB_BITS * scal.shape[1], device)
+    table = fixed_base_table(Gp, base_host, nbits, device)
     tdbl.stop()
     return Gp.unpack(Gp.fixed_base(table, scal))
 

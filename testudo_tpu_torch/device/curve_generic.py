@@ -47,7 +47,7 @@ from .field import FieldSpec
 
 FQ761 = FieldSpec(bwf.Q, 48, "bw6fq")
 
-FIXED_BASE_WINDOW = 8  # scalar bits a step of `fixed_base_mul` takes (fp_group.cu's FPG_WINDOW)
+FIXED_BASE_WINDOW = 8  # scalar bits a step of `fixed_base_mul` takes (ec.cuh's FB_WINDOW)
 
 
 def _push(x: torch.Tensor):
@@ -346,7 +346,9 @@ def _window_table(base_host, host_add, nwin: int) -> List:
     return rows
 
 
-def _window_digits(scalars_canon: torch.Tensor, w: int) -> torch.Tensor:
+def window_digits(scalars_canon: torch.Tensor, w: int) -> torch.Tensor:
+    """Digit w (FIXED_BASE_WINDOW bits) of every scalar of the (N, k) 16-bit
+    limbs, int64 (N,)."""
     c = FIXED_BASE_WINDOW
     per = 16 // c
     limb = scalars_canon[:, w // per].to(torch.int64)
@@ -411,7 +413,7 @@ def fixed_base_mul_plain(G: FpGroup, scalars_canon: torch.Tensor, tx: torch.Tens
     width = 1 << FIXED_BASE_WINDOW
     acc = G.identity((scalars_canon.shape[0],), device=dev)
     for w in range(nwin):
-        digits = _window_digits(scalars_canon, w)
+        digits = window_digits(scalars_canon, w)
         if not bool(digits.any()):
             continue
         idx = digits + w * width

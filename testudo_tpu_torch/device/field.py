@@ -14,7 +14,8 @@ every device.  `mont_mul` is the exception: on a CUDA tensor it launches
 the hand-written row-major Montgomery kernel (device/packed_field.py
 `mont_mul_rm`), at every batch size; `mont_mul_plain` below is that
 kernel's plain version and is what a CPU tensor takes.  `pow_fixed`, `inv`
-and `reduce_sum` are built on `mont_mul`.
+and `reduce_sum` are built on `mont_mul`, and so is `batch_inv` (the port's
+own: the fixed-base window table's inversion of its Zs).
 
 Carries are resolved by a carry-lookahead that packs the generate and
 propagate bits of all limbs into one int64 (`_resolve`), which keeps the
@@ -331,6 +332,39 @@ def pow_fixed(spec: FieldSpec, a: torch.Tensor, e: int) -> torch.Tensor:
 def inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
     """Batched inverse by Fermat: a^(p-2).  0 maps to 0."""
     return pow_fixed(spec, a, spec.modulus - 2)
+
+
+def batch_inv(spec: FieldSpec, a: torch.Tensor) -> torch.Tensor:
+    """Inverses of the nonzero elements of an (M, nlimbs) batch (Montgomery
+    form in and out) by Montgomery's trick as a tree: the products of
+    neighbouring pairs, level by level, up to one element (one `mont_mul` a
+    level), that element's inverse on the host (one element copied), then
+    down the tree, a pair's inverse times each sibling (one `mont_mul` a
+    level): 2 log2 M products of at most M elements, where `inv` takes 566
+    of M each.  ValueError if an element is zero."""
+    _check_limbs(spec, a)
+    if a.dim() != 2:
+        raise ValueError(f"batch_inv: expected (M, {spec.nlimbs}) elements, got {tuple(a.shape)}")
+    n = spec.nlimbs
+    one = torch.as_tensor(_int_to_limbs(spec.r_mod_p, n), device=a.device)[None]
+    levels, x = [], a
+    while x.shape[0] > 1:
+        if x.shape[0] % 2:
+            x = torch.cat([x, one])
+        levels.append(x)
+        x = mont_mul(spec, x[0::2].contiguous(), x[1::2].contiguous())
+    if x.shape[0] == 0:
+        return a.clone()
+    (root,) = spec.decode(x.cpu().numpy())
+    if root == 0:
+        raise ValueError("batch_inv: an element is zero")
+    inv = torch.as_tensor(spec.encode([pow(root, -1, spec.modulus)]), device=a.device)
+    for x in reversed(levels):
+        k = x.shape[0] // 2
+        inv = inv[:k]  # the pad's inverse, where the level above was padded
+        prod = mont_mul(spec, torch.cat([inv, inv]), torch.cat([x[1::2], x[0::2]]))
+        inv = torch.stack([prod[:k], prod[k:]], dim=1).reshape(2 * k, n)
+    return inv[: a.shape[0]].contiguous()
 
 
 def _fold_wide(spec: FieldSpec, t: torch.Tensor, mul=mont_mul) -> torch.Tensor:

@@ -10,7 +10,7 @@ along L.  The row of coordinate c, component comp, limb k is
 Every fused op has a wrapper that, on CUDA tensors, checks its arguments,
 launches the hand-written kernel (csrc/ec_ops.cu, ladder_team.cu,
 ladder_wide.cu or ladder.cu by width, bucket.cu, wsum_team.cu, chain_team.cu, fold_team.cu,
-fixed_base_team.cu)
+fixed_base_team.cu, fixed_base_window.cu)
 on the current stream and raises on failure;
 on CPU tensors it runs the plain
 PyTorch version defined beside it (`*_plain`), which evaluates the same
@@ -26,7 +26,9 @@ launch per bucket of a group and a `step` launch per weight bit); so are
 table (not an `add2` launch per multiple), and `fold`, every tree of
 pairwise sums of a batch (not an `add2` launch per level), and
 `fixed_base`, the fixed-base multiplication (not an `add_mask` launch per
-scalar bit); `bucket_phase`
+scalar bit), which above FIXED_TEAM_MAX_LANES lanes takes the scalars 8 bits
+at a time from a table of affine multiples built on the card
+(`fixed_base_window`: the same points, other projective limbs); `bucket_phase`
 gathers by index inside the kernel from a point-major table instead of
 streaming a materialised run tensor, and runs its lanes longest first on a
 grid that stays resident; masks are one int per lane; `add_mask` also takes ONE point for all lanes (a single
@@ -40,6 +42,8 @@ import torch
 
 from . import build
 from . import curve as tc
+from . import field as tf
+from .curve_generic import FIXED_BASE_WINDOW as FB_WINDOW, window_digits
 from .field import FQ, FieldSpec, LIMB_BITS
 
 
@@ -91,12 +95,16 @@ def lane_order(order, L: int) -> np.ndarray:
 
 
 # The widest fixed-base launch the team kernel (csrc/fixed_base_team.cu,
-# `k_fixed_base_team`) takes, per group (ncomp); wider ones go to one thread
-# per lane (`k_fixed_base_one`, same source).  Measured on an H100 with
-# tools/exp_fixed_base.py (PERF.md section 6): at 8,192 lanes the team kernel
-# wins (G1 3.48 against 6.15 ms, G2 11.96 against 19.53), at 2^16 one thread
-# does (18.21 against 25.09 ms, 73.95 against 86.58); `pst.setup` gives at
-# most 2,047 lanes (nv = 20), chip_smoke.py's fixed-base phase 2^16.
+# `k_fixed_base_team`) takes, per group (ncomp); wider ones go to the window
+# kernel (csrc/fixed_base_window.cu), whose projective limbs differ from the
+# JAX package's (the same points).  Measured on an H100 with
+# tools/exp_fixed_base.py (PERF.md section 6) against the one-thread
+# bit-serial kernel it replaced there: at 8,192 lanes the team kernel won (G1
+# 3.48 against 6.15 ms, G2 11.96 against 19.53), at 2^16 one thread did
+# (18.21 against 25.09 ms, 73.95 against 86.58); `pst.setup` gives at most
+# 2,047 lanes (nv = 20), Groth16's keys 24,330 to 65,535, chip_smoke.py's
+# fixed-base phase 2^16.  Kept where it was, so that every launch up to here
+# keeps the JAX package's limbs.
 FIXED_TEAM_MAX_LANES = {1: 8192, 2: 8192}
 
 
@@ -229,34 +237,45 @@ class PackedGroup:
 
     def fixed_base_kernel(self, N: int) -> str:
         """The kernel `fixed_base` launches for N lanes: the team kernel up to
-        FIXED_TEAM_MAX_LANES of this group, one thread per lane above."""
-        return "fixed_base" if N <= FIXED_TEAM_MAX_LANES[self.ncomp] else "fixed_base_one"
+        FIXED_TEAM_MAX_LANES of this group, the window kernel above."""
+        return "fixed_base" if N <= FIXED_TEAM_MAX_LANES[self.ncomp] else "fixed_base_window"
 
     def fixed_base(self, table: torch.Tensor, scal: torch.Tensor) -> torch.Tensor:
         """[s_i] B for the packed (rows, 16 nl) table of doublings T_k = 2^k B
-        and (N, nl) canonical 16-bit scalar limbs -> (rows, N): the adds and
-        selects of `fixed_base_steps` in their order.  On the card one
-        launch (csrc/fixed_base_team.cu, a team of threads per lane or, wide,
-        one thread: `fixed_base_kernel`) that reads the scalar bits itself."""
-        if scal.dim() != 2 or not 1 <= scal.shape[1] <= 16:
-            raise ValueError(f"fixed_base: scalars must be (N, nl), 1 <= nl <= 16, "
-                             f"got {tuple(scal.shape)}")
+        and (N, nl) canonical 16-bit scalar limbs -> (rows, N).  Up to
+        FIXED_TEAM_MAX_LANES lanes the adds and selects of
+        `fixed_base_steps` in their order: on the card one launch of the team
+        kernel (csrc/fixed_base_team.cu), which reads the scalar bits itself.
+        Above, on every device, `fixed_base_window` over `window_table`
+        (table): the same points, other projective limbs."""
+        self._check_fixed_base_scalars("fixed_base", scal)
         nb = LIMB_BITS * scal.shape[1]
         if table.dim() != 2 or table.shape != (self.rows, nb):
             raise ValueError(f"fixed_base: table must be ({self.rows}, {nb}), "
                              f"got {tuple(table.shape)}")
-        for name, t in (("table", table), ("scalars", scal)):
-            if t.dtype != torch.int32:
-                raise TypeError(f"fixed_base: {name} must be int32, got {t.dtype}")
+        if table.dtype != torch.int32:
+            raise TypeError(f"fixed_base: table must be int32, got {table.dtype}")
+        if self.fixed_base_kernel(scal.shape[0]) == "fixed_base_window":
+            return self.fixed_base_window(self.window_table(table), scal)
         if not self._on_cuda(table, scal):
             return self.fixed_base_plain(table, scal)
-        return self.fixed_base_launch(self.fixed_base_kernel(scal.shape[0]), table, scal)
+        return self.fixed_base_launch("fixed_base", table, scal)
+
+    @staticmethod
+    def _check_fixed_base_scalars(op: str, scal: torch.Tensor) -> None:
+        if scal.dim() != 2 or not 1 <= scal.shape[1] <= 16:
+            raise ValueError(f"{op}: scalars must be (N, nl), 1 <= nl <= 16, "
+                             f"got {tuple(scal.shape)}")
+        if scal.dtype != torch.int32:
+            raise TypeError(f"{op}: scalars must be int32, got {scal.dtype}")
 
     def fixed_base_launch(self, kernel: str, table: torch.Tensor,
                           scal: torch.Tensor) -> torch.Tensor:
-        """Launch fixed-base kernel `kernel` ("fixed_base" or "fixed_base_one")
-        on checked CUDA tensors: what `fixed_base` calls, and what a
-        measurement calls to time either kernel at any width."""
+        """Launch fixed-base kernel `kernel` ("fixed_base" or "fixed_base_one",
+        over the table of doublings; "fixed_base_window", over a window
+        table) on checked CUDA tensors: what `fixed_base` and
+        `fixed_base_window` call, and what a measurement calls to time any of
+        them at any width."""
         build.require_cuda_int32(kernel, table=table, scal=scal)
         N, nl = scal.shape
         out = torch.empty((self.rows, N), dtype=torch.int32, device=table.device)
@@ -264,6 +283,76 @@ class PackedGroup:
             build.launch(kernel, table.data_ptr(), scal.data_ptr(), out.data_ptr(), N, nl,
                          self.ncomp, counted_as=self._counter(kernel))
         return out
+
+    # -- fixed-base multiplication by 8-bit windows -------------------------------
+
+    def window_table(self, table: torch.Tensor) -> torch.Tensor:
+        """The window kernel's table from the packed (rows, 16 nl) table of
+        doublings T_k = 2^k B: point-major (512 nl, rows) affine lifts (Z =
+        mont(1)), row w 256 + d holding d 2^(8 w) B, row w 256 2^(8 w) B (a
+        stand-in for d = 0, never kept).  Built by the card's kernels on CUDA
+        tensors, their plain versions on the CPU, and no host add: the 2 nl
+        window bases G_w are columns 8 w of `table`; ONE `chain` launch gives
+        their multiples d G_w, d < 256, projective; one `field.batch_inv` of
+        the Zs (Fq2: of their norms) and one product batch bring them to
+        affine."""
+        if table.dim() != 2 or table.shape[0] != self.rows or table.shape[1] % LIMB_BITS \
+                or not LIMB_BITS <= table.shape[1] <= LIMB_BITS * 16:
+            raise ValueError(f"window_table: table must be ({self.rows}, 16 nl), 1 <= nl <= 16, "
+                             f"got {tuple(table.shape)}")
+        width = 1 << FB_WINDOW
+        nwin = table.shape[1] // FB_WINDOW
+        bases = table[:, ::FB_WINDOW].T.contiguous()  # (nwin, rows): affine lifts
+        multiples = self.chain(bases, width).reshape(nwin, width, self.rows)
+        multiples[:, 0] = bases  # where the chain leaves the identity
+        X, Y, Z = self.unpack(multiples.reshape(nwin * width, self.rows).T)
+        one = torch.as_tensor(self.spec.to_limbs(self.spec.r_mod_p), device=table.device)
+        one = one.expand(nwin * width, -1).contiguous()
+        if self.ncomp == 1:
+            zinv = tf.batch_inv(FQ, Z)
+            x, y = tc._G1Ops.mul_many([(X, zinv), (Y, zinv)])
+            return self.pack((x, y, one)).T.contiguous()
+        # 1 / (z0 + z1 u) = (z0 - z1 u) / (z0^2 + 5 z1^2), u^2 = -5
+        sq0, sq1 = tc._G1Ops.mul_many([(Z[0], Z[0]), (Z[1], Z[1])])
+        two = tf.add(FQ, sq1, sq1)
+        five = tf.add(FQ, tf.add(FQ, two, two), sq1)
+        ninv = tf.batch_inv(FQ, tf.add(FQ, sq0, five))
+        z0, z1 = tc._G1Ops.mul_many([(Z[0], ninv), (Z[1], ninv)])
+        zinv = (z0, tf.neg(FQ, z1))
+        x, y = tc._G2Ops.mul_many([(X, zinv), (Y, zinv)])
+        return self.pack((x, y, (one, torch.zeros_like(one)))).T.contiguous()
+
+    def fixed_base_window_plain(self, wtable, scal):
+        N, nl = scal.shape
+        acc = self.unpack(self.identity_packed(N, device=scal.device))
+        for w in range(2 * nl):
+            d = window_digits(scal, w)
+            if not bool(d.any()):
+                continue
+            X, Y, _ = self.unpack(wtable.index_select(0, d + (w << FB_WINDOW)).T)
+            acc = self._select(d != 0, tc._complete_add_mixed(self._plain, acc, (X, Y)), acc)
+        return self.pack(acc)
+
+    def fixed_base_window(self, wtable: torch.Tensor, scal: torch.Tensor) -> torch.Tensor:
+        """[s_i] B for a window table of B (`window_table`: (512 nl, rows))
+        and (N, nl) canonical 16-bit scalar limbs -> (rows, N): for each of
+        the 2 nl 8-bit windows w, with d a lane's digit, the complete mixed
+        add of row w 256 + d, kept where d != 0; a window that is zero in
+        every lane is skipped.  On the card one launch of
+        csrc/fixed_base_window.cu (a thread a lane; it skips a window where
+        no lane of a warp needs it), on the CPU `fixed_base_window_plain`:
+        the same adds in the same order, so the same limbs."""
+        self._check_fixed_base_scalars("fixed_base_window", scal)
+        nrows = (LIMB_BITS * scal.shape[1] // FB_WINDOW) << FB_WINDOW
+        if wtable.dim() != 2 or wtable.shape != (nrows, self.rows):
+            raise ValueError(f"fixed_base_window: table must be ({nrows}, {self.rows}), "
+                             f"got {tuple(wtable.shape)}")
+        if wtable.dtype != torch.int32:
+            raise TypeError(f"fixed_base_window: table must be int32, got {wtable.dtype}")
+        if not self._on_cuda(wtable, scal):
+            return self.fixed_base_window_plain(wtable, scal)
+        build.require_aligned("fixed_base_window", 16, table=wtable)
+        return self.fixed_base_launch("fixed_base_window", wtable, scal)
 
     # -- step ------------------------------------------------------------------
 

@@ -2,7 +2,8 @@
 lane and several teams a block, with the table of doublings read through L1
 or staged in shared memory, and one thread per lane at several block sizes,
 against the sequence of 256 `add_mask` launches they replaced, at every
-width a path gives them.
+width a path gives them; with --window, the 8-bit window kernel against
+them.
 
 `PackedGroup.fixed_base` runs the fixed-base multiplication [s_i] B in one
 launch of csrc/fixed_base_team.cu: up to FIXED_TEAM_MAX_LANES lanes the team
@@ -29,6 +30,22 @@ the card's derived int32 rate), `latency_bound_ms` (the largest popcount of
 a lane's scalar times the add's rounds of dependent products times one
 dependent product's latency, `exp_montmul --latency`) and the same for a
 form that runs all 256 steps.
+
+    python3 -m testudo_tpu_torch.tools.exp_fixed_base --window
+
+times the window kernel (csrc/fixed_base_window.cu, what `fixed_base` runs
+above FIXED_TEAM_MAX_LANES) at 32, 64, 128 and 256 threads a block and a form
+of its own that stages each window's 256 rows (X and Y: 48 KB for G1, 96 KB
+for G2) in shared memory by cp.async, double-buffered, at 128 and 256
+threads, beside the one-thread bit-serial kernel and the team kernel, at
+2,047, 8,192, 32,767 and 2^16 lanes: every window form gives the kernel in
+use's limbs, and that one the bit-serial kernel's points (`same_points`);
+each width's line gives the times, the window work's bound (the nonzero
+digits' mixed adds), the bit-serial bound and the window kernel's latency
+bound (the most nonzero digits of a lane times a mixed add's products at one
+dependent product's latency), and the crossover with the team kernel; the
+window table's build (chain launch, batched inversion, products) is timed
+once a group.
 """
 from __future__ import annotations
 
@@ -36,6 +53,7 @@ import argparse
 import ctypes
 import json
 import sys
+import time
 
 import numpy as np
 import torch
@@ -49,16 +67,23 @@ from ..fields.bls12_377 import R
 from . import exp_ladder, exp_montmul
 
 WIDTHS = (63, 255, 2047, 8192, 1 << 16)
+WINDOW_WIDTHS = (2047, 8192, (1 << 15) - 1, 1 << 16)
+WINDOW_TPB = (32, 64, 128, 256)
+STAGED_TPB = (128, 256)
 # (T, teams a block): whole warps of 32 to 128 threads
 TEAM_CONFIGS = tuple((T, p) for T in (8, 16, 32) for p in (1, 2, 4, 8, 16) if 32 <= T * p <= 128)
 ONE_TPB = (32, 64, 128)
 # Fq products of a complete add (G2: three per Fq2 product, plus the b3
-# products) and its rounds of dependent products
+# products) and its rounds of dependent products; of a complete mixed add
 ADD_PRODUCTS = {1: 12, 2: 38}
+MIXED_PRODUCTS = {1: 11, 2: 35}
 ADD_ROUNDS = {1: 2, 2: 3}
 
 _CODE = r"""
+#include <cuda_pipeline.h>
+
 #include "fixed_base_team.cu"
+#include "fixed_base_window.cu"
 
 // The alternative measured against the team kernel's reads through L1: each
 // block stages the whole packed table of doublings in shared memory as
@@ -150,6 +175,88 @@ extern "C" int exp_one(const int* table, const int* scal, int* out, long N, int 
   return -1;
 }
 
+// The window kernel on blocks of tpb threads.
+extern "C" int exp_window(const int* table, const int* scal, int* out, long N, int nl,
+                          int ncomp, int tpb, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (ncomp == 1) return fixed_base_window_launch<FqCoord>(table, scal, out, N, nl, tpb, st);
+  if (ncomp == 2) return fixed_base_window_launch<Fq2Coord>(table, scal, out, N, nl, tpb, st);
+  return -1;
+}
+
+// The alternative measured against the window kernel's gathers from L2:
+// each block stages window w's 256 rows (their X and Y, 2 C::COMP_ROWS
+// words a row) in shared memory with cp.async while its lanes add from
+// window w - 1's, two buffers in turn; a lane reads its row from there.
+// Otherwise `lane_fixed_base_window`.
+template <class C, int TPB>
+__global__ void __launch_bounds__(TPB)
+k_window_staged(const int* table, const int* scal, int* out, long N, int nl) {
+  typedef typename BucketArith<C, true>::A A;
+  constexpr int XY = 2 * A::COMP_ROWS;
+  constexpr int WIN = XY << FB_WINDOW;
+  extern __shared__ __align__(16) int staged[];
+  const long lane = LANE_INDEX(TPB);
+  const long src = lane < N ? lane : N - 1;
+  const int nwin = 2 * nl;
+  auto fetch = [&](int w) {
+    int* dst = staged + (w & 1) * WIN;
+    const int* from = table + ((long)w << FB_WINDOW) * A::ROWS;
+    for (int i = threadIdx.x; i < WIN / 4; i += TPB) {
+      const int r = i / (XY / 4), c = i % (XY / 4);
+      __pipeline_memcpy_async(dst + r * XY + 4 * c, from + (long)r * A::ROWS + 4 * c, 16);
+    }
+    __pipeline_commit();
+  };
+  auto acc = A::carry(ec_identity<A>());
+  fetch(0);
+  FP_NO_UNROLL
+  for (int w = 0; w < nwin; w++) {
+    if (w + 1 < nwin) {
+      fetch(w + 1);
+      __pipeline_wait_prior(1);
+    } else {
+      __pipeline_wait_prior(0);
+    }
+    __syncthreads();
+    const u32 limb = (u32)scal[src * nl + w / 2];
+    const u32 d = (limb >> (FB_WINDOW * (w & 1))) & ((1u << FB_WINDOW) - 1u);
+    if (any_lane(d != 0)) {
+      const int* row = staged + (w & 1) * WIN + d * XY;
+      const typename A::E x2 = A::load_row(row), y2 = A::load_row(row + A::COMP_ROWS);
+      acc = A::carry(ec_select<A>(d != 0, ec_add_mixed<A>(acc, x2, y2), acc));
+    }
+    __syncthreads();
+  }
+  if (lane < N) ec_store<A>(out, N, lane, acc);
+}
+
+template <class C, int TPB>
+static int staged_window_launch(const int* table, const int* scal, int* out, long N, int nl,
+                                cudaStream_t st) {
+  const size_t smem = sizeof(int) * 2 * ((size_t)2 * C::COMP_ROWS << FB_WINDOW);
+  const int e = smem_opt_in(k_window_staged<C, TPB>, smem);
+  if (e) return e;
+  k_window_staged<C, TPB><<<GRID_FOR(N, TPB), TPB, smem, st>>>(table, scal, out, N, nl);
+  return LAUNCH_STATUS();
+}
+
+#define EXP_STAGED(TPB)                                                                   \
+  if (tpb == TPB)                                                                         \
+    return ncomp == 1 ? staged_window_launch<FqCoord, TPB>(table, scal, out, N, nl, st)  \
+                      : staged_window_launch<Fq2Coord, TPB>(table, scal, out, N, nl, st);
+
+// The staged form at 128 or 256 threads a block; -1 for another block size
+// or group.
+extern "C" int exp_window_staged(const int* table, const int* scal, int* out, long N, int nl,
+                                 int ncomp, int tpb, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (ncomp != 1 && ncomp != 2) return -1;
+  EXP_STAGED(128)
+  EXP_STAGED(256)
+  return -1;
+}
+
 // What the kernel library uses for the group: T, teams a block, one-thread
 // block size.
 extern "C" void exp_kept(int ncomp, int* out) {
@@ -169,6 +276,9 @@ def _library() -> ctypes.CDLL:
     lib.exp_one.restype = I
     lib.exp_kept.argtypes = [I, P]
     lib.exp_kept.restype = None
+    for fn in (lib.exp_window, lib.exp_window_staged):
+        fn.argtypes = [P, P, P, L, I, I, I, P]
+        fn.restype = I
     return lib
 
 
@@ -221,6 +331,106 @@ def one(lib, Gp, table, scal, tpb: int) -> torch.Tensor:
     return out
 
 
+def window(lib, Gp, wtable, scal, tpb: int, staged: bool) -> torch.Tensor:
+    out = torch.empty((Gp.rows, scal.shape[0]), dtype=torch.int32, device=wtable.device)
+    fn = lib.exp_window_staged if staged else lib.exp_window
+    rc = fn(wtable.data_ptr(), scal.data_ptr(), out.data_ptr(), scal.shape[0], scal.shape[1],
+            Gp.ncomp, tpb, _stream())
+    if rc != 0:
+        raise RuntimeError(f"exp_window ({tpb} threads a block, staged {staged}) failed with {rc}")
+    return out
+
+
+def same_points(Gp, a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Whether two packed batches hold the same points lane by lane: Z zero
+    in both or in neither, X1 Z2 = X2 Z1 and Y1 Z2 = Y2 Z1, by the plain
+    product (no kernel launch, on the batches' device)."""
+    ops = tc._G1PlainOps if Gp.ncomp == 1 else tc._G2PlainOps
+    flat = (lambda v: v) if Gp.ncomp == 1 else (lambda v: torch.cat(v, dim=-1))
+    zero = lambda z: (flat(z) == 0).all(dim=-1)
+    (x1, y1, z1), (x2, y2, z2) = Gp.unpack(a), Gp.unpack(b)
+    if not torch.equal(zero(z1), zero(z2)):
+        return False
+    p = [flat(v) for v in ops.mul_many([(x1, z2), (x2, z1), (y1, z2), (y2, z1)])]
+    return torch.equal(p[0], p[1]) and torch.equal(p[2], p[3])
+
+
+def window_bounds(Gp, scal: torch.Tensor, ks, lat_us: float) -> dict:
+    """bound_ms: the nonzero digits' mixed adds, MIXED_PRODUCTS Fq products
+    each, at the derived int32 rate; latency_bound_ms: the most nonzero
+    digits of a lane times a mixed add's products, each at one dependent
+    product's latency; bit_serial_bound_ms: `bounds`' bound_ms."""
+    limbs = scal.cpu().numpy()
+    digits = ((limbs & 0xFF) != 0).sum(axis=1) + ((limbs >> 8) != 0).sum(axis=1)
+    madds = int(digits.sum()) * MIXED_PRODUCTS[Gp.ncomp] * exp_montmul.madds_per_product(FQ)
+    return {"bound_ms": madds / exp_montmul.DERIVED_INT32_MADD_PER_S * 1e3,
+            "latency_bound_ms": int(digits.max()) * MIXED_PRODUCTS[Gp.ncomp] * lat_us / 1e3,
+            "bit_serial_bound_ms": bounds(Gp, ks, lat_us)["bound_ms"],
+            "nonzero_digits": int(digits.sum())}
+
+
+def run_window(device=torch.device("cuda"), widths=WINDOW_WIDTHS, reps: int = 5,
+               say=print) -> dict:
+    """The window kernel's forms beside the bit-serial kernels (the module's
+    docstring); returns the figures."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise RuntimeError("the harness times kernels: it needs a CUDA device")
+    lib = _library()
+    lat_us = exp_montmul.measure_latency(FQ, device)["inline"]["us_per_product"]
+    say(f"one dependent Fq product at one warp: {lat_us:.4f} us")
+    results = {"latency_us_per_product": lat_us}
+    for Gp in (G1P, G2P):
+        table, _, _ = inputs(Gp, 1, device)
+        wtable = Gp.window_table(table)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        Gp.window_table(table)
+        torch.cuda.synchronize()
+        res = {"window_table_ms": (time.perf_counter() - t0) * 1e3}
+        say(f"{Gp.name}: window table ({tuple(wtable.shape)}) built in "
+            f"{res['window_table_ms']:.3f} ms (host clock)")
+        for N in widths:
+            table, scal, ks = inputs(Gp, N, device)
+            configs = {"window (in use)": lambda: Gp.fixed_base_window(wtable, scal)}
+            for tpb in WINDOW_TPB:
+                configs[f"window,tpb={tpb}"] = (
+                    lambda tpb=tpb: window(lib, Gp, wtable, scal, tpb, False))
+            for tpb in STAGED_TPB:
+                configs[f"window,staged,tpb={tpb}"] = (
+                    lambda tpb=tpb: window(lib, Gp, wtable, scal, tpb, True))
+            one_fn = lambda: Gp.fixed_base_launch("fixed_base_one", table, scal)
+            team_fn = lambda: Gp.fixed_base_launch("fixed_base", table, scal)
+            want = configs["window (in use)"]()
+            if not same_points(Gp, want, one_fn()):
+                raise AssertionError(f"{Gp.name} N={N}: the window kernel's points differ from "
+                                     f"fixed_base_one's")
+            row = {}
+            for key, fn in configs.items():
+                if not torch.equal(fn(), want):
+                    raise AssertionError(f"{Gp.name} N={N}: {key} differs from the kernel in use")
+                row[key] = exp_ladder._time_ms(fn, reps)
+            row["fixed_base_one"] = exp_ladder._time_ms(one_fn, reps)
+            row["fixed_base (team)"] = exp_ladder._time_ms(team_fn, reps)
+            forms = [k for k in configs if k.startswith("window,")]
+            best = min(forms, key=lambda k: row[k])
+            b = window_bounds(Gp, scal, ks, lat_us)
+            res[N] = {"ms": row, "fastest_window": best, "in_use_kernel": Gp.fixed_base_kernel(N),
+                      **b}
+            say(f"{Gp.name} N={N}: " + ", ".join(f"{k} {v:.4f}" for k, v in row.items()) +
+                f" ms (window forms equal, same points as fixed_base_one); fastest window form "
+                f"{best}; in use {Gp.fixed_base_kernel(N)}; window bound {b['bound_ms']:.5f} "
+                f"({b['nonzero_digits']} nonzero digits), bit-serial bound "
+                f"{b['bit_serial_bound_ms']:.5f}, latency bound {b['latency_bound_ms']:.4f} ms")
+        wins = [N for N in widths
+                if res[N]["ms"]["window (in use)"] < res[N]["ms"]["fixed_base (team)"]]
+        res["window_beats_team_from"] = min(wins) if wins else None
+        say(f"{Gp.name}: the window kernel beats the team kernel from "
+            f"{res['window_beats_team_from']} lanes on (of {list(widths)})")
+        results[Gp.name] = res
+    return results
+
+
 def run(device=torch.device("cuda"), widths=WIDTHS, reps: int = 5, say=print) -> dict:
     device = torch.device(device)
     if device.type != "cuda":
@@ -237,7 +447,10 @@ def run(device=torch.device("cuda"), widths=WIDTHS, reps: int = 5, say=print) ->
             f"L1; one thread on blocks of {kept[2]}")
         for N in widths:
             table, scal, ks = inputs(Gp, N, device)
-            configs = {"in use": lambda: Gp.fixed_base(table, scal)}
+            # above FIXED_TEAM_MAX_LANES the wrapper runs the window kernel,
+            # whose limbs are not the sequence's (--window times it)
+            configs = ({"in use": lambda: Gp.fixed_base(table, scal)}
+                       if Gp.fixed_base_kernel(N) == "fixed_base" else {})
             for T, p in TEAM_CONFIGS:
                 for staged in (False, True):
                     configs[f"T={T},teams={p}{',staged' if staged else ''}"] = (
@@ -270,13 +483,15 @@ def run(device=torch.device("cuda"), widths=WIDTHS, reps: int = 5, say=print) ->
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--json", action="store_true", help="print the figures as one JSON line too")
+    ap.add_argument("--window", action="store_true",
+                    help="the window kernel's forms beside the bit-serial kernels instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("exp_fixed_base: no CUDA device; the harness times kernels on the GPU",
               file=sys.stderr)
         return 1
     print(torch.cuda.get_device_name(0))
-    results = run()
+    results = run_window() if args.window else run()
     if args.json:
         print(json.dumps(results))
     return 0
