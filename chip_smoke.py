@@ -31,6 +31,18 @@ testudo_tpu_torch/csrc/, then
      launches and of its trees of adds; the cold setup at nv = 20 is split
      into its host doublings, scalar conversion, fixed-base device time
      (CUDA events) and host mask muls;
+  4a. drives sqrt-PST at the reference bench's largest size, nv = 27 (8,192
+     columns of 16,384 points; benches/pst.rs: 2^27): `pst.setup` at 14
+     variables on the card, a table drawn on the card from a seeded
+     torch.Generator, `eval`, a cold commit (the multi-MSM's columns in
+     blocks: one bucket launch a block), open and verify (their launches:
+     path sqrt_pst_big), one warm commit (its launches and stage split);
+     exact: the value against a fold of the table on the card, the proof
+     accepted and v + 1 rejected, the first and last column and those on
+     each side of every block boundary against `msm_g1` in affine, T against
+     the multi-pairing of the commitments, the proof's 18,320 B against the
+     codec's formula; the phase's peak device memory printed and held under
+     60 GiB;
   5. drives TestudoNIZK (core/snark.py: setup, `nizk_prove`, `nizk_verify`
      on the Fr-sponge transcript), with the fused sumcheck (the default) and
      the looped one beside it: the golden 16 x 16 x 2 instance of
@@ -46,7 +58,12 @@ testudo_tpu_torch/csrc/, then
      (byte-equal), and the launches of one warm fused prove, one looped
      prove and one verify counted (paths nizk_prove, nizk_prove_looped,
      nizk_verify: the fused sumcheck's three kernels must run in the first
-     and not in the second); with --nizk-only also the Poseidon
+     and not in the second); one more warm fused prove under
+     `utils.timer.DeviceTrace` (the trace file in a new temporary
+     directory, its path, size and kernel events printed; the run fails if
+     it holds no `k_sumcheck_round` event after NIZK_TRACE_TRIES tries), its
+     CUDA kernels and device time read from the trace's profile; with
+     --nizk-only also the Poseidon
      permutations left on the host timed, each prover's CUDA kernels counted
      under torch.profiler, by phase too (the fused prove's with the
      row-major product's device time and launches by size class), and the
@@ -197,7 +214,7 @@ testudo_tpu_torch/csrc/, then
   8. checks a small MSM against the host oracle;
   9. prints one JSON line {"kernels": [...]} (each row's `launches` is the
      sum of `launches_by_path`, the kernel's count on each driven path: msm,
-     fixed_base, field, setup, commit, open, verify, nizk_prove,
+     fixed_base, field, setup, commit, open, verify, sqrt_pst_big, nizk_prove,
      nizk_prove_looped, nizk_verify, mesh_msm, mesh_commit, mesh_nizk,
      mesh_nizk_looped, snark_groth16_setup, snark_encode,
      snark_prove, groth16_prove, snark_verify, bw6_setup, bw6_prove,
@@ -224,7 +241,8 @@ compares and times the fr381 product and runs the BLS12-381 phase at 2^10,
 runs the mesh phase (5a), then TestudoNIZK at 2^20 on 4 shards with both
 sumchecks against its unsharded proofs, then tries 2^24 on 4 shards (its
 instance's host build stopped after 600 s; the prove's peak device memory or
-the allocation that failed), and stops; the default run is the full check.
+the allocation that failed), and stops; `--pst-big-only` runs the sqrt-PST
+phase at nv = 27 (4a) and stops; the default run is the full check.
 """
 from __future__ import annotations
 
@@ -237,6 +255,7 @@ import random
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from types import SimpleNamespace
 
@@ -352,9 +371,26 @@ _BW6_ALSO = {
     "bw6_chunk_sum": ["testudo_tpu/tpu/msm.py:97", "testudo_tpu/tpu/curve.py:184"],
     "bw6_fixed_base": ["testudo_tpu/tpu/curve_generic.py:158", "testudo_tpu/tpu/curve.py:217"],
 }
+def pst_proof_bytes(nv: int) -> int:
+    """The codec's size of a sqrt-PST proof at nv variables
+    (proofs.ser_pst_proof + proofs.ser_mipp): the PST opening of q, m_row
+    compressed G1; MIPP's m_col rounds of two GT (576 B each) and two G1, its
+    final G1 and G2, and the m_col G2 of the opening of p_h; each vector
+    with an 8-byte length."""
+    m_col = nv // 2
+    m_row = nv - m_col
+    return ((8 + 48 * m_row) + (8 + 2 * 576 * m_col) + (8 + 2 * 48 * m_col) + 48 + 96
+            + (8 + 96 * m_col))
+
+
 # proof bytes (PST opening + MIPP proof) of sqrt-PST per number of variables:
 # counts of group and field elements, the same on any hardware
 PROOF_BYTES = {10: 7136, 14: 9920, 20: 14096}
+assert all(pst_proof_bytes(nv) == size for nv, size in PROOF_BYTES.items())
+# the sqrt-PST phase at the reference bench's largest size (benches/pst.rs: 2^27)
+PST_BIG_NV = 27
+PROOF_BYTES[PST_BIG_NV] = pst_proof_bytes(PST_BIG_NV)  # 18,320 B: m_row 14, m_col 13
+PST_BIG_PEAK_BYTES = 60 << 30  # the phase's peak device memory must stay under it
 # TestudoNIZK (BASELINE config #3, benches/testudo.py): 2^k constraints, 2^k
 # variables, 10 inputs; its sat proof's bytes per k (testudo_nizk.csv,
 # testudo.csv: counts of group and field elements, the same on any hardware)
@@ -406,15 +442,15 @@ NIZK_LABELS = {"polycommit (sqrt-PST)": "commit", "prove_sc_phase_one": "phase o
 # one-thread bit-serial fixed-base kernel, whose widths the window kernel
 # took; the one-thread ladder over all bits, whose
 # wide launches (the commit's Horner) the wide kernel runs (it keeps only
-# unordered launches above WIDE_LADDER_MAX_UNORDERED, which no path makes);
-# and the wide G2
-# ladder: every G2 ladder of the paths is at most TEAM_LADDER_MAX_LANES
-# wide (the MSM's 20-lane Horner, the open's folds), so the team kernel
-# takes it; the wide G1 ladder runs the commit's Horner, 32,768 lanes at
-# nv = 20 and 8,192 in a prove.  A kernel of the kernel phase only must
-# show no launch on any path.
+# unordered launches above WIDE_LADDER_MAX_UNORDERED, which no path makes).
+# The wide G1 ladder runs the commit's Horner, 32,768 lanes at nv = 20 and
+# 8,192 in a prove; the wide G2 ladder runs only the first two MIPP folds of
+# h at nv = 27 (4,096 and 2,048 lanes): every other G2 ladder is at most
+# TEAM_LADDER_MAX_LANES wide (the MSM's 20-lane Horner, the open's folds at
+# nv = 20 and below).  A kernel of the kernel phase only must show no
+# launch on any path.
 _MSM_KERNELS = ("fold_team", "wsum", "ladder_team", "bucket", "bucket_mixed")
-_KERNEL_PHASE_ONLY = ("mont_mul", "scan2", "scan2_g2", "ladder", "ladder_g2", "ladder_wide_g2",
+_KERNEL_PHASE_ONLY = ("mont_mul", "scan2", "scan2_g2", "ladder", "ladder_g2",
                       "step", "step_g2", "scan2b", "scan2b_g2", "add2", "add2_g2",
                       "add_mask", "add_mask_g2", "fixed_base_one", "fixed_base_one_g2")
 MUST_LAUNCH = {
@@ -544,6 +580,19 @@ MESH_MUST = {
 for _path, _names in MESH_MUST.items():
     for _name in _names:
         MUST_LAUNCH[_name] += (_path,)
+# sqrt-PST at nv = PST_BIG_NV (path sqrt_pst_big: a cold commit, open and
+# verify): the commit's canonical scalars (the Fr product), its table (the
+# chain), a bucket launch a column block, its Horner (the wide ladder and
+# the fold); the open's U-fold and its first MIPP rounds' cross MSMs (4,096
+# points a segment and fewer: Pippenger over projective points, G1, and
+# `pst.open_g2`'s MSMs, G2), the folds of a and h (the wide ladders above
+# 1,024 lanes, the team ladders below), y's fold and the G1 adds on the Fr
+# and Fq products
+MUST_LAUNCH["ladder_wide_g2"] = ()
+for _name in ("mont_mul_rm_fr", "mont_mul_rm_fq", "chain_team", "bucket", "ladder_wide",
+              "fold_team", "ladder_team", "wsum", "ladder_team_g2", "ladder_wide_g2",
+              "bucket_g2", "wsum_g2", "fold_team_g2"):
+    MUST_LAUNCH[_name] += ("sqrt_pst_big",)
 MUST_LAUNCH["mont_mul_rm_fr_full"] += ("mesh_nizk_looped",)
 MUST_LAUNCH["fixed_base_one_key"] = MUST_LAUNCH["fixed_base_one_key_g2"] = ()
 N_UNIQUE = 1 << 13
@@ -1130,6 +1179,179 @@ def phase_sqrt_pst(dev, nv: int, full: bool):
     return by_path, canon, ck.powers_of_g[level]
 
 
+def draw_table(dev, nv: int, seed: int, step: int = 1 << 24) -> torch.Tensor:
+    """A 2^nv Montgomery Fr table drawn on the card: canonical 252-bit values
+    (16-bit limbs, the top one below 2^12, as `random_scalars` draws them on
+    the host) from a seeded torch.Generator, encoded on the card
+    (`dense._to_mont_dev`), `step` elements a pass."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    table = torch.empty((1 << nv, FR.nlimbs), dtype=torch.int32, device=dev)
+    for i in range(0, 1 << nv, step):
+        canon = torch.randint(0, 1 << 16, (min(step, (1 << nv) - i), FR.nlimbs), dtype=torch.int32,
+                              device=dev, generator=gen)
+        canon[:, -1] &= 0x0FFF
+        table[i:i + canon.shape[0]] = dense._to_mont_dev(canon)
+    return table
+
+
+def fold_on_card(table: torch.Tensor, point, rows: int = 1 << 22) -> int:
+    """The table's multilinear extension at `point` on the card, MSB-first,
+    one variable at a time with `dense.bound_top`, a fold of more than
+    `rows` output rows in passes of `rows` (each pass the two halves' rows
+    it needs): another computation than sqrt-PST's `_get_q` and its
+    evaluation of q, which sum the columns by chi(b) first."""
+    Z = table
+    for r in point:
+        rt = dense.encode_scalar(r, FR, Z.device)
+        n = Z.shape[0] // 2
+        if n <= rows:
+            Z = dense.bound_top(Z, rt)
+        else:
+            Z = torch.cat([dense.bound_top(torch.cat([Z[i:i + rows], Z[n + i:n + i + rows]]), rt)
+                           for i in range(0, n, rows)])
+    return dense.decode_scalar(Z[0])
+
+
+def phase_sqrt_pst_big(dev, smi: str, nv: int = PST_BIG_NV) -> dict:
+    """sqrt-PST at the reference bench's largest size (benches/pst.rs: n =
+    2^27): `pst.setup` at m_row variables on the card, a table drawn on the
+    card, `eval`, then a cold commit, open and verify (the launches of these
+    three counted: path sqrt_pst_big) and one warm commit, its launches and
+    stage split printed (canonical scalars and table, the column blocks'
+    bucket launches, the Horner, the host multi-pairing T).  Exact: the
+    value against a fold of the table on the card, the proof accepted and
+    v + 1 rejected, the first and last column and the columns on each side
+    of every block boundary against `msm_g1` in affine, T against the
+    multi-pairing of the commitments, the proof's bytes against the codec's
+    formula; the warm commit equal to the cold one, one bucket launch a
+    block (at least two), one chain_team, ladder_wide and fold_team; the
+    phase's peak device memory under PST_BIG_PEAK_BYTES."""
+    pf = cprof.bls12_377(dev)
+    m_col = nv // 2
+    m_row = nv - m_col
+    K, N = 1 << m_col, 1 << m_row
+    what = f"sqrt-PST nv={nv} ({N} x {K})"
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t_phase = time.perf_counter()
+    with timer.record() as rec:
+        (ck, vk), setup_ms = timed_once(lambda: pst.setup(m_row, profile=pf))
+    setup_parts = _split(rec)
+    table, draw_ms = timed_once(lambda: draw_table(dev, nv, seed=nv))
+    prng = random.Random(nv)
+    point = [prng.randrange(R) for _ in range(nv)]
+    pl = sqrt_pst.Polynomial.from_evaluations(table, pf)
+    v, eval_ms = timed_once(lambda: pl.eval(point))  # q, kept for the open
+    want_v, fold_ms = timed_once(lambda: fold_on_card(table, point))
+    if v != want_v:
+        raise AssertionError(f"{what}: eval differs from the fold of the table on the card")
+
+    def do_verify(value):
+        return sqrt_pst.verify(PoseidonTranscript(fq_params()), vk, U, point, value,
+                               pst_proof, mipp_proof, T)
+
+    build.reset_launches()
+    with timer.record() as rec:
+        (comm, T), commit_cold = timed_once(lambda: pl.commit(ck))
+        (U, pst_proof, mipp_proof), open_cold = timed_once(
+            lambda: pl.open(PoseidonTranscript(fq_params()), comm, ck, point, T))
+        ok, verify_cold = timed_once(lambda: do_verify(v))
+    counts = dict(build.LAUNCHES)
+    cold_parts = _split(rec)
+    if ok is not True:
+        raise AssertionError(f"{what}: the verifier rejected an honest proof")
+    if do_verify((v + 1) % R) is not False:
+        raise AssertionError(f"{what}: the verifier accepted v + 1")
+    size = len(proofs.ser_pst_proof(pst_proof)) + len(proofs.ser_mipp(mipp_proof))
+    if size != PROOF_BYTES[nv]:
+        raise AssertionError(f"{what}: proof of {size} B, the codec gives {PROOF_BYTES[nv]}")
+
+    level = ck.nv - pl.m_row
+    comm_aff = pf.g1b.to_affine(comm)
+    T_host, pair_ms = timed_once(
+        lambda: pr.multi_pairing(comm_aff, pf.g2b.to_affine(ck.powers_of_h[level + pl.odd])))
+    if len(comm_aff) != K or T != T_host:
+        raise AssertionError(f"{what}: T differs from the multi-pairing of the commitments")
+    c = msm._pick_window(N)
+    blocks = msm.multi_msm_blocks(K, N, 16 * FR.nlimbs // c)
+    spots = sorted({0, K - 1} | {k for _, k1 in blocks[:-1] for k in (k1 - 1, k1)})
+    basis = ck.powers_of_g[level]
+    t0 = time.perf_counter()
+    for k in spots:
+        col = pst._to_canon_scalars(pl.matrix[:, k].contiguous(), FR)
+        if comm_aff[k] != msm.msm_g1(basis, col, device=dev):
+            raise AssertionError(f"{what}: column commitment {k} differs from msm_g1")
+    spots_s = time.perf_counter() - t0
+
+    # one warm commit: its launches, its stages (synchronised at the
+    # multi-MSM's stage marks) and each bucket launch's device time
+    marks = []
+
+    def hook(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter()))
+
+    multi = msm._multi_msm_device
+    msm._multi_msm_device = lambda *a, **k: multi(*a, on_phase=hook, **k)
+    build.reset_launches()
+    try:
+        with timer.record() as rec:
+            torch.cuda.synchronize()
+            marks.append(("start", time.perf_counter()))
+            ((comm2, T2), warm_ms), bucket_dev = time_open.device_ms(
+                lambda: timed_once(lambda: pl.commit(ck)), {"bucket": ("bucket_phase",)})
+    finally:
+        msm._multi_msm_device = multi
+    counts_commit = dict(build.LAUNCHES)
+    warm_parts = _split(rec)
+    if T2 != T or not all(torch.equal(a, b) for a, b in zip(comm2, comm)):
+        raise AssertionError(f"{what}: a warm commit differs from the cold one")
+    want = {"bucket": len(blocks), "chain_team": 1, "ladder_wide": 1, "fold_team": 1}
+    if len(blocks) < 2 or any(counts_commit[k] != n for k, n in want.items()):
+        raise AssertionError(f"{what}: the commit's launches {json.dumps(_nonzero(counts_commit))} "
+                             f"are not {json.dumps(want)} ({len(blocks)} column blocks)")
+    stages = {("canonical scalars + table" if name == "table" else name):
+              round((t - marks[i][1]) * 1e3, 3) for i, (name, t) in enumerate(marks[1:])}
+    stages["T (host multi-pairing)"] = round(warm_parts.get("sqrt_pst::commit multi-pairing T", 0)
+                                             * 1e3, 3)
+    ms_each, launches = bucket_dev["bucket"]["g1"]
+    peak = torch.cuda.max_memory_allocated(dev)
+    if peak >= PST_BIG_PEAK_BYTES:
+        raise AssertionError(f"{what}: peak device memory {peak} B, the limit is "
+                             f"{PST_BIG_PEAK_BYTES} B")
+    lanes, adds = (blocks[0][1] - blocks[0][0]) * 16 * FR.nlimbs // c, N
+    b_ms, b_by = bound(lanes * adds * (G1P.rows * 4 + 4) + lanes * (8 + G1P.rows * 4),
+                       lanes * adds * 12 * MADD_FQ)
+    say(f"{what}: eval equals the fold of the table on the card; verify true, v + 1 rejected; "
+        f"T and {len(spots)} columns {spots} (first, last, each side of the {len(blocks) - 1} "
+        f"block boundaries) exact against the multi-pairing and msm_g1; proof {size} B "
+        f"(the codec's {PROOF_BYTES[nv]}); {smi}")
+    say(f"  {what} times (s): setup {setup_ms / 1e3:.3f}, table drawn on the card "
+        f"{draw_ms / 1e3:.3f}, eval {eval_ms / 1e3:.3f} (the fold on the card "
+        f"{fold_ms / 1e3:.3f}), commit cold {commit_cold / 1e3:.3f} warm {warm_ms / 1e3:.3f}, "
+        f"open {open_cold / 1e3:.3f} (q kept from eval), verify {verify_cold / 1e3:.3f}; "
+        f"T recomputed {pair_ms / 1e3:.3f}, {len(spots)} msm_g1 spot columns {spots_s:.3f}; "
+        f"phase {time.perf_counter() - t_phase:.1f}")
+    say(f"  {what} warm commit stages (ms, synchronised): {json.dumps(stages)}; column blocks "
+        f"{blocks}; bucket device time {ms_each:.3f} ms over {launches} launches "
+        f"({lanes} lanes x {adds} adds a block: {ms_each / launches:.3f} ms a launch, bound_ms "
+        f"{b_ms:.4f} ({b_by}))")
+    say(f"  {what} setup parts (s): {json.dumps(setup_parts)}; cold commit, open and verify "
+        f"parts (s): {json.dumps(cold_parts)}")
+    say(f"  {what} launches, one warm commit: {json.dumps(_nonzero(counts_commit))}")
+    say(f"  {what} launches, cold commit + open + verify: {json.dumps(_nonzero(counts))}")
+    say(f"  {what} peak device memory (torch.cuda.max_memory_allocated): {peak} B "
+        f"({peak / 2**30:.2f} GiB of the {PST_BIG_PEAK_BYTES >> 30} GiB limit)")
+    big = {"shape": f"{len(blocks)} column blocks of {lanes} lanes x {adds} adds",
+           "ms": ms_each / launches, "launches": launches, "bound_ms": b_ms, "bound_by": b_by}
+    del pl, table, comm, comm2
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"sqrt_pst_big": counts}, big
+
+
 # ---------------------------------------------------------------------------
 # TestudoNIZK: setup, prove, verify
 # ---------------------------------------------------------------------------
@@ -1206,7 +1428,10 @@ def phase_nizk(dev, log2n: int, warm: int = 3, profiled: bool = True):
     trip, verifier accepts and rejects two corruptions, exact host-int checks
     of eval_vars_at_ry, the phase-2 claims and the instance's evaluation;
     cold and warm times split by the Timer labels; launches of one warm
-    prove and one verify (returned by path)."""
+    prove and one verify (returned by path); one more warm fused prove under
+    `utils.timer.DeviceTrace` (`nizk_profile`), whose trace must hold the
+    round kernel.  `profiled` adds the host Poseidon timing and the
+    profiles by phase and by round shape."""
     n = 1 << log2n
     what = f"NIZK 2^{log2n}"
     t0 = time.perf_counter()
@@ -1292,7 +1517,8 @@ def phase_nizk(dev, log2n: int, warm: int = 3, profiled: bool = True):
     if ok is not True:
         raise AssertionError(f"{what}: the warm verify rejected")
 
-    perms, prof_lines, rounds = {}, {}, None
+    perms, rounds = {}, None
+    prof_lines = {"fused": nizk_profile(prove)}
     if profiled:
         # one more warm prove with the Poseidon permutations timed on the host
         perm = [0.0, 0]
@@ -1315,8 +1541,8 @@ def phase_nizk(dev, log2n: int, warm: int = 3, profiled: bool = True):
         # and under the profiler: the device's kernels, by count and time, by
         # phase for both provers; the largest kernels and the row-major
         # product's share for the fused one (the default)
-        prof_lines = {"fused": nizk_profile(prove) + "\n    " + nizk_phase_profile(prove),
-                      "looped": nizk_phase_profile(prove_looped)}
+        prof_lines["fused"] += "\n    " + nizk_phase_profile(prove)
+        prof_lines["looped"] = nizk_phase_profile(prove_looped)
         # and the round kernel's launches by shape with their device time
         rounds = exp_sumcheck_round.prove_round_profile(prove)
 
@@ -1347,7 +1573,7 @@ def phase_nizk(dev, log2n: int, warm: int = 3, profiled: bool = True):
             f"{rounds['launches']} launches, {rounds['device_ms']:.5f} ms of device time; by shape "
             f"[launches, device ms]: {json.dumps(by_shape)}")
     else:
-        say(f"  {what} not profiled in this run")
+        say(f"  {what} round shapes and phases not profiled in this run")
     say(f"  {what} launches of the fused sumcheck's kernels in one warm prove: "
         f"{json.dumps({k: counts_prove[k] for k in FUSED_KERNELS})}")
     say(f"  {what} launches, one warm fused prove: {json.dumps(nz(counts_prove))}")
@@ -1357,18 +1583,41 @@ def phase_nizk(dev, log2n: int, warm: int = 3, profiled: bool = True):
             "nizk_verify": counts_verify}
 
 
+NIZK_TRACE_TRIES = 3  # the profiler returns a window without device events now and then
+
+
+def trace_kernels(path: str) -> list:
+    """The names of the kernel events of a Chrome trace file."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+
+
 def nizk_profile(prove) -> str:
-    """One prove under torch.profiler: the number of CUDA kernels it ran
-    and their summed device time, the six largest by name, and the
-    row-major product's device time and launches, by size class too
-    (tools/exp_mont_rm.py)."""
-    p = exp_mont_rm.prove_profile(prove)
-    if not p["kernels"]:
-        return "device kernels of one prove under torch.profiler: not measured (no device events)"
+    """One prove under `utils.timer.DeviceTrace` (torch.profiler; the trace
+    file in a new temporary directory): the trace's path, size and kernel
+    events, which must hold `k_sumcheck_round` (else the prove is traced
+    again, up to NIZK_TRACE_TRIES times, and then the run fails); from its
+    profile the number of CUDA kernels the prove ran and their summed device
+    time, the six largest by name, and the row-major product's device time
+    and launches, by size class too (tools/exp_mont_rm.py)."""
+    logdir = tempfile.mkdtemp(prefix="nizk-trace-")
+    for attempt in range(1, NIZK_TRACE_TRIES + 1):
+        p = exp_mont_rm.prove_profile(prove, logdir=logdir)
+        kernels = trace_kernels(p["trace"])
+        rounds = sum("k_sumcheck_round" in name for name in kernels)
+        if rounds:
+            break
+    else:
+        raise AssertionError(f"the DeviceTrace of a warm prove holds no k_sumcheck_round event "
+                             f"in {NIZK_TRACE_TRIES} tries (last: {p['trace']})")
+    trace_line = (f"DeviceTrace of one warm prove: {p['trace']}, {os.path.getsize(p['trace'])} B, "
+                  f"{len(kernels)} kernel events, {rounds} of k_sumcheck_round (try {attempt})\n    ")
     classes = "; ".join(
         f"{k} {c['launches']}" + ("" if c["device_ms"] is None else f" ({c['device_ms']:.4f} ms)")
         for k, c in p["by_class"].items())
-    return (f"one prove under torch.profiler: {p['kernels']} CUDA kernels, {p['device_ms']:.1f} ms "
+    return trace_line + (
+            f"one prove under torch.profiler: {p['kernels']} CUDA kernels, {p['device_ms']:.1f} ms "
             f"of device time in a {p['wall_ms_profiled']:.1f} ms prove (profiled); largest: "
             + "; ".join(f"{name[:60]} {ms:.1f} ms x {cnt}" for name, ms, cnt in p["largest"])
             + f"\n    mont_mul_rm: {p['mont_mul_rm_ms']:.4f} ms of device time over "
@@ -3658,6 +3907,9 @@ def main(argv=None) -> int:
     ap.add_argument("--bls381-only", action="store_true",
                     help="build, check and time the fr381 product and the R1CS proof over "
                          "BLS12-381 at 2^10, 2^12 and 2^14, stop")
+    ap.add_argument("--pst-big-only", action="store_true",
+                    help=f"build, run the sqrt-PST phase at nv = {PST_BIG_NV} (commit, open, "
+                         f"verify; exact checks, times, launches, peak memory), stop")
     ap.add_argument("--mesh-only", action="store_true",
                     help="build, check and time the sharded paths on shards of the card, the "
                          "NIZK at 2^20 under the mesh, try 2^24 under it, stop")
@@ -3667,7 +3919,12 @@ def main(argv=None) -> int:
         return 1
     t_start = time.time()
     dev = torch.device("cuda")
-    phase_device()
+    smi = phase_device()
+    if args.pst_big_only:
+        phase_sqrt_pst_big(dev, smi)
+        say(f"pst-big-only pass done ({time.time() - t_start:.1f} s); run without arguments for "
+            f"the full check")
+        return 0
     if args.nizk_only:
         phase_nizk_golden(dev)
         for log2n in (16, 20):
@@ -3791,6 +4048,12 @@ def main(argv=None) -> int:
     for path, snap in pst_counts.items():
         note(path, snap)
     say(f"sqrt-PST done ({time.time() - t_start:.1f} s)")
+    # and at the reference bench's largest size, the commit's columns in blocks
+    t_big = time.time()
+    big_counts, big_bucket = phase_sqrt_pst_big(dev, smi)
+    for path, snap in big_counts.items():
+        note(path, snap)
+    say(f"sqrt-PST nv={PST_BIG_NV} done in {time.time() - t_big:.1f} s ({time.time() - t_start:.1f} s)")
 
     # the protocol on top: TestudoNIZK, the golden proof, then config #3 at 2^16
     phase_nizk_golden(dev)
@@ -3862,6 +4125,7 @@ def main(argv=None) -> int:
     lap("kernels: G1")
     kernels_commit_bucket(dev, rep, canon, basis)
     del canon, basis
+    rep.rows["bucket"].update({f"commit{PST_BIG_NV}_{k}": v for k, v in big_bucket.items()})
     kernels_group(dev, g2, rep, proj["g2"], *batches["g2", 16], *batches["g2", 20], lat_us,
                   quick=False)
     lap("kernels: commit bucket, G2")

@@ -35,6 +35,11 @@ from ..utils.timer import Timer
 from . import mipp, pst
 
 
+# Elements of the matrix one pass of `_get_q` takes: every table up to nv =
+# 24 in one pass, as one product launch and one sum.
+_Q_PASS_ELEMENTS = 1 << 24
+
+
 @dataclass
 class SqrtPstCommitment:
     comm_dev: object  # backend G1 batch: per-column commitments
@@ -103,8 +108,14 @@ class Polynomial:
         tq = Timer("sqrt_pst::get_q")
         b = point[self.m + self.odd :]
         chis = dense.eq_evals(b, spec, self.matrix.device)  # (2^m, nlimbs) MSB-first
-        prods = tf.mont_mul(spec, self.matrix, chis[None, :, :])
-        self.q = tf.reduce_sum(spec, prods, axis=1)  # (2^m_row, nlimbs)
+        # rows a pass: a pass makes chis broadcast over its rows, their
+        # product and the sum's int64 widening of it, 16 bytes a limb of its
+        # rows beside the table (at nv = 27: 8 passes of 2^24 elements)
+        rows = max(1, _Q_PASS_ELEMENTS // self.matrix.shape[1])
+        self.q = torch.cat([
+            tf.reduce_sum(spec, tf.mont_mul(spec, self.matrix[i:i + rows], chis[None, :, :]), axis=1)
+            for i in range(0, self.matrix.shape[0], rows)
+        ])  # (2^m_row, nlimbs)
         self.chis_b = chis
         if self.matrix.is_cuda:
             torch.cuda.synchronize(self.matrix.device)
@@ -176,7 +187,8 @@ def _multi_msm_g1(pf, basis, cols_mont: torch.Tensor):
     """Many MSMs sharing one point basis: Montgomery scalar matrix
     (K, N, nlimbs) -> backend repr of K points.
 
-    Used for the per-column sqrt-PST commitments: the device backend runs
+    Used for the per-column sqrt-PST commitments (`cols_mont`: a view, the
+    matrix's transpose): the device backend runs
     the shared-table multi-MSM, its columns sharded over the ambient mesh
     when there are at least two a shard (`parallel.mesh.sharded_multi_msm`,
     the reference's sqrt_pst.py:186-195); host backends loop over the
@@ -191,7 +203,13 @@ def _multi_msm_g1(pf, basis, cols_mont: torch.Tensor):
 
     from ..device import msm
 
-    scalars_canon = pst._to_canon_scalars(cols_mont, spec)
+    # the conversion is elementwise: the columns of a row-major matrix are
+    # converted as the matrix lies in memory, so that no transposed copy is made
+    by_rows = cols_mont.transpose(0, 1)
+    if by_rows.is_contiguous():
+        scalars_canon = pst._to_canon_scalars(by_rows, spec).transpose(0, 1)
+    else:
+        scalars_canon = pst._to_canon_scalars(cols_mont, spec)
     c = msm._pick_window(scalars_canon.shape[1])
     mesh = pmesh.active_mesh()
     if mesh is not None and mesh.size >= 2 and scalars_canon.shape[0] >= 2 * mesh.size:

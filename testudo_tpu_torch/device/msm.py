@@ -618,30 +618,88 @@ def _multi_msm_table(Gp: PackedGroup, ptcat: torch.Tensor, c: int) -> torch.Tens
     return Gp.chain(ptcat.contiguous(), 1 << c)
 
 
+# The columns' blocks (the counterpart of tpu/msm.py:1121-1136, which cuts K
+# into chunks under a 600 MB budget of gathered run rows and maps a launch
+# over them).  The bucket kernel gathers through an int32 index list with
+# int32 run offsets, so one launch takes fewer than `_INDEX_LIMIT` entries.
+# Where all K W N entries of the columns reach it (nv >= 26 in sqrt-PST) the
+# columns split into the fewest contiguous blocks of at most half of it, so
+# that a block's index (4 GiB of int32 at 2^30 entries) and its digits are
+# the only ones alive, and each block is one launch.  A block keeps at least
+# `_MIN_BLOCK_LANES` lanes: nv = 20's single launch, which already fills the
+# H100 poorly (512 of its 792 resident blocks of 64 threads).
+_INDEX_LIMIT = 1 << 31
+_MIN_BLOCK_LANES = 1 << 15
+
+
+def multi_msm_blocks(K: int, N: int, W: int) -> list:
+    """The column blocks of a multi-MSM of K columns of N points in W
+    windows: contiguous [k0, k1) ranges that cover the K columns in order.
+    One block while K W N < `_INDEX_LIMIT`; else ceil(2 K W N /
+    `_INDEX_LIMIT`) blocks whose sizes differ by at most one column, the
+    larger first.  ValueError where no block plan keeps every block under
+    the limit with at least `_MIN_BLOCK_LANES` lanes: the caller must not
+    fall back to anything."""
+    if K < 1 or N < 1 or W < 1:
+        raise ValueError(f"multi-MSM: no block plan for K={K}, N={N}, W={W}")
+    if K * W * N < _INDEX_LIMIT:
+        return [(0, K)]
+    nblocks = -(-2 * K * W * N // _INDEX_LIMIT)
+    size, extra = divmod(K, nblocks)
+    if size * W < _MIN_BLOCK_LANES or (size + (extra > 0)) * W * N >= _INDEX_LIMIT:
+        raise ValueError(
+            f"multi-MSM: {K} columns of {N} points in {W} windows do not split into blocks of "
+            f"fewer than {_INDEX_LIMIT} index entries and at least {_MIN_BLOCK_LANES} lanes"
+        )
+    blocks, k0 = [], 0
+    for b in range(nblocks):
+        k1 = k0 + size + (b < extra)
+        blocks.append((k0, k1))
+        k0 = k1
+    return blocks
+
+
 def _multi_msm_index(scal: torch.Tensor, c: int):
-    """The bucket kernel's arguments for the window sums of every column:
-    (idx, start, count) with lanes k-major, lane (k, w) reading the N entries
-    idx[(k W + w) N + t] = t * B + digit_w(scal[k, t]), t = 0..N-1."""
+    """The bucket kernel's arguments for the window sums of one block of
+    columns: (idx, start, count) with lanes k-major, lane (k, w) reading the
+    N entries idx[(k W + w) N + t] = t * B + digit_w(scal[k, t]), t =
+    0..N-1, its run offset local to the block.  The digits are written
+    window by window straight into their place in the index (the scalars
+    may be a strided view: a column block of a row-major table).
+    ValueError where the table reaches 2^31 rows (the index's int32
+    entries) or the block's index `_INDEX_LIMIT` entries."""
+    if c not in (4, 8, 16):
+        raise ValueError(f"unsigned windows need c in (4, 8, 16), got {c}")
     K, N, nl = scal.shape
     B = 1 << c
+    W = 16 * nl // c
+    if N * B >= 1 << 31 or K * W * N >= _INDEX_LIMIT:
+        raise ValueError(f"multi-MSM: the table ({N * B} rows) or a block's index list ({K * W * N} "
+                         f"entries) reaches the int32 limit")
     dev = scal.device
-    digits = _digits_from_scalars(scal.reshape(K * N, nl), c)  # (W, K * N)
-    W = digits.shape[0]
-    if N * B >= 1 << 31 or K * W * N >= 1 << 31:
-        raise ValueError("multi-MSM: the table or the index list passes 2^31 entries")
+    per = 16 // c
     offs = torch.arange(N, dtype=torch.int32, device=dev) * B
-    idx = (digits.reshape(W, K, N).permute(1, 0, 2) + offs).reshape(-1).contiguous()
+    idx = torch.empty((K, W, N), dtype=torch.int32, device=dev)
+    for w in range(W):
+        torch.bitwise_and(scal[:, :, w // per] >> ((w % per) * c), B - 1, out=idx[:, w])
+        idx[:, w] += offs
     lanes = K * W
     start = torch.arange(lanes, dtype=torch.int32, device=dev) * N
     count = torch.full((lanes,), N, dtype=torch.int32, device=dev)
-    return idx, start, count
+    return idx.reshape(-1), start, count
 
 
 def _multi_msm_windows(Gp: PackedGroup, table: torch.Tensor, scal: torch.Tensor, c: int):
     """Window sums of every column: (rows, K * W), lanes k-major.  ONE launch
-    of the general bucket kernel: lane (k, w) adds its N table rows in order
-    onto the identity; the kernel gathers, so no run tensor is materialised."""
-    return Gp.bucket_phase(table, *_multi_msm_index(scal, c))
+    of the general bucket kernel a column block (`multi_msm_blocks`: one
+    block up to nv = 25 in sqrt-PST): lane (k, w) adds its N table rows in
+    order onto the identity; the kernel gathers, so no run tensor is
+    materialised, and a block's index is built just before its launch.  A
+    lane's additions do not depend on its block, so the sums are the
+    one-launch sums limb for limb."""
+    K, N, nl = scal.shape
+    return torch.cat([Gp.bucket_phase(table, *_multi_msm_index(scal[k0:k1], c))
+                      for k0, k1 in multi_msm_blocks(K, N, 16 * nl // c)], dim=1)
 
 
 def _multi_horner_packed(Gp: PackedGroup, wins: torch.Tensor, K: int, c: int) -> torch.Tensor:

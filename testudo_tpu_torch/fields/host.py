@@ -57,6 +57,11 @@ def fq_sqrt(x: int):
     return _tonelli_shanks(x, P)
 
 
+def fr_sqrt(x: int):
+    """Square root in Fr, or None (r = 1 mod 2^47: Tonelli-Shanks)."""
+    return _tonelli_shanks(x, R)
+
+
 # ---------------------------------------------------------------------------
 # Fq2 = Fq[u] / (u^2 - QNR), QNR = -5
 # ---------------------------------------------------------------------------

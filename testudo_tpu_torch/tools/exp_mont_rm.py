@@ -369,13 +369,18 @@ def size_class(n: int) -> str:
     return f"2^{max(n - 1, 0).bit_length()}"
 
 
-def prove_profile(prove, form: int | None = None) -> dict:
+def prove_profile(prove, form: int | None = None, logdir: str | None = None) -> dict:
     """One call of `prove` under torch.profiler with every row-major launch
     recorded: all CUDA kernels (count, device ms, the six largest by name),
     the row-major kernels' device ms and launches, and both by (field, size
     class, shared b).  With `form` (a FORMS value) every row-major launch
-    runs that form of the --forms build instead of the library's choice."""
+    runs that form of the --forms build instead of the library's choice.
+    With `logdir` the prove runs under `utils.timer.DeviceTrace(logdir)`,
+    whose profile the figures are read from, and `trace` names the Chrome
+    trace file it wrote."""
     from torch.profiler import ProfilerActivity, profile
+
+    from testudo_tpu_torch.utils.timer import DeviceTrace
 
     sizes, orig = [], build.launch
     lib = None if form is None else forms_library()
@@ -394,10 +399,18 @@ def prove_profile(prove, form: int | None = None) -> dict:
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            prove()
-            torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        if logdir is None:
+            trace = None
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                prove()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+        else:
+            with DeviceTrace(logdir) as traced:
+                prove()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3  # the file is written after
+            prof, trace = traced.profile, traced.path
     finally:
         build.launch = orig
     every = _device_events(prof, "")
@@ -414,7 +427,7 @@ def prove_profile(prove, form: int | None = None) -> dict:
         if paired:
             cell[1] += rm[i].time_range.elapsed_us() / 1e3
     return {
-        "wall_ms_profiled": wall_ms, "kernels": len(every),
+        "wall_ms_profiled": wall_ms, "trace": trace, "kernels": len(every),
         "device_ms": sum(e.time_range.elapsed_us() for e in every) / 1e3,
         "mont_mul_rm_ms": sum(e.time_range.elapsed_us() for e in rm) / 1e3,
         "mont_mul_rm_launches": len(rm), "host_launches": len(sizes),
